@@ -1,0 +1,237 @@
+// Contacts of the fused physics substep, per sample (one thread):
+// broadphase gate, narrowphase of the cp, bp, cb and bbc pair blocks, the
+// side-asymmetric penalty law with the static side's soft report, and the
+// hand-off of the swept blocks' point, normal and depth to the impulse pass.
+//
+// Replaces block_gate, block_geometry and contacts_lanes of
+// mppiisaac_tpu/ops/pallas/fused_physics.py (82-118, 442-486, 498-617). The
+// TPU kernel skipped a block when every lane of its tile was separated; here
+// each sample skips its own separated blocks. Either way a gated-off block
+// contributes exact zeros. The gate is written as !(separated), so a sample
+// whose pose went NaN keeps its blocks live, as on the TPU.
+// Plain twin: ops/fused_contacts.py.
+#pragma once
+
+#include "scene_tables.cuh"
+
+__device__ __forceinline__ void geom_pose(const SceneTables& sc, const Kin& k, int g, float* gp,
+                                          float* gq) {
+  const int b = sc.geom_body[g];
+  qrot(k.quat[b], &sc.geom_pos[3 * g], gp);
+  for (int i = 0; i < 3; ++i) gp[i] += k.pos[b][i];
+  qmul(k.quat[b], &sc.geom_quat[4 * g], gq);
+}
+
+// capsule (or sphere) axis end points; returns the radius
+__device__ __forceinline__ float geom_segment(const SceneTables& sc, const Kin& k, int g, float* p0,
+                                              float* p1) {
+  float gp[3], gq[4], axis[3];
+  const float ez[3] = {0.f, 0.f, 1.f};
+  geom_pose(sc, k, g, gp, gq);
+  qrot(gq, ez, axis);
+  const float hl = sc.geom_type[g] == GEOM_CAPSULE ? sc.geom_size[3 * g + 1] : 0.f;
+  for (int i = 0; i < 3; ++i) {
+    p0[i] = gp[i] + axis[i] * (-hl);
+    p1[i] = gp[i] + axis[i] * hl;
+  }
+  return sc.geom_size[3 * g];
+}
+
+// closest feature of a point against a box (lanes _point_to_box_lanes):
+// world normal, depth (> 0 inside), world surface point
+__device__ void point_to_box(const float* point, const float* bp, const float* bq,
+                             const float* half, float* n_w, float* depth, float* surf) {
+  float d[3], lp[3], cl[3], ov[3], fd[3], n_in[3], n_loc[3], s_loc[3], r[3];
+  for (int i = 0; i < 3; ++i) d[i] = point[i] - bp[i];
+  qrot_inv(bq, d, lp);
+  for (int i = 0; i < 3; ++i) {
+    cl[i] = fmaxf(fminf(lp[i], half[i]), -half[i]);
+    ov[i] = lp[i] - cl[i];
+    fd[i] = half[i] - fabsf(lp[i]);
+  }
+  const float od = sqrtf(dot3(ov, ov));
+  const bool is_out = od > 1e-9f;
+  const float dmin = fminf(fminf(fd[0], fd[1]), fd[2]);
+  const bool sel0 = fd[0] <= fminf(fd[1], fd[2]);
+  const bool sel1 = !sel0 && (fd[1] <= fd[2]);
+  const bool sel2 = !(sel0 || sel1);
+  const bool sel[3] = {sel0, sel1, sel2};
+  const float inv_od = 1.f / fmaxf(od, 1e-9f);
+  for (int i = 0; i < 3; ++i) {
+    const float sg = lp[i] > 0.f ? 1.f : (lp[i] < 0.f ? -1.f : 0.f);
+    n_in[i] = sel[i] ? sg : 0.f;
+    n_loc[i] = is_out ? ov[i] * inv_od : n_in[i];
+    s_loc[i] = is_out ? cl[i] : lp[i] + n_in[i] * dmin;
+  }
+  *depth = is_out ? -od : dmin;
+  qrot(bq, n_loc, n_w);
+  qrot(bq, s_loc, r);
+  for (int i = 0; i < 3; ++i) surf[i] = bp[i] + r[i];
+}
+
+// closest point on segment p0p1 to a point (lanes _segment_closest_lanes
+// with a degenerate second segment)
+__device__ void segment_closest_point(const float* p0, const float* p1, const float* q0,
+                                      float* out) {
+  const float eps = 1e-9f;
+  float d1[3], r[3];
+  for (int i = 0; i < 3; ++i) { d1[i] = p1[i] - p0[i]; r[i] = p0[i] - q0[i]; }
+  const float d2[3] = {0.f, 0.f, 0.f};
+  const float a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, r);
+  const float c = dot3(d1, r), b = dot3(d1, d2);
+  const float denom = a * e - b * b;
+  float s = denom > eps ? fminf(fmaxf((b * f - c * e) / fmaxf(denom, eps), 0.f), 1.f) : 0.f;
+  const float t = e > eps ? fminf(fmaxf((b * s + f) / fmaxf(e, eps), 0.f), 1.f) : 0.f;
+  s = a > eps ? fminf(fmaxf((b * t - c) / fmaxf(a, eps), 0.f), 1.f) : 0.f;
+  for (int i = 0; i < 3; ++i) out[i] = p0[i] + d1[i] * s;
+}
+
+// "possibly in contact" (block_gate)
+__device__ bool block_gate(const SceneTables& sc, const Kin& k, int bi) {
+  const int fl = sc.blk_flags[bi];
+  const float* ca = k.pos[sc.blk_ba[bi]];
+  const float thr = sc.blk_thr[bi];
+  if (!(fl & F_HAS_B)) return !(ca[2] > thr);
+  const int bb = sc.blk_bb[bi];
+  float d[3];
+  for (int i = 0; i < 3; ++i) d[i] = ca[i] - k.pos[bb][i];
+  if (fl & F_SLAB) {
+    const int gb = sc.blk_gb[bi];
+    float db[3], e[3];
+    qrot_inv(k.quat[bb], d, db);
+    for (int i = 0; i < 3; ++i)
+      e[i] = fmaxf(fabsf(db[i] - sc.geom_pos[3 * gb + i]) - sc.geom_size[3 * gb + i], 0.f);
+    return !(e[0] * e[0] + e[1] * e[1] + e[2] * e[2] > thr);
+  }
+  return !(dot3(d, d) > thr);
+}
+
+// point, normal, depth of manifold sample s of block bi (block_geometry)
+__device__ void block_sample(const SceneTables& sc, const Kin& k, int bi, int s, float* point,
+                             float* normal, float* depth) {
+  const int kind = sc.blk_kind[bi];
+  const int ga = sc.blk_ga[bi], gb = sc.blk_gb[bi];
+  if (kind == KIND_CP) {
+    float p0[3], p1[3];
+    const float r = geom_segment(sc, k, ga, p0, p1);
+    const float* pe = s == 0 ? p0 : p1;
+    point[0] = pe[0]; point[1] = pe[1]; point[2] = pe[2] - r;
+    normal[0] = 0.f; normal[1] = 0.f; normal[2] = 1.f;
+    *depth = r - pe[2];
+    return;
+  }
+  if (kind == KIND_CB) {
+    float p0[3], p1[3], sp[3], gp[4], gq[4];
+    const float r = geom_segment(sc, k, ga, p0, p1);
+    geom_pose(sc, k, gb, gp, gq);
+    if (s == 0) {
+      for (int i = 0; i < 3; ++i) sp[i] = p0[i];
+    } else if (s == 1) {
+      for (int i = 0; i < 3; ++i) sp[i] = p1[i];
+    } else {
+      segment_closest_point(p0, p1, gp, sp);
+    }
+    float dc;
+    point_to_box(sp, gp, gq, &sc.geom_size[3 * gb], normal, &dc, point);
+    *depth = dc + r;
+    return;
+  }
+  // bp / bbc: a box sample of ga
+  float gp[3], gq[4], off[3], w[3], pt[3];
+  geom_pose(sc, k, ga, gp, gq);
+  const int o = sc.blk_sc[bi], S = sc.blk_S[bi];
+  for (int i = 0; i < 3; ++i) off[i] = sc.sconst[o + i * S + s];
+  qrot(gq, off, w);
+  for (int i = 0; i < 3; ++i) pt[i] = gp[i] + w[i];
+  if (kind == KIND_BP) {
+    for (int i = 0; i < 3; ++i) point[i] = pt[i];
+    normal[0] = 0.f; normal[1] = 0.f; normal[2] = 1.f;
+    *depth = -pt[2];
+    return;
+  }
+  float gpb[3], gqb[4];
+  geom_pose(sc, k, gb, gpb, gqb);
+  point_to_box(pt, gpb, gqb, &sc.geom_size[3 * gb], normal, depth, point);
+}
+
+__device__ __forceinline__ void point_vel(const Kin& k, int b, const float* p, float* v) {
+  float d[3], c[3];
+  for (int i = 0; i < 3; ++i) d[i] = p[i] - k.pos[b][i];
+  cross3(k.angv[b], d, c);
+  for (int i = 0; i < 3; ++i) v[i] = k.linv[b][i] + c[i];
+}
+
+// fn, ft_s of the penalty law at one sample (contacts_lanes force_with)
+__device__ __forceinline__ void penalty(float kn_base, float tau_c, float mu, float depth,
+                                        float dcap, float vn, const float* vt, float eps_v,
+                                        const float* normal, float* f) {
+  const float kn = kn_base / (tau_c * tau_c);
+  const float kd = 2.f * kn_base / tau_c;
+  const float fn = depth > 0.f ? fmaxf(kn * fminf(depth, dcap) - kd * vn, 0.f) : 0.f;
+  const float vt_norm = sqrtf(dot3(vt, vt));
+  const float ft = -(mu * fn / fmaxf(vt_norm, eps_v));
+  for (int i = 0; i < 3; ++i) f[i] = normal[i] * fn + vt[i] * ft;
+}
+
+// fric: this sample's geom friction scales, stride K
+__device__ void contacts(const SceneTables& sc, const Kin& k, const float* fric, int K, float dt_sub,
+                         float plk_n[][3], float plk_f[][3], float ncf[][3], Swept& sw) {
+  for (int b = 0; b < sc.nbody; ++b)
+    for (int i = 0; i < 3; ++i) { plk_n[b][i] = 0.f; plk_f[b][i] = 0.f; ncf[b][i] = 0.f; }
+  const float tau_c = fmaxf(2.f * dt_sub, 1e-3f);
+  for (int bi = 0; bi < sc.nblk; ++bi) {
+    const int fl = sc.blk_flags[bi];
+    const bool emit_a = fl & F_EMIT_A, emit_b = fl & F_EMIT_B, swept = fl & F_SWEPT;
+    if (!(emit_a || emit_b || swept)) continue;
+    const int ba = sc.blk_ba[bi], bb = sc.blk_bb[bi], S = sc.blk_S[bi], c0 = sc.blk_c0[bi];
+    const bool live = block_gate(sc, k, bi);
+    if (swept) {
+      sw.live[bi] = live;
+      const bool static_n = sc.blk_kind[bi] == KIND_CP || sc.blk_kind[bi] == KIND_BP;
+      for (int s = 0; s < S; ++s)
+        for (int i = 0; i < 3; ++i) {
+          sw.pt[c0 + s][i] = 0.f;
+          sw.nrm[c0 + s][i] = static_n && i == 2 ? 1.f : 0.f;
+          sw.depth[c0 + s] = 0.f;
+        }
+    }
+    if (!live) continue;
+    const float fa = fric[sc.blk_ga[bi] * K];
+    const float fb = (fl & F_HAS_B) ? fric[sc.blk_gb[bi] * K] : fa;
+    const float mu = sc.blk_mu0[bi] * 0.5f * (fa + fb);
+    const float kn_a = sc.blk_kn_a[bi], kn_b = sc.blk_kn_b[bi];
+    float fA[3] = {0.f, 0.f, 0.f}, nA[3] = {0.f, 0.f, 0.f};
+    float fB[3] = {0.f, 0.f, 0.f}, nB[3] = {0.f, 0.f, 0.f};
+    for (int s = 0; s < S; ++s) {
+      float point[3], normal[3], depth;
+      block_sample(sc, k, bi, s, point, normal, &depth);
+      if (swept) {
+        for (int i = 0; i < 3; ++i) { sw.pt[c0 + s][i] = point[i]; sw.nrm[c0 + s][i] = normal[i]; }
+        sw.depth[c0 + s] = depth;
+      }
+      if (!(emit_a || emit_b)) continue;
+      float v_rel[3], vb[3], vt[3], f[3], tq[3];
+      point_vel(k, ba, point, v_rel);
+      if (fl & F_HAS_B) {
+        point_vel(k, bb, point, vb);
+        for (int i = 0; i < 3; ++i) v_rel[i] -= vb[i];
+      }
+      const float vn = dot3(v_rel, normal);
+      for (int i = 0; i < 3; ++i) vt[i] = v_rel[i] - normal[i] * vn;
+      penalty(kn_a, tau_c, mu, depth, sc.max_depth, vn, vt, sc.eps_v, normal, f);
+      if (emit_a) {
+        cross3(point, f, tq);
+        for (int i = 0; i < 3; ++i) { fA[i] += f[i]; nA[i] += tq[i]; }
+      }
+      if (emit_b) {
+        if (kn_b != kn_a) penalty(kn_b, tau_c, mu, depth, sc.max_depth, vn, vt, sc.eps_v, normal, f);
+        cross3(point, f, tq);
+        for (int i = 0; i < 3; ++i) { fB[i] += f[i]; nB[i] += tq[i]; }
+      }
+    }
+    for (int i = 0; i < 3; ++i) {
+      if (emit_a) { plk_n[ba][i] += nA[i]; plk_f[ba][i] += fA[i]; ncf[ba][i] += fA[i]; }
+      if (emit_b) { plk_n[bb][i] -= nB[i]; plk_f[bb][i] -= fB[i]; ncf[bb][i] -= fB[i]; }
+    }
+  }
+}

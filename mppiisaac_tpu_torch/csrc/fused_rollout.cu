@@ -1,163 +1,45 @@
 // Fused MPPI rollout (K1) and fused world step (K2) for NVIDIA Hopper.
 //
-// Build (ops/native.py does this at first use, keyed by a hash of this file):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+// Build (ops/native.py does this at first use, keyed by a hash of the
+// sources in this directory):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_rollout.so fused_rollout.cu
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and returns cudaGetLastError().
 //
 // Both kernels run the same device code, one physics substep:
-//   fk()        forward kinematics: revolute, prismatic and fixed joints
-//               (replaces fused_physics.fk_lanes)
-//   contacts()  capsule-plane (cp) pair blocks: broadphase gate, narrowphase,
-//               side-asymmetric penalty law, Plücker body wrenches, reported
-//               net contact force (replaces block_gate + block_geometry "cp"
-//               + contacts_lanes)
-//   dynamics()  articulated solve of every fixed-base actor: spatial and
-//               composite inertias, RNEA bias, CRBA mass matrix,
-//               force-limited implicit drives, joint damping, Coulomb
-//               friction, joint-limit penalty, Cholesky, clamped
-//               integration (replaces the articulated part of dynamics_lanes
-//               and the lanes.py Cholesky)
+//   fk()         forward kinematics: revolute, prismatic and fixed joints
+//                (replaces fused_physics.fk_lanes)
+//   contacts()   broadphase gate, narrowphase of the cp, bp, cb and bbc
+//                pair blocks, side-asymmetric penalty law, reported net
+//                contact force, swept geometry (contacts.cuh)
+//   dynamics()   velocity solve of every fixed-base articulation (spatial and
+//                composite inertias, RNEA bias, CRBA, force-limited implicit
+//                drives, joint damping, Coulomb friction, joint-limit
+//                penalty, implicit couple terms, Cholesky) and of every free
+//                single body; the impulse pass (impulse.cuh); clamped,
+//                deferred integration (replaces dynamics_lanes)
 // and the task cost hook task_cost() (replaces the objective kernel_cost
-// functions; panda reach is the only task ported).
+// functions; panda reach and panda pick are ported).
 //
 // The TPU kernels unrolled each scene into straight-line code with the scene
 // constants baked in. These kernels are TABLE-DRIVEN instead: the scene is one
 // SceneTables struct (ops/fused_rollout.py packs it, field for field, from
-// ops/fused_physics.KernelScene), copied into shared memory by every block.
-// One build serves every scene within the MAX_* bounds below; the wrapper
-// checks the bounds before it launches.
+// ops/fused_physics.KernelScene), copied into dynamic shared memory by every
+// block. One build serves every scene within the MAX_* bounds of
+// scene_tables.cuh; the wrapper checks the bounds before it launches.
 //
 // State is structure-of-arrays: row r of sample k is rows[r * K + k], so
 // neighbouring threads read neighbouring addresses. Rows per sample:
-// 13 per actor (pos, quat xyzw, linvel, angvel), q[D], qd[D], net force[3B].
+// 13 per actor (pos, quat xyzw, linvel, angvel), q[D], qd[D], net force[3B],
+// then 4 λ rows [λ_n, λ_t·3] per swept contact candidate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#define MAX_ACTORS 8
-#define MAX_BODIES 32
-#define MAX_DOFS 16
-#define MAX_NU 16
-#define MAX_CP 32
-
-#define JOINT_FIXED 0
-#define JOINT_REVOLUTE 1
-#define JOINT_PRISMATIC 2
-#define DRIVE_NONE 0
-#define DRIVE_VELOCITY 1
-#define DRIVE_POSITION 2
-#define TASK_PANDA_REACH 1
-#define GATE_MARGIN 1e-3f
-
-// Field order and types must match _SceneTablesC in ops/fused_rollout.py;
-// scene_tables_size() lets the wrapper check the size at load.
-struct SceneTables {
-  int nactor, nbody, ndof, ngeom, nu, ncp;
-  int task, ee_body, goal_actor, vis_body;
-  float gravity_z, eps_v, max_depth, w_dist, w_ori;
-  int actor_body0[MAX_ACTORS], actor_nbody[MAX_ACTORS];
-  int actor_dof0[MAX_ACTORS], actor_ndof[MAX_ACTORS];
-  int actor_dynamic[MAX_ACTORS], actor_gravity[MAX_ACTORS];
-  int body_parent[MAX_BODIES], body_actor[MAX_BODIES];
-  int body_jtype[MAX_BODIES], body_dof[MAX_BODIES];
-  float body_jpos[MAX_BODIES * 3], body_jquat[MAX_BODIES * 4];
-  float body_jaxis[MAX_BODIES * 3], body_mass[MAX_BODIES];
-  float body_com[MAX_BODIES * 3], body_inertia[MAX_BODIES * 9];
-  int dof_body[MAX_DOFS], dof_mode[MAX_DOFS];
-  float dof_kp[MAX_DOFS], dof_kd[MAX_DOFS], dof_effort[MAX_DOFS];
-  float dof_maxvel[MAX_DOFS], dof_damping[MAX_DOFS], dof_friction[MAX_DOFS];
-  float dof_armature[MAX_DOFS], dof_lower[MAX_DOFS], dof_upper[MAX_DOFS];
-  int dof_anc[MAX_DOFS * MAX_DOFS];
-  float cmd_W[MAX_DOFS * MAX_NU];
-  int cp_geom[MAX_CP], cp_body[MAX_CP];
-  float cp_pos[MAX_CP * 3], cp_quat[MAX_CP * 4];
-  float cp_radius[MAX_CP], cp_half[MAX_CP], cp_bound[MAX_CP];
-  float cp_kn[MAX_CP], cp_mu[MAX_CP];
-};
-
-static_assert(sizeof(SceneTables) % 4 == 0, "SceneTables is copied as 32-bit words");
-static_assert(sizeof(SceneTables) <= 16 * 1024, "SceneTables must fit the static shared memory");
-
-// Per-sample integrated state (lives in registers / local memory).
-struct Sample {
-  float root[MAX_ACTORS][13];
-  float q[MAX_DOFS], qd[MAX_DOFS];
-  float ncf[MAX_BODIES][3];
-};
-
-// Per-body kinematics of one substep.
-struct Kin {
-  float pos[MAX_BODIES][3], quat[MAX_BODIES][4];
-  float linv[MAX_BODIES][3], angv[MAX_BODIES][3], axw[MAX_BODIES][3];
-};
-
-// ---------------------------------------------------------------------------
-// small vector math (quaternions xyzw)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
-  float x = a[1] * b[2] - a[2] * b[1];
-  float y = a[2] * b[0] - a[0] * b[2];
-  float z = a[0] * b[1] - a[1] * b[0];
-  o[0] = x; o[1] = y; o[2] = z;
-}
-
-__device__ __forceinline__ void qrot(const float* q, const float* v, float* o) {
-  float t[3], c[3];
-  cross3(q, v, t);
-  t[0] *= 2.f; t[1] *= 2.f; t[2] *= 2.f;
-  cross3(q, t, c);
-  o[0] = v[0] + q[3] * t[0] + c[0];
-  o[1] = v[1] + q[3] * t[1] + c[1];
-  o[2] = v[2] + q[3] * t[2] + c[2];
-}
-
-__device__ __forceinline__ void qmul(const float* a, const float* b, float* o) {
-  float x = a[3] * b[0] + a[0] * b[3] + a[1] * b[2] - a[2] * b[1];
-  float y = a[3] * b[1] - a[0] * b[2] + a[1] * b[3] + a[2] * b[0];
-  float z = a[3] * b[2] + a[0] * b[1] - a[1] * b[0] + a[2] * b[3];
-  float w = a[3] * b[3] - a[0] * b[0] - a[1] * b[1] - a[2] * b[2];
-  o[0] = x; o[1] = y; o[2] = z; o[3] = w;
-}
-
-__device__ __forceinline__ void q_to_R(const float* q, float R[3][3]) {
-  float x = q[0], y = q[1], z = q[2], w = q[3];
-  float xx = x * x, yy = y * y, zz = z * z, xy = x * y, xz = x * z, yz = y * z;
-  float wx = w * x, wy = w * y, wz = w * z;
-  R[0][0] = 1.f - 2.f * (yy + zz); R[0][1] = 2.f * (xy - wz); R[0][2] = 2.f * (xz + wy);
-  R[1][0] = 2.f * (xy + wz); R[1][1] = 1.f - 2.f * (xx + zz); R[1][2] = 2.f * (yz - wx);
-  R[2][0] = 2.f * (xz - wy); R[2][1] = 2.f * (yz + wx); R[2][2] = 1.f - 2.f * (xx + yy);
-}
-
-// motion cross product v ×m m, 6-vectors [ω; v_O]
-__device__ __forceinline__ void crm6(const float* v, const float* m, float* o) {
-  float a[3], b[3], c[3];
-  cross3(v, m, a);
-  cross3(v, m + 3, b);
-  cross3(v + 3, m, c);
-  o[0] = a[0]; o[1] = a[1]; o[2] = a[2];
-  o[3] = b[0] + c[0]; o[4] = b[1] + c[1]; o[5] = b[2] + c[2];
-}
-
-// force cross product v ×f f
-__device__ __forceinline__ void crf6(const float* v, const float* f, float* o) {
-  float a[3], b[3], c[3];
-  cross3(v, f, a);
-  cross3(v + 3, f + 3, b);
-  cross3(v, f + 3, c);
-  o[0] = a[0] + b[0]; o[1] = a[1] + b[1]; o[2] = a[2] + b[2];
-  o[3] = c[0]; o[4] = c[1]; o[5] = c[2];
-}
-
-__device__ __forceinline__ void mat6vec(const float* M, const float* v, float* o) {
-  for (int i = 0; i < 6; ++i) {
-    float s = 0.f;
-    for (int j = 0; j < 6; ++j) s += M[i * 6 + j] * v[j];
-    o[i] = s;
-  }
-}
+#include "scene_tables.cuh"
+#include "contacts.cuh"
+#include "impulse.cuh"
 
 // ---------------------------------------------------------------------------
 // forward kinematics (fk_lanes)
@@ -224,61 +106,7 @@ __device__ void fk(const SceneTables& sc, const Sample& s, Kin& k) {
 }
 
 // ---------------------------------------------------------------------------
-// cp contacts (block_gate + block_geometry "cp" + contacts_lanes)
-// fric: this sample's geom friction scales, stride K
-// ---------------------------------------------------------------------------
-
-__device__ void contacts(const SceneTables& sc, const Kin& k, const float* fric, int K,
-                         float dt_sub, float plk_n[][3], float plk_f[][3], float ncf[][3]) {
-  for (int b = 0; b < sc.nbody; ++b)
-    for (int i = 0; i < 3; ++i) { plk_n[b][i] = 0.f; plk_f[b][i] = 0.f; ncf[b][i] = 0.f; }
-  const float tau_c = fmaxf(2.f * dt_sub, 1e-3f);
-  const float ez[3] = {0.f, 0.f, 1.f};
-  for (int c = 0; c < sc.ncp; ++c) {
-    const int b = sc.cp_body[c];
-    // broadphase gate: the whole block is separated when the body origin is
-    // higher than the geom's bounding radius (a NaN height keeps it live)
-    if (k.pos[b][2] > sc.cp_bound[c] + GATE_MARGIN) continue;
-    const float r = sc.cp_radius[c], hl = sc.cp_half[c];
-    const float fa = fric[sc.cp_geom[c] * K];
-    const float mu = sc.cp_mu[c] * 0.5f * (fa + fa);
-    const float kn = sc.cp_kn[c] / (tau_c * tau_c);
-    const float kd = 2.f * sc.cp_kn[c] / tau_c;
-    float gp[3], gq[4], axis[3];
-    qrot(k.quat[b], &sc.cp_pos[3 * c], gp);
-    for (int i = 0; i < 3; ++i) gp[i] += k.pos[b][i];
-    qmul(k.quat[b], &sc.cp_quat[4 * c], gq);
-    qrot(gq, ez, axis);
-    float fs[3] = {0.f, 0.f, 0.f}, ns[3] = {0.f, 0.f, 0.f};
-    for (int e = 0; e < 2; ++e) {
-      const float sgn = e == 0 ? -hl : hl;
-      float point[3] = {gp[0] + axis[0] * sgn, gp[1] + axis[1] * sgn, gp[2] + axis[2] * sgn};
-      const float depth = r - point[2];
-      point[2] -= r;
-      float d[3], w[3], va[3];
-      for (int i = 0; i < 3; ++i) d[i] = point[i] - k.pos[b][i];
-      cross3(k.angv[b], d, w);
-      for (int i = 0; i < 3; ++i) va[i] = k.linv[b][i] + w[i];
-      const float vn = va[2];
-      const float vt[3] = {va[0], va[1], va[2] - vn};
-      const float vt_norm = sqrtf(vt[0] * vt[0] + vt[1] * vt[1] + vt[2] * vt[2]);
-      const float fn = depth > 0.f ? fmaxf(kn * fminf(depth, sc.max_depth) - kd * vn, 0.f) : 0.f;
-      const float ft = -(mu * fn / fmaxf(vt_norm, sc.eps_v));
-      const float f[3] = {vt[0] * ft, vt[1] * ft, fn + vt[2] * ft};
-      float tq[3];
-      cross3(point, f, tq);
-      for (int i = 0; i < 3; ++i) { fs[i] += f[i]; ns[i] += tq[i]; }
-    }
-    for (int i = 0; i < 3; ++i) {
-      plk_n[b][i] += ns[i];
-      plk_f[b][i] += fs[i];
-      ncf[b][i] += fs[i];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// articulated solve + integration (dynamics_lanes, fixed-base actors)
+// velocity solves, impulse pass and integration (dynamics_lanes)
 // mass: this sample's body mass scales, stride K
 // ---------------------------------------------------------------------------
 
@@ -309,37 +137,96 @@ __device__ void spatial_inertia(const SceneTables& sc, int g, const float* pos, 
     }
 }
 
-__device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k,
-                         const float plk_n[][3], const float plk_f[][3], const float* tgt,
-                         const float* mass, int K, float dt) {
+// free single body: the 6-dof velocity solve of dynamics_lanes (base = 6,
+// nv = 6) → c.fv[a] = (clamped root linvel, angvel)
+__device__ void free_velocity(const SceneTables& sc, const Sample& s, const Kin& k, int a,
+                              const float plk_n[][3], const float plk_f[][3], const float* mass,
+                              int K, float dt, Ctx& c) {
+  const int g = sc.actor_body0[a];
+  float I6[36], vb[6], Ia[6], Iv[6], cf[6], f[6], Mm[36], Lm[36], rhs[6], u[6], cr[3];
+  spatial_inertia(sc, g, k.pos[g], k.quat[g], mass[g * K], I6);
+  cross3(k.angv[g], k.pos[g], cr);
+  for (int r = 0; r < 3; ++r) { vb[r] = k.angv[g][r]; vb[3 + r] = k.linv[g][r] - cr[r]; }
+  const float a0[6] = {0.f, 0.f, 0.f, 0.f, 0.f, sc.actor_gravity[a] ? sc.gravity_z : 0.f};
+  mat6vec(I6, a0, Ia);
+  mat6vec(I6, vb, Iv);
+  crf6(vb, Iv, cf);
+  for (int r = 0; r < 3; ++r) {
+    f[r] = Ia[r] + cf[r] - plk_n[g][r];
+    f[3 + r] = Ia[3 + r] + cf[3 + r] - plk_f[g][r];
+  }
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 6; ++j) Mm[i * 6 + j] = i <= j ? I6[i * 6 + j] : I6[j * 6 + i];
+  for (int i = 0; i < 6; ++i) {
+    float acc = 0.f;
+    for (int j = 0; j < 6; ++j) acc += Mm[i * 6 + j] * vb[j];
+    rhs[i] = acc + dt * (0.f - f[i]);
+  }
+  for (int i = 0; i < 6; ++i) Mm[i * 6 + i] += 1e-8f;
+  chol_factor(Mm, Lm, 0, 6, 6);
+  chol_solve(Lm, 0, 6, 6, rhs, u);
+  const float* pr = s.root[a];
+  cross3(u, pr, cr);
+  const float wcap = sc.max_root_angvel, vcap = sc.max_root_linvel;
+  for (int i = 0; i < 3; ++i) {
+    c.fv[a][i] = fminf(fmaxf(u[3 + i] + cr[i], -vcap), vcap);
+    c.fv[a][3 + i] = fminf(fmaxf(u[i], -wcap), wcap);
+  }
+}
+
+__device__ void integrate_dofs(const SceneTables& sc, const Sample& s, int a, const float* u,
+                               float dt, float* new_q, float* new_qd) {
+  const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
+  for (int i = 0; i < nd; ++i) {
+    const int dg = dof0 + i;
+    const float mv = sc.dof_maxvel[dg];
+    const float qd_k = fminf(fmaxf(u[i], -mv), mv);
+    float qk = s.q[dg] + dt * qd_k;
+    qk = fminf(fmaxf(qk, sc.dof_lower[dg] - 1e-3f), sc.dof_upper[dg] + 1e-3f);
+    new_q[dg] = qk;
+    new_qd[dg] = qd_k;
+  }
+}
+
+// Velocity solves of every dynamic actor, the impulse pass, and the
+// integration (dynamics_lanes at world fidelity).
+__device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const float plk_n[][3],
+                         const float plk_f[][3], const float* tgt, const float* mass,
+                         const float* fric, int K, float dt, const Swept& sw, int sweeps, Ctx& c) {
   float Ic[MAX_BODIES][36];
   float vb[MAX_BODIES][6], asp[MAX_BODIES][6], fsub[MAX_BODIES][6];
-  float S[MAX_DOFS][6];
-  float M[MAX_DOFS][MAX_DOFS], Lc[MAX_DOFS][MAX_DOFS];
-  float rhs[MAX_DOFS], y[MAX_DOFS], x[MAX_DOFS];
+  float rhs[MAX_DOFS], x[MAX_DOFS];
   float new_q[MAX_DOFS], new_qd[MAX_DOFS];
   for (int d = 0; d < sc.ndof; ++d) { new_q[d] = s.q[d]; new_qd[d] = s.qd[d]; }
+  bool any_free = false, any_deferred = false;
 
   for (int a = 0; a < sc.nactor; ++a) {
-    if (!sc.actor_dynamic[a]) continue;
+    c.deferred[a] = false;
+    if (sc.actor_dynamic[a] == ACTOR_FREE) {
+      free_velocity(sc, s, k, a, plk_n, plk_f, mass, K, dt, c);
+      any_free = true;
+      continue;
+    }
+    if (sc.actor_dynamic[a] != ACTOR_ARTICULATED) continue;
     const int bo = sc.actor_body0[a], nb = sc.actor_nbody[a];
     const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
     for (int i = 0; i < nb; ++i) {
       const int g = bo + i;
       spatial_inertia(sc, g, k.pos[g], k.quat[g], mass[g * K], Ic[i]);
-      float c[3];
-      cross3(k.angv[g], k.pos[g], c);
-      for (int r = 0; r < 3; ++r) { vb[i][r] = k.angv[g][r]; vb[i][3 + r] = k.linv[g][r] - c[r]; }
+      float cr[3];
+      cross3(k.angv[g], k.pos[g], cr);
+      for (int r = 0; r < 3; ++r) { vb[i][r] = k.angv[g][r]; vb[i][3 + r] = k.linv[g][r] - cr[r]; }
     }
     for (int j = 0; j < nd; ++j) {
       const int g = sc.dof_body[dof0 + j];
       const float* aw = k.axw[g];
+      float* Sj = c.S[dof0 + j];
       if (sc.body_jtype[g] == JOINT_REVOLUTE) {
-        float c[3];
-        cross3(k.pos[g], aw, c);
-        for (int r = 0; r < 3; ++r) { S[j][r] = aw[r]; S[j][3 + r] = c[r]; }
+        float cr[3];
+        cross3(k.pos[g], aw, cr);
+        for (int r = 0; r < 3; ++r) { Sj[r] = aw[r]; Sj[3 + r] = cr[r]; }
       } else {
-        for (int r = 0; r < 3; ++r) { S[j][r] = 0.f; S[j][3 + r] = aw[r]; }
+        for (int r = 0; r < 3; ++r) { Sj[r] = 0.f; Sj[3 + r] = aw[r]; }
       }
     }
     // bias forces: RNEA with qdd = 0, gravity as a base acceleration
@@ -352,7 +239,7 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k,
       const int dg = sc.body_dof[bo + i];
       if (dg >= 0) {
         float sq[6], c6[6];
-        for (int r = 0; r < 6; ++r) sq[r] = S[dg - dof0][r] * s.qd[dg];
+        for (int r = 0; r < 6; ++r) sq[r] = c.S[dg][r] * s.qd[dg];
         crm6(vb[i], sq, c6);
         for (int r = 0; r < 6; ++r) asp[i][r] += c6[r];
       }
@@ -377,26 +264,28 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k,
     float C[MAX_DOFS];
     for (int j = 0; j < nd; ++j) {
       const int bj = sc.dof_body[dof0 + j] - bo;
-      float c = 0.f;
-      for (int r = 0; r < 6; ++r) c += S[j][r] * fsub[bj][r];
-      C[j] = c;
+      float v = 0.f;
+      for (int r = 0; r < 6; ++r) v += c.S[dof0 + j][r] * fsub[bj][r];
+      C[j] = v;
     }
-    // CRBA on ancestor pairs
+    // CRBA on ancestor pairs, into the actor's block of c.M
+    float* M = c.M;
     for (int i = 0; i < nd; ++i)
-      for (int j = 0; j < nd; ++j) M[i][j] = 0.f;
+      for (int j = 0; j < nd; ++j) M[(dof0 + i) * MAX_DOFS + dof0 + j] = 0.f;
     for (int j = 0; j < nd; ++j) {
       const int bj = sc.dof_body[dof0 + j] - bo;
       float F[6];
-      mat6vec(Ic[bj], S[j], F);
+      mat6vec(Ic[bj], c.S[dof0 + j], F);
       for (int i = 0; i < nd; ++i) {
         if (!sc.dof_anc[(dof0 + i) * MAX_DOFS + dof0 + j]) continue;
         float v = 0.f;
-        for (int r = 0; r < 6; ++r) v += S[i][r] * F[r];
-        M[i][j] = v;
-        M[j][i] = v;
+        for (int r = 0; r < 6; ++r) v += c.S[dof0 + i][r] * F[r];
+        M[(dof0 + i) * MAX_DOFS + dof0 + j] = v;
+        M[(dof0 + j) * MAX_DOFS + dof0 + i] = v;
       }
     }
     // drives: rhs = M u + dt (tau − C), M_solve = M + diag(dt d_imp + 1e-8)
+    float dimp[MAX_DOFS];
     for (int i = 0; i < nd; ++i) {
       const int dg = dof0 + i;
       const float qk = s.q[dg], qdk = s.qd[dg], tg = tgt[dg];
@@ -418,53 +307,64 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k,
       const bool viol = (below > 0.f) || (above > 0.f);
       tk = tk + 1.0e3f * (below - above) - (viol ? 1.0e2f * qdk : 0.f);
       float acc = 0.f;
-      for (int j = 0; j < nd; ++j) acc += M[i][j] * s.qd[dof0 + j];
+      for (int j = 0; j < nd; ++j) acc += M[(dof0 + i) * MAX_DOFS + dof0 + j] * s.qd[dof0 + j];
       rhs[i] = acc + dt * (tk - C[i]);
-      M[i][i] += dt * (dk + sc.dof_armature[dg]) + 1e-8f;
+      dimp[i] = dk + sc.dof_armature[dg];
     }
-    // Cholesky factor and solve (lanes.cholesky_factor, pivot clamp 1e-9)
-    for (int j = 0; j < nd; ++j) {
-      float d = M[j][j];
-      for (int q = 0; q < j; ++q) d -= Lc[j][q] * Lc[j][q];
-      const float ljj = sqrtf(fmaxf(d, 1e-9f));
-      Lc[j][j] = ljj;
-      const float inv = 1.f / ljj;
-      for (int i = j + 1; i < nd; ++i) {
-        float v = M[i][j];
-        for (int q = 0; q < j; ++q) v -= Lc[i][q] * Lc[j][q];
-        Lc[i][j] = v * inv;
+    for (int i = 0; i < nd; ++i) M[(dof0 + i) * MAX_DOFS + dof0 + i] += dimp[i] * dt + 1e-8f;
+    bool couple = false;
+    for (int bi = 0; bi < sc.nblk; ++bi)
+      couple |= is_couple(sc, bi) && sc.body_actor[art_body_of(sc, bi)] == a;
+    if (couple) couple_terms(sc, k, sw, a, mass, K, dt, c, rhs);
+    chol_factor(c.M, c.L, dof0, nd, MAX_DOFS);
+    chol_solve(c.L, dof0, nd, MAX_DOFS, rhs, x);
+    if (couple) {
+      // the factor, the subspaces and Ψ stay live for the impulse sweeps;
+      // the integration waits until after them
+      for (int i = 0; i < nd; ++i) c.u[dof0 + i] = x[i];
+      psi_blocks(sc, a, c);
+      c.deferred[a] = true;
+      any_deferred = true;
+      continue;
+    }
+    integrate_dofs(sc, s, a, x, dt, new_q, new_qd);
+  }
+
+  bool any_swept = false;
+  for (int bi = 0; bi < sc.nblk; ++bi) any_swept |= (sc.blk_flags[bi] & F_SWEPT) != 0;
+  if (any_swept && sweeps > 0 && (any_free || any_deferred))
+    impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, c);
+  for (int a = 0; a < sc.nactor; ++a) {
+    if (c.deferred[a]) integrate_dofs(sc, s, a, &c.u[sc.actor_dof0[a]], dt, new_q, new_qd);
+    if (sc.actor_dynamic[a] == ACTOR_FREE) {
+      float* r = s.root[a];
+      float nq[4];
+      qintegrate(&r[3], &c.fv[a][3], dt, nq);
+      for (int i = 0; i < 3; ++i) {
+        r[i] = r[i] + c.fv[a][i] * dt;
+        r[7 + i] = c.fv[a][i];
+        r[10 + i] = c.fv[a][3 + i];
       }
-    }
-    for (int i = 0; i < nd; ++i) {
-      float v = rhs[i];
-      for (int q = 0; q < i; ++q) v -= Lc[i][q] * y[q];
-      y[i] = v / Lc[i][i];
-    }
-    for (int i = nd - 1; i >= 0; --i) {
-      float v = y[i];
-      for (int q = i + 1; q < nd; ++q) v -= Lc[q][i] * x[q];
-      x[i] = v / Lc[i][i];
-    }
-    // clamped semi-implicit integration
-    for (int i = 0; i < nd; ++i) {
-      const int dg = dof0 + i;
-      const float mv = sc.dof_maxvel[dg];
-      const float qd_k = fminf(fmaxf(x[i], -mv), mv);
-      float qk = s.q[dg] + dt * qd_k;
-      qk = fminf(fmaxf(qk, sc.dof_lower[dg] - 1e-3f), sc.dof_upper[dg] + 1e-3f);
-      new_q[dg] = qk;
-      new_qd[dg] = qd_k;
+      for (int i = 0; i < 4; ++i) r[3 + i] = nq[i];
     }
   }
   for (int d = 0; d < sc.ndof; ++d) { s.q[d] = new_q[d]; s.qd[d] = new_qd[d]; }
 }
 
-__device__ void substep(const SceneTables& sc, Sample& s, Kin& k, const float* tgt,
-                        const float* mass, const float* fric, int K, float dt) {
+// One substep at world fidelity: FK → contacts → velocity solves → impulse
+// pass → integration. The per-substep temporaries live in `w`.
+struct Work {
+  Kin kin;
+  Swept sw;
+  Ctx ctx;
   float plk_n[MAX_BODIES][3], plk_f[MAX_BODIES][3];
-  fk(sc, s, k);
-  contacts(sc, k, fric, K, dt, plk_n, plk_f, s.ncf);
-  dynamics(sc, s, k, plk_n, plk_f, tgt, mass, K, dt);
+};
+
+__device__ void substep(const SceneTables& sc, Sample& s, Work& w, const float* tgt,
+                        const float* mass, const float* fric, int K, float dt, int sweeps) {
+  fk(sc, s, w.kin);
+  contacts(sc, w.kin, fric, K, dt, w.plk_n, w.plk_f, s.ncf, w.sw);
+  dynamics(sc, s, w.kin, w.plk_n, w.plk_f, tgt, mass, fric, K, dt, w.sw, sweeps, w.ctx);
 }
 
 // ---------------------------------------------------------------------------
@@ -472,23 +372,36 @@ __device__ void substep(const SceneTables& sc, Sample& s, Kin& k, const float* t
 // ---------------------------------------------------------------------------
 
 __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k) {
-  // TASK_PANDA_REACH (the wrapper admits no other id):
-  // w_dist·‖ee − goal‖ + w_ori·‖(pitch, yaw)‖ of the EE orientation
-  const float* r = k.pos[sc.ee_body];
-  const float* goal = s.root[sc.goal_actor];
-  const float dx = r[0] - goal[0], dy = r[1] - goal[1], dz = r[2] - goal[2];
-  const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
+  // TASK_PANDA_REACH: w_dist·‖ee − goal‖ + w_ori·‖(pitch, yaw)‖;
+  // TASK_PANDA_PICK: w_dist·‖ee − block‖ + w_block·‖block − goal‖
+  //   + w_force·|F_table|₁ + w_ori·‖(pitch, yaw)‖ (the wrapper admits no
+  //   other id)
   const float* q = k.quat[sc.ee_body];
   const float x = q[0], y = q[1], z = q[2], w = q[3];
   const float sp = fminf(fmaxf(2.f * (w * y - z * x), -1.f), 1.f);
   const float pitch = atan2f(sp, sqrtf(fmaxf(1.f - sp * sp, 1e-12f)));
   const float yaw = atan2f(2.f * (w * z + x * y), 1.f - 2.f * (y * y + z * z));
   const float ori = sqrtf(yaw * yaw + pitch * pitch + 1e-12f);
-  return sc.w_dist * dist + sc.w_ori * ori;
+  const float* r = k.pos[sc.ee_body];
+  const float* goal = s.root[sc.goal_actor];
+  if (sc.task == TASK_PANDA_REACH) {
+    const float dx = r[0] - goal[0], dy = r[1] - goal[1], dz = r[2] - goal[2];
+    const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
+    return sc.w_dist * dist + sc.w_ori * ori;
+  }
+  const float* block = s.root[sc.block_actor];
+  float d1[3], d2[3], tf[3] = {0.f, 0.f, 0.f};
+  for (int i = 0; i < 3; ++i) { d1[i] = r[i] - block[i]; d2[i] = block[i] - goal[i]; }
+  for (int b = sc.force_body0; b < sc.force_body0 + sc.force_nbody; ++b)
+    for (int i = 0; i < 3; ++i) tf[i] += s.ncf[b][i];
+  const float d_rb = sqrtf(dot3(d1, d1) + 1e-12f);
+  const float d_bg = sqrtf(dot3(d2, d2) + 1e-12f);
+  const float forces = fabsf(tf[0]) + fabsf(tf[1]) + fabsf(tf[2]);
+  return sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_force * forces + sc.w_ori * ori;
 }
 
 // ---------------------------------------------------------------------------
-// state rows <-> per-sample state
+// state rows <-> per-sample state (state rows, then 4 λ rows per candidate)
 // ---------------------------------------------------------------------------
 
 __device__ void load_sample(const SceneTables& sc, const float* rows, int K, int k, Sample& s) {
@@ -499,6 +412,8 @@ __device__ void load_sample(const SceneTables& sc, const float* rows, int K, int
   for (int d = 0; d < sc.ndof; ++d) s.qd[d] = rows[(r++) * K + k];
   for (int b = 0; b < sc.nbody; ++b)
     for (int i = 0; i < 3; ++i) s.ncf[b][i] = rows[(r++) * K + k];
+  for (int c = 0; c < sc.n_fc; ++c)
+    for (int i = 0; i < 4; ++i) s.lam[c][i] = rows[(r++) * K + k];
 }
 
 __device__ void store_sample(const SceneTables& sc, const Sample& s, float* rows, int K, int k) {
@@ -509,6 +424,8 @@ __device__ void store_sample(const SceneTables& sc, const Sample& s, float* rows
   for (int d = 0; d < sc.ndof; ++d) rows[(r++) * K + k] = s.qd[d];
   for (int b = 0; b < sc.nbody; ++b)
     for (int i = 0; i < 3; ++i) rows[(r++) * K + k] = s.ncf[b][i];
+  for (int c = 0; c < sc.n_fc; ++c)
+    for (int i = 0; i < 4; ++i) rows[(r++) * K + k] = s.lam[c][i];
 }
 
 __device__ void load_tables(const SceneTables* src, SceneTables* dst) {
@@ -524,16 +441,19 @@ __device__ void load_tables(const SceneTables* src, SceneTables* dst) {
 //
 // Replaces FusedRollout._kernel (ops/pallas/fused_rollout.py:250-342,
 // launched by pallas_call at :367). One thread per sample walks the H steps
-// and the substeps; state and per-substep temporaries live in registers and
-// local memory (a few KB per thread, cached in L1).
+// and the substeps, with the λ rows carried across the whole trajectory;
+// state and per-substep temporaries live in registers and local memory
+// (tens of KB per thread, cached in L1/L2).
 //
 // What bounds it on the H100: latency of one thread's long serial chain of
-// dependent FLOPs (~10^5 per step), not bytes — a command reads ~NS·K·4 bytes
-// of state and writes K·H costs. At the panda config (K=500) the mapping
-// fills only 4 blocks of 128 threads on 132 SMs, so most of the card idles;
-// spreading one sample over a warp (bodies and dofs across lanes) is the
-// later fix. The design keeps the scene in shared memory (all threads read
-// the same table entries: broadcasts) and every global access coalesced.
+// dependent FLOPs and local-memory accesses (contacts, articulated solve,
+// couple terms, impulse sweeps per substep), not bytes — a command reads
+// ~(NS + 4·n_fc)·K·4 bytes of state and writes K·H costs. At the pick config
+// (K=1000) the mapping fills 8 blocks of 128 threads on 132 SMs, so most of
+// the card idles; spreading one sample over a warp (blocks and candidates
+// across lanes) is the later fix. The scene tables sit in shared memory (all
+// threads read the same entries: broadcasts), and every global access is
+// coalesced.
 // ---------------------------------------------------------------------------
 
 __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
@@ -542,13 +462,14 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
                                      const float* __restrict__ mass,
                                      const float* __restrict__ fric,
                                      float* __restrict__ costs, float* __restrict__ vis,
-                                     int K, int H, int substeps, float dt_sub) {
-  __shared__ SceneTables sc;
+                                     int K, int H, int substeps, float dt_sub, int sweeps) {
+  extern __shared__ int smem[];
+  SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
   Sample s;
-  Kin kin;
+  Work w;
   float u[MAX_NU], tgt[MAX_DOFS];
   load_sample(sc, rows, K, k, s);
   for (int t = 0; t < H; ++t) {
@@ -556,16 +477,28 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
     for (int d = 0; d < sc.ndof; ++d) {
       float acc = 0.f;
       for (int j = 0; j < sc.nu; ++j) {
-        const float w = sc.cmd_W[d * MAX_NU + j];
-        if (w != 0.f) acc += u[j] * w;
+        const float wj = sc.cmd_W[d * MAX_NU + j];
+        if (wj != 0.f) acc += u[j] * wj;
       }
       tgt[d] = acc;
     }
-    for (int it = 0; it < substeps; ++it) substep(sc, s, kin, tgt, mass + k, fric + k, K, dt_sub);
-    fk(sc, s, kin);
-    costs[k * H + t] = task_cost(sc, s, kin);
+    // gripper binarize, latching from the current finger q (CommandMap.apply)
+    for (int i = 0; i < sc.nbin; ++i) {
+      const int dof = sc.bin_dof[i];
+      const float uc = u[sc.bin_src[i]], lo = sc.bin_lo[i], hi = sc.bin_hi[i];
+      if (sc.bin_band[i] > 0.f) {
+        const bool cur_open = s.q[dof] > sc.bin_qopen[i];
+        tgt[dof] = uc > sc.bin_uhi[i] ? hi : (uc < sc.bin_ulo[i] ? lo : (cur_open ? hi : lo));
+      } else {
+        tgt[dof] = uc > sc.bin_th[i] ? hi : lo;
+      }
+    }
+    for (int it = 0; it < substeps; ++it)
+      substep(sc, s, w, tgt, mass + k, fric + k, K, dt_sub, sweeps);
+    fk(sc, s, w.kin);
+    costs[k * H + t] = task_cost(sc, s, w.kin);
     for (int i = 0; i < 3; ++i) {
-      const float v = sc.vis_body >= 0 ? kin.pos[sc.vis_body][i] : 0.f;
+      const float v = sc.vis_body >= 0 ? w.kin.pos[sc.vis_body][i] : 0.f;
       vis[(t * K + k) * 3 + i] = __bfloat162float(__float2bfloat16(v));
     }
   }
@@ -577,8 +510,8 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
 // Replaces FusedWorldStep._kernel (ops/pallas/fused_rollout.py:483-516,
 // launched by pallas_call at :533). The same device code on one sample, run by
 // thread 0 of a single block (the block's other threads only help load the
-// tables). Bound by launch and serial latency: one dt is a few substeps of
-// one thread; its cost is the launch plus ~10 µs of dependent arithmetic.
+// tables), with `sweeps` (16) impulse sweeps per substep and the λ rows in
+// and out. Bound by launch and serial latency of one thread.
 // ---------------------------------------------------------------------------
 
 __global__ void fused_world_step_kernel(const SceneTables* __restrict__ tables,
@@ -586,16 +519,18 @@ __global__ void fused_world_step_kernel(const SceneTables* __restrict__ tables,
                                         const float* __restrict__ tgt_in,
                                         const float* __restrict__ mass,
                                         const float* __restrict__ fric,
-                                        float* __restrict__ rows_out, int substeps, float dt_sub) {
-  __shared__ SceneTables sc;
+                                        float* __restrict__ rows_out, int substeps, float dt_sub,
+                                        int sweeps) {
+  extern __shared__ int smem[];
+  SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
   if (threadIdx.x != 0) return;
   Sample s;
-  Kin kin;
+  Work w;
   float tgt[MAX_DOFS];
   load_sample(sc, rows_in, 1, 0, s);
   for (int d = 0; d < sc.ndof; ++d) tgt[d] = tgt_in[d];
-  for (int it = 0; it < substeps; ++it) substep(sc, s, kin, tgt, mass, fric, 1, dt_sub);
+  for (int it = 0; it < substeps; ++it) substep(sc, s, w, tgt, mass, fric, 1, dt_sub, sweeps);
   store_sample(sc, s, rows_out, 1, 0);
 }
 
@@ -608,27 +543,42 @@ extern "C" {
 int scene_tables_size() { return (int)sizeof(SceneTables); }
 
 int max_bounds(int* out) {
-  out[0] = MAX_ACTORS; out[1] = MAX_BODIES; out[2] = MAX_DOFS; out[3] = MAX_NU; out[4] = MAX_CP;
+  const int b[11] = {MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK,
+                     MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S};
+  for (int i = 0; i < 11; ++i) out[i] = b[i];
   return 0;
+}
+
+// the tables ride in dynamic shared memory (they outgrew the 16 KB a static
+// array was held to); above 48 KB a kernel has to opt in
+static int set_smem(const void* fn) {
+  const int bytes = (int)sizeof(SceneTables);
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 int fused_rollout_launch(const void* tables, const void* rows, const void* V, const void* mass,
                          const void* fric, void* costs, void* vis, int K, int H, int substeps,
-                         float dt_sub, void* stream) {
+                         float dt_sub, int sweeps, void* stream) {
   const int threads = 128;
   const int blocks = (K + threads - 1) / threads;
-  fused_rollout_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  int rc = set_smem((const void*)fused_rollout_kernel);
+  if (rc != 0) return rc;
+  fused_rollout_kernel<<<blocks, threads, sizeof(SceneTables), (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const __nv_bfloat16*)V,
-      (const float*)mass, (const float*)fric, (float*)costs, (float*)vis, K, H, substeps, dt_sub);
+      (const float*)mass, (const float*)fric, (float*)costs, (float*)vis, K, H, substeps, dt_sub,
+      sweeps);
   return (int)cudaGetLastError();
 }
 
 int fused_world_step_launch(const void* tables, const void* rows, const void* tgt,
                             const void* mass, const void* fric, void* out, int substeps,
-                            float dt_sub, void* stream) {
-  fused_world_step_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+                            float dt_sub, int sweeps, void* stream) {
+  int rc = set_smem((const void*)fused_world_step_kernel);
+  if (rc != 0) return rc;
+  fused_world_step_kernel<<<1, 32, sizeof(SceneTables), (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const float*)tgt, (const float*)mass,
-      (const float*)fric, (float*)out, substeps, dt_sub);
+      (const float*)fric, (float*)out, substeps, dt_sub, sweeps);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as a plain C library.
 
-`nvcc` compiles `csrc/fused_rollout.cu` for `sm_90a` into a shared library
-under `_build/`, named by a hash of the source and the flags, at the first
-call on a machine with the CUDA toolkit. The library is loaded with ctypes;
+`nvcc` compiles `csrc/fused_rollout.cu` (with the headers beside it) for
+`sm_90a` into a shared library under `_build/`, named by a hash of the
+sources and the flags, at the first call on a machine with the CUDA toolkit. The library is loaded with ctypes;
 its functions take raw device pointers and the stream as `c_void_p`.
 """
 from __future__ import annotations
@@ -16,7 +16,8 @@ import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_rollout.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "fused_rollout.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,8 +35,12 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"libfused_rollout_{digest}.so")
 
 
@@ -73,8 +78,8 @@ def load_library() -> ctypes.CDLL:
     lib.scene_tables_size.restype = I
     lib.max_bounds.argtypes = [P]
     lib.max_bounds.restype = I
-    lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, P]
+    lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, P]
     lib.fused_rollout_launch.restype = I
-    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, F, P]
+    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, F, I, P]
     lib.fused_world_step_launch.restype = I
     return lib

@@ -163,6 +163,54 @@ def euler_zyx_atan2(q: torch.Tensor):
     return roll, pitch, yaw
 
 
+def qintegrate(q: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+    """The lanes form of `quat_integrate` (fused kernels): the angle's root
+    carries eps 1e-9 and the normalisation eps 1e-12 inside the root."""
+    angle = torch.sqrt(dot(w, w) + 1e-9)
+    axis = w * (1.0 / torch.clamp(angle, min=1e-9))[..., None]
+    dq = quat_from_axis_angle(axis, angle * dt)
+    p = quat_mul(dq, q)
+    return p * (1.0 / torch.sqrt(dot(p, p) + 1e-12))[..., None]
+
+
+def point_to_box(point: torch.Tensor, box_pos: torch.Tensor, box_quat: torch.Tensor, half):
+    """Closest-feature query of point(s) against a box of half extents
+    `half` (3 floats) → (world normal, depth (>0 inside), world surface
+    point); the lanes `_point_to_box_lanes`."""
+    lp = quat_rotate_inv(box_quat, point - box_pos)
+    hv = torch.as_tensor(half, dtype=lp.dtype, device=lp.device)
+    cl = torch.maximum(torch.minimum(lp, hv), -hv)
+    ov = lp - cl
+    od = torch.sqrt(dot(ov, ov))
+    is_out = od > 1e-9
+    fd = hv - lp.abs()
+    dmin = torch.minimum(torch.minimum(fd[..., 0], fd[..., 1]), fd[..., 2])
+    sel0 = fd[..., 0] <= torch.minimum(fd[..., 1], fd[..., 2])
+    sel1 = (~sel0) & (fd[..., 1] <= fd[..., 2])
+    sel2 = ~(sel0 | sel1)
+    sgn = torch.sign(lp)
+    n_in = torch.stack([torch.where(sel0, sgn[..., 0], 0.0), torch.where(sel1, sgn[..., 1], 0.0),
+                        torch.where(sel2, sgn[..., 2], 0.0)], -1)
+    n_out = ov * (1.0 / torch.clamp(od, min=1e-9))[..., None]
+    n_loc = torch.where(is_out[..., None], n_out, n_in)
+    depth = torch.where(is_out, -od, dmin)
+    surf_loc = torch.where(is_out[..., None], cl, lp + n_in * dmin[..., None])
+    return quat_rotate(box_quat, n_loc), depth, box_pos + quat_rotate(box_quat, surf_loc)
+
+
+def segment_closest(p0, p1, q0, q1, eps: float = 1e-9):
+    """Closest points of segments p0p1 and q0q1 (the lanes
+    `_segment_closest_lanes`)."""
+    d1, d2, r = p1 - p0, q1 - q0, p0 - q0
+    a, e, f = dot(d1, d1), dot(d2, d2), dot(d2, r)
+    c, b = dot(d1, r), dot(d1, d2)
+    denom = a * e - b * b
+    s = torch.where(denom > eps, torch.clamp((b * f - c * e) / torch.clamp(denom, min=eps), 0.0, 1.0), 0.0)
+    t = torch.where(e > eps, torch.clamp((b * s + f) / torch.clamp(e, min=eps), 0.0, 1.0), 0.0)
+    s = torch.where(a > eps, torch.clamp((b * t - c) / torch.clamp(a, min=eps), 0.0, 1.0), 0.0)
+    return p0 + d1 * s[..., None], q0 + d2 * t[..., None]
+
+
 def quat_to_yaw(q: torch.Tensor) -> torch.Tensor:
     x, y, z, w = q.unbind(-1)
     return torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))

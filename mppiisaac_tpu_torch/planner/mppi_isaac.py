@@ -48,6 +48,9 @@ class MPPIisaacPlanner:
             H=cfg.mppi.horizon, K=K,
             vis_body=built.visualize_bodies[0] if built.visualize_bodies else None,
             substeps=cfg.mppi.rollout_substeps,
+            impulse_sweeps=cfg.mppi.rollout_sweeps,
+            world_fidelity=cfg.mppi.rollout_fidelity != "fast",
+            manifold=cfg.mppi.rollout_manifold,
         )
         self.mppi = MPPIPlanner(cfg.mppi, cfg.nx, fused=fused, device=self.device)
         self._last_vis = None

@@ -29,3 +29,17 @@ class SimView:
     def link_state(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
         """(K,13) rigid-body state of a link (pose + velocities)."""
         return self.state.rigid_body_state[..., self.scene.body_index(link, actor), :]
+
+    def link_contact_force(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
+        """(K,3) net contact force on a link."""
+        return self.state.net_contact_force[..., self.scene.body_index(link, actor), :]
+
+    def get_actor_contact_forces_by_name(self, actor_name: str, link_name: Optional[str] = None) -> torch.Tensor:
+        """(K,3) net contact force of an actor's link; the actor's root body
+        when the link is not found (primitives are single-body actors)."""
+        try:
+            if link_name is not None:
+                return self.link_contact_force(link_name, actor_name)
+        except KeyError:
+            pass
+        return self.state.net_contact_force[..., self.scene.body_offset[self._ai(actor_name)], :]

@@ -101,7 +101,9 @@ class Simulation:
                 torch.ones(self.num_envs, s.nbody, dtype=torch.float32, device=self.device),
                 torch.ones(self.num_envs, s.ngeom, dtype=torch.float32, device=self.device),
             )
-        self._world_step = FusedWorldStep(self.built, self.engine) if self.num_envs == 1 else None
+        self._world_step = FusedWorldStep(
+            self.built, self.engine, impulse_sweeps=self.cfg.fused_world_sweeps,
+        ) if self.num_envs == 1 else None
         self.state = broadcast_state(
             self.built.initial_state(self.engine, self.device), self.num_envs
         ).map(torch.Tensor.contiguous)

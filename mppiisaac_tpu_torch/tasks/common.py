@@ -16,3 +16,8 @@ def ee_upright_cost(quat):
     _, p, y = quat_to_euler_zyx(quat)
     return torch.sqrt(y * y + p * p + 1e-12)
 
+
+def contact_force_mag(view, actor: str, dims: int = 3):
+    """|F|₁ of an actor's net contact force (its 'box' link or root body)."""
+    f = view.get_actor_contact_forces_by_name(actor, "box")
+    return torch.sum(torch.abs(f[..., :dims]), dim=-1)

@@ -1,6 +1,6 @@
 """Host-side tables of the PyTorch port equal the JAX package's exactly: the
 conf reader, the scene, the contact tables, the stacked articulation model and
-the pair-block contact plan, for `panda` and `point_robot`."""
+the pair-block contact plan, for `panda`, `point_robot` and `panda_pick`."""
 import dataclasses
 import glob
 import os
@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 CONF_FILES = sorted(
     os.path.relpath(p, CONF_ROOT) for p in glob.glob(os.path.join(CONF_ROOT, "**", "*.yaml"), recursive=True)
 )
-TASKS = ["panda", "point_robot"]
+TASKS = ["panda", "point_robot", "panda_pick"]
 
 
 @pytest.mark.parametrize("rel", CONF_FILES)
@@ -133,16 +133,41 @@ def test_kernel_scene_panda_tables():
     *_, tb, _, te = _build("panda")
     ks = tfp.KernelScene.build(tb, te)
     assert (ks.nactor, ks.nbody, ks.ndof, ks.ngeom, ks.nu, ks.ncp) == (2, 12, 7, 11, 7, 10)
-    assert ks.n_state_rows == 76
+    assert ks.n_state_rows == 76 and ks.n_fc == 0 and ks.n_rows == 76
     assert ks.actor_dynamic.tolist() == [1, 0]
     blocks, _ = tfp.pair_blocks(tb.scene, te.tables)
-    assert ks.cp_body.tolist() == [b["ba"] for b in blocks]
-    assert np.allclose(ks.cp_kn, [b["kn"] for b in blocks])
+    assert ks.blk_ba.tolist() == [b["ba"] for b in blocks]
+    assert np.allclose(ks.blk_kn_a, [b["kn"] for b in blocks])
 
 
-def test_kernel_scene_rejects_unported_features():
-    """point_robot's box–plane block is outside the ported slice: the kernel
-    plan names the feature instead of computing something else."""
-    *_, tb, _, te = _build("point_robot")
-    with pytest.raises(NotImplementedError, match="bp"):
+def test_kernel_scene_pick_tables():
+    """The packed kernel tables of panda_pick: 38 pair blocks, 130 swept
+    candidates (670 rows with λ), the block as a free body, 11 couple links
+    with a Ψ, and the two binarized finger dofs."""
+    *_, tb, _, te = _build("panda_pick")
+    ks = tfp.KernelScene.build(tb, te)
+    blocks, _ = tfp.pair_blocks(tb.scene, te.tables)
+    assert ks.nblk == 38 and ks.n_fc == 130 and ks.n_rows == 670
+    assert [b["kind"] for b in blocks].count("bbc") == 10
+    assert ks.n_fc == len(tfp.free_cand_indices(tb.scene, te.tables))
+    swept = [b for b in blocks if b["swept"]]
+    assert [int(c) for c in ks.blk_c0 if c >= 0] == list(np.cumsum([0] + [b["S"] for b in swept])[:-1])
+    assert ks.actor_dynamic.tolist() == [1, 0, 0, 2, 0, 0]
+    assert int((ks.body_psi >= 0).sum()) == 11
+    assert ks.bin_dof.tolist() == [7, 8] and ks.bin_src.tolist() == [8, 8]
+    assert np.allclose(ks.bin_uhi, 0.15) and np.allclose(ks.bin_qopen, 0.03)
+
+
+@pytest.mark.parametrize("task,feature", [
+    ("boxer_push", "cc"),
+    ("boxer_reach", "floating-base"),
+    ("panda_effort", "effort drives"),
+])
+def test_kernel_scene_rejects_unported_features(task, feature):
+    """Features outside the ported slice (boxer_push's capsule–capsule
+    blocks, boxer_reach's floating base and its stiction contacts,
+    panda_effort's effort drives): the kernel plan names the feature instead
+    of computing something else."""
+    *_, tb, _, te = _build(task)
+    with pytest.raises(NotImplementedError, match=feature):
         tfp.KernelScene.build(tb, te)
