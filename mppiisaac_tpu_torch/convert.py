@@ -33,11 +33,12 @@ def model_params_from_jax(params, device="cpu") -> ModelParams:
 
 
 def carry_from_jax(carry, device="cpu") -> MppiCarry:
-    """JAX `MppiCarry` → port carry: U, λ, Σ and the step clock (the PRNG key
-    has no counterpart: the port draws from a torch.Generator)."""
+    """JAX `MppiCarry` → port carry: U, λ, Σ, the step clock and the PRNG
+    key."""
     return MppiCarry(
         U=_t(carry.U, device),
         lambda_=_t(carry.lambda_, device),
         sigma=_t(carry.sigma, device),
         t0=int(np.asarray(carry.t0)),
+        key=np.array(carry.key, np.uint32),
     )

@@ -1,10 +1,11 @@
 // Contacts of the fused physics substep, per sample (one thread):
-// broadphase gate, narrowphase of the cp, bp, cb and bbc pair blocks, the
+// broadphase gate, narrowphase of the cp, bp, cb, bbc and cc pair blocks, the
 // side-asymmetric penalty law with the static side's soft report, and the
 // hand-off of the swept blocks' point, normal and depth to the impulse pass.
 //
 // Replaces block_gate, block_geometry and contacts_lanes of
-// mppiisaac_tpu/ops/pallas/fused_physics.py (82-118, 442-486, 498-617). The
+// mppiisaac_tpu/ops/pallas/fused_physics.py (82-118, 442-486, 498-617); the
+// bbA/bbB box-box kinds are not ported (KernelScene.build refuses them). The
 // TPU kernel skipped a block when every lane of its tile was separated; here
 // each sample skips its own separated blocks. Either way a gated-off block
 // contributes exact zeros. The gate is written as !(separated), so a sample
@@ -69,21 +70,20 @@ __device__ void point_to_box(const float* point, const float* bp, const float* b
   for (int i = 0; i < 3; ++i) surf[i] = bp[i] + r[i];
 }
 
-// closest point on segment p0p1 to a point (lanes _segment_closest_lanes
-// with a degenerate second segment)
-__device__ void segment_closest_point(const float* p0, const float* p1, const float* q0,
-                                      float* out) {
+// closest points of segments p0p1 and q0q1 (lanes _segment_closest_lanes);
+// either segment may be a point
+__device__ void segment_closest(const float* p0, const float* p1, const float* q0, const float* q1,
+                                float* cp, float* cq) {
   const float eps = 1e-9f;
-  float d1[3], r[3];
-  for (int i = 0; i < 3; ++i) { d1[i] = p1[i] - p0[i]; r[i] = p0[i] - q0[i]; }
-  const float d2[3] = {0.f, 0.f, 0.f};
+  float d1[3], d2[3], r[3];
+  for (int i = 0; i < 3; ++i) { d1[i] = p1[i] - p0[i]; d2[i] = q1[i] - q0[i]; r[i] = p0[i] - q0[i]; }
   const float a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, r);
   const float c = dot3(d1, r), b = dot3(d1, d2);
   const float denom = a * e - b * b;
   float s = denom > eps ? fminf(fmaxf((b * f - c * e) / fmaxf(denom, eps), 0.f), 1.f) : 0.f;
   const float t = e > eps ? fminf(fmaxf((b * s + f) / fmaxf(e, eps), 0.f), 1.f) : 0.f;
   s = a > eps ? fminf(fmaxf((b * t - c) / fmaxf(a, eps), 0.f), 1.f) : 0.f;
-  for (int i = 0; i < 3; ++i) out[i] = p0[i] + d1[i] * s;
+  for (int i = 0; i < 3; ++i) { cp[i] = p0[i] + d1[i] * s; cq[i] = q0[i] + d2[i] * t; }
 }
 
 // "possibly in contact" (block_gate)
@@ -129,11 +129,31 @@ __device__ void block_sample(const SceneTables& sc, const Kin& k, int bi, int s,
     } else if (s == 1) {
       for (int i = 0; i < 3; ++i) sp[i] = p1[i];
     } else {
-      segment_closest_point(p0, p1, gp, sp);
+      float unused[3];
+      segment_closest(p0, p1, gp, gp, sp, unused);
     }
     float dc;
     point_to_box(sp, gp, gq, &sc.geom_size[3 * gb], normal, &dc, point);
     *depth = dc + r;
+    return;
+  }
+  if (kind == KIND_CC) {
+    // one sample: the closest points of the two axes (a sphere's axis is a
+    // point), the normal from b to a, the point midway into the overlap
+    float pa0[3], pa1[3], pb0[3], pb1[3], ca[3], cb[3], delta[3];
+    const float ra = geom_segment(sc, k, ga, pa0, pa1);
+    const float rb = geom_segment(sc, k, gb, pb0, pb1);
+    segment_closest(pa0, pa1, pb0, pb1, ca, cb);
+    for (int i = 0; i < 3; ++i) delta[i] = ca[i] - cb[i];
+    const float dist = sqrtf(dot3(delta, delta));
+    const float inv = 1.f / fmaxf(dist, 1e-9f);
+    const float d = (ra + rb) - dist;
+    const float off = rb - 0.5f * fmaxf(d, 0.f);
+    for (int i = 0; i < 3; ++i) {
+      normal[i] = delta[i] * inv;
+      point[i] = cb[i] + normal[i] * off;
+    }
+    *depth = d;
     return;
   }
   // bp / bbc: a box sample of ga

@@ -8,19 +8,22 @@
 // stream and returns cudaGetLastError().
 //
 // Both kernels run the same device code, one physics substep:
-//   fk()         forward kinematics: revolute, prismatic and fixed joints
-//                (replaces fused_physics.fk_lanes)
-//   contacts()   broadphase gate, narrowphase of the cp, bp, cb and bbc
+//   fk()         forward kinematics from each actor's root rows: revolute,
+//                prismatic and fixed joints (replaces fused_physics.fk_lanes)
+//   contacts()   broadphase gate, narrowphase of the cp, bp, cb, bbc and cc
 //                pair blocks, side-asymmetric penalty law, reported net
 //                contact force, swept geometry (contacts.cuh)
-//   dynamics()   velocity solve of every fixed-base articulation (spatial and
-//                composite inertias, RNEA bias, CRBA, force-limited implicit
-//                drives, joint damping, Coulomb friction, joint-limit
-//                penalty, implicit couple terms, Cholesky) and of every free
-//                single body; the impulse pass (impulse.cuh); clamped,
-//                deferred integration (replaces dynamics_lanes)
+//   dynamics()   velocity solve of every articulation, fixed or floating
+//                base, over its velocity coordinates (spatial and composite
+//                inertias, RNEA bias, CRBA, force-limited implicit drives,
+//                joint damping, Coulomb friction, joint-limit penalty,
+//                implicit couple terms, Cholesky) and of every free single
+//                body; the impulse pass with the couple and stiction blocks
+//                (impulse.cuh); clamped, deferred integration of dofs and
+//                roots (replaces dynamics_lanes)
 // and the task cost hook task_cost() (replaces the objective kernel_cost
-// functions; panda reach and panda pick are ported).
+// functions; panda reach, panda pick, mobile reach and mobile push are
+// ported).
 //
 // The TPU kernels unrolled each scene into straight-line code with the scene
 // constants baked in. These kernels are TABLE-DRIVEN instead: the scene is one
@@ -188,14 +191,35 @@ __device__ void integrate_dofs(const SceneTables& sc, const Sample& s, int a, co
   }
 }
 
+// root of a floating base from its Plücker velocity u = (ω, v_O):
+// v_r = v_O + ω×p_root, both clamped, then position and orientation
+__device__ void integrate_base(const SceneTables& sc, float* r, const float* u, float dt) {
+  float cr[3], v[3], w[3], nq[4];
+  cross3(u, r, cr);
+  const float wcap = sc.max_root_angvel, vcap = sc.max_root_linvel;
+  for (int i = 0; i < 3; ++i) {
+    v[i] = fminf(fmaxf(u[3 + i] + cr[i], -vcap), vcap);
+    w[i] = fminf(fmaxf(u[i], -wcap), wcap);
+  }
+  qintegrate(&r[3], w, dt, nq);
+  for (int i = 0; i < 3; ++i) {
+    r[i] = r[i] + v[i] * dt;
+    r[7 + i] = v[i];
+    r[10 + i] = w[i];
+  }
+  for (int i = 0; i < 4; ++i) r[3 + i] = nq[i];
+}
+
 // Velocity solves of every dynamic actor, the impulse pass, and the
-// integration (dynamics_lanes at world fidelity).
+// integration (dynamics_lanes at world fidelity). An articulated actor is
+// solved over its velocity coordinates: a floating base's 6 (unit Plücker
+// subspaces, u from the root body's (ω, v_O), no drive), then its dofs.
 __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const float plk_n[][3],
                          const float plk_f[][3], const float* tgt, const float* mass,
                          const float* fric, int K, float dt, const Swept& sw, int sweeps, Ctx& c) {
   float Ic[MAX_BODIES][36];
   float vb[MAX_BODIES][6], asp[MAX_BODIES][6], fsub[MAX_BODIES][6];
-  float rhs[MAX_DOFS], x[MAX_DOFS];
+  float rhs[MAX_V];
   float new_q[MAX_DOFS], new_qd[MAX_DOFS];
   for (int d = 0; d < sc.ndof; ++d) { new_q[d] = s.q[d]; new_qd[d] = s.qd[d]; }
   bool any_free = false, any_deferred = false;
@@ -210,6 +234,7 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
     if (sc.actor_dynamic[a] != ACTOR_ARTICULATED) continue;
     const int bo = sc.actor_body0[a], nb = sc.actor_nbody[a];
     const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
+    const int v0 = sc.actor_v0[a], nv = sc.actor_nv[a], base = sc.actor_base[a];
     for (int i = 0; i < nb; ++i) {
       const int g = bo + i;
       spatial_inertia(sc, g, k.pos[g], k.quat[g], mass[g * K], Ic[i]);
@@ -217,10 +242,15 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
       cross3(k.angv[g], k.pos[g], cr);
       for (int r = 0; r < 3; ++r) { vb[i][r] = k.angv[g][r]; vb[i][3 + r] = k.linv[g][r] - cr[r]; }
     }
+    float u[MAX_V];
+    for (int j = 0; j < base; ++j) {
+      for (int r = 0; r < 6; ++r) c.S[v0 + j][r] = r == j ? 1.f : 0.f;
+      u[j] = vb[0][j];
+    }
     for (int j = 0; j < nd; ++j) {
-      const int g = sc.dof_body[dof0 + j];
+      const int g = sc.v_body[v0 + base + j];
       const float* aw = k.axw[g];
-      float* Sj = c.S[dof0 + j];
+      float* Sj = c.S[v0 + base + j];
       if (sc.body_jtype[g] == JOINT_REVOLUTE) {
         float cr[3];
         cross3(k.pos[g], aw, cr);
@@ -228,6 +258,7 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
       } else {
         for (int r = 0; r < 3; ++r) { Sj[r] = 0.f; Sj[3 + r] = aw[r]; }
       }
+      u[base + j] = s.qd[dof0 + j];
     }
     // bias forces: RNEA with qdd = 0, gravity as a base acceleration
     const float gz = sc.actor_gravity[a] ? sc.gravity_z : 0.f;
@@ -239,7 +270,7 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
       const int dg = sc.body_dof[bo + i];
       if (dg >= 0) {
         float sq[6], c6[6];
-        for (int r = 0; r < 6; ++r) sq[r] = c.S[dg][r] * s.qd[dg];
+        for (int r = 0; r < 6; ++r) sq[r] = c.S[v0 + base + dg - dof0][r] * s.qd[dg];
         crm6(vb[i], sq, c6);
         for (int r = 0; r < 6; ++r) asp[i][r] += c6[r];
       }
@@ -261,73 +292,76 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
       for (int r = 0; r < 36; ++r) Ic[p][r] += Ic[i][r];
       for (int r = 0; r < 6; ++r) fsub[p][r] += fsub[i][r];
     }
-    float C[MAX_DOFS];
-    for (int j = 0; j < nd; ++j) {
-      const int bj = sc.dof_body[dof0 + j] - bo;
+    float C[MAX_V];
+    for (int j = 0; j < nv; ++j) {
+      const int bj = sc.v_body[v0 + j] - bo;
       float v = 0.f;
-      for (int r = 0; r < 6; ++r) v += c.S[dof0 + j][r] * fsub[bj][r];
+      for (int r = 0; r < 6; ++r) v += c.S[v0 + j][r] * fsub[bj][r];
       C[j] = v;
     }
-    // CRBA on ancestor pairs, into the actor's block of c.M
-    float* M = c.M;
-    for (int i = 0; i < nd; ++i)
-      for (int j = 0; j < nd; ++j) M[(dof0 + i) * MAX_DOFS + dof0 + j] = 0.f;
-    for (int j = 0; j < nd; ++j) {
-      const int bj = sc.dof_body[dof0 + j] - bo;
+    // CRBA on ancestor pairs, into the actor's block of c.L
+    float* M = c.L;
+    for (int i = 0; i < nv; ++i)
+      for (int j = 0; j < nv; ++j) M[(v0 + i) * MAX_V + v0 + j] = 0.f;
+    for (int j = 0; j < nv; ++j) {
+      const int bj = sc.v_body[v0 + j] - bo;
       float F[6];
-      mat6vec(Ic[bj], c.S[dof0 + j], F);
-      for (int i = 0; i < nd; ++i) {
-        if (!sc.dof_anc[(dof0 + i) * MAX_DOFS + dof0 + j]) continue;
+      mat6vec(Ic[bj], c.S[v0 + j], F);
+      for (int i = 0; i < nv; ++i) {
+        if (!sc.v_anc[(v0 + i) * MAX_V + v0 + j]) continue;
         float v = 0.f;
-        for (int r = 0; r < 6; ++r) v += c.S[dof0 + i][r] * F[r];
-        M[(dof0 + i) * MAX_DOFS + dof0 + j] = v;
-        M[(dof0 + j) * MAX_DOFS + dof0 + i] = v;
+        for (int r = 0; r < 6; ++r) v += c.S[v0 + i][r] * F[r];
+        M[(v0 + i) * MAX_V + v0 + j] = v;
+        M[(v0 + j) * MAX_V + v0 + i] = v;
       }
     }
-    // drives: rhs = M u + dt (tau − C), M_solve = M + diag(dt d_imp + 1e-8)
-    float dimp[MAX_DOFS];
-    for (int i = 0; i < nd; ++i) {
-      const int dg = dof0 + i;
-      const float qk = s.q[dg], qdk = s.qd[dg], tg = tgt[dg];
-      const float effort = sc.dof_effort[dg];
+    // drives: rhs = M u + dt (tau − C), M_solve = M + diag(dt d_imp + 1e-8);
+    // nothing drives the base coordinates
+    float dimp[MAX_V];
+    for (int i = 0; i < nv; ++i) {
       float tk = 0.f, dk = 0.f;
-      if (sc.dof_mode[dg] == DRIVE_VELOCITY) {
-        const float kd_eff = fminf(sc.dof_kd[dg], effort / fmaxf(fabsf(tg - qdk), 1e-6f));
-        tk = kd_eff * tg;
-        dk = kd_eff;
-      } else if (sc.dof_mode[dg] == DRIVE_POSITION) {
-        const float kp_eff = fminf(sc.dof_kp[dg], effort / fmaxf(fabsf(tg - qk), 1e-6f));
-        tk = kp_eff * (tg - qk);
-        dk = kp_eff * dt + sc.dof_kd[dg];
+      if (i >= base) {
+        const int dg = dof0 + i - base;
+        const float qk = s.q[dg], qdk = s.qd[dg], tg = tgt[dg];
+        const float effort = sc.dof_effort[dg];
+        if (sc.dof_mode[dg] == DRIVE_VELOCITY) {
+          const float kd_eff = fminf(sc.dof_kd[dg], effort / fmaxf(fabsf(tg - qdk), 1e-6f));
+          tk = kd_eff * tg;
+          dk = kd_eff;
+        } else if (sc.dof_mode[dg] == DRIVE_POSITION) {
+          const float kp_eff = fminf(sc.dof_kp[dg], effort / fmaxf(fabsf(tg - qk), 1e-6f));
+          tk = kp_eff * (tg - qk);
+          dk = kp_eff * dt + sc.dof_kd[dg];
+        }
+        dk = dk + sc.dof_damping[dg];
+        dk = dk + sc.dof_friction[dg] / (fabsf(qdk) + 0.02f);
+        const float below = fmaxf(sc.dof_lower[dg] - qk, 0.f);
+        const float above = fmaxf(qk - sc.dof_upper[dg], 0.f);
+        const bool viol = (below > 0.f) || (above > 0.f);
+        tk = tk + 1.0e3f * (below - above) - (viol ? 1.0e2f * qdk : 0.f);
+        dk = dk + sc.dof_armature[dg];
       }
-      dk = dk + sc.dof_damping[dg];
-      dk = dk + sc.dof_friction[dg] / (fabsf(qdk) + 0.02f);
-      const float below = fmaxf(sc.dof_lower[dg] - qk, 0.f);
-      const float above = fmaxf(qk - sc.dof_upper[dg], 0.f);
-      const bool viol = (below > 0.f) || (above > 0.f);
-      tk = tk + 1.0e3f * (below - above) - (viol ? 1.0e2f * qdk : 0.f);
       float acc = 0.f;
-      for (int j = 0; j < nd; ++j) acc += M[(dof0 + i) * MAX_DOFS + dof0 + j] * s.qd[dof0 + j];
+      for (int j = 0; j < nv; ++j) acc += M[(v0 + i) * MAX_V + v0 + j] * u[j];
       rhs[i] = acc + dt * (tk - C[i]);
-      dimp[i] = dk + sc.dof_armature[dg];
+      dimp[i] = dk;
     }
-    for (int i = 0; i < nd; ++i) M[(dof0 + i) * MAX_DOFS + dof0 + i] += dimp[i] * dt + 1e-8f;
-    bool couple = false;
+    for (int i = 0; i < nv; ++i) M[(v0 + i) * MAX_V + v0 + i] += dimp[i] * dt + 1e-8f;
+    // couple and stiction contacts keep the factor, the subspaces and Ψ live
+    // for the impulse sweeps (the couple contacts also enter the solve
+    // implicitly), and the integration waits until after them
+    bool couple = false, deferred = false;
     for (int bi = 0; bi < sc.nblk; ++bi)
       couple |= is_couple(sc, bi) && sc.body_actor[art_body_of(sc, bi)] == a;
+    for (int b = bo; b < bo + nb; ++b) deferred |= sc.body_psi[b] >= 0;
     if (couple) couple_terms(sc, k, sw, a, mass, K, dt, c, rhs);
-    chol_factor(c.M, c.L, dof0, nd, MAX_DOFS);
-    chol_solve(c.L, dof0, nd, MAX_DOFS, rhs, x);
-    if (couple) {
-      // the factor, the subspaces and Ψ stay live for the impulse sweeps;
-      // the integration waits until after them
-      for (int i = 0; i < nd; ++i) c.u[dof0 + i] = x[i];
+    chol_factor(c.L, c.L, v0, nv, MAX_V);
+    chol_solve(c.L, v0, nv, MAX_V, rhs, &c.u[v0]);
+    if (deferred) {
       psi_blocks(sc, a, c);
       c.deferred[a] = true;
       any_deferred = true;
-      continue;
     }
-    integrate_dofs(sc, s, a, x, dt, new_q, new_qd);
   }
 
   bool any_swept = false;
@@ -335,7 +369,11 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
   if (any_swept && sweeps > 0 && (any_free || any_deferred))
     impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, c);
   for (int a = 0; a < sc.nactor; ++a) {
-    if (c.deferred[a]) integrate_dofs(sc, s, a, &c.u[sc.actor_dof0[a]], dt, new_q, new_qd);
+    if (sc.actor_dynamic[a] == ACTOR_ARTICULATED) {
+      const int v0 = sc.actor_v0[a], base = sc.actor_base[a];
+      if (base) integrate_base(sc, s.root[a], &c.u[v0], dt);
+      integrate_dofs(sc, s, a, &c.u[v0 + base], dt, new_q, new_qd);
+    }
     if (sc.actor_dynamic[a] == ACTOR_FREE) {
       float* r = s.root[a];
       float nq[4];
@@ -371,11 +409,49 @@ __device__ void substep(const SceneTables& sc, Sample& s, Work& w, const float* 
 // task cost hook (objective kernel_cost), on the post-step kinematics
 // ---------------------------------------------------------------------------
 
+// Σ over the force groups of |F_i|, i < force_dims, F the group's summed
+// net contact force
+__device__ float force_term(const SceneTables& sc, const Sample& s) {
+  const int b0[2] = {sc.force_body0, sc.force2_body0}, nb[2] = {sc.force_nbody, sc.force2_nbody};
+  float out = 0.f;
+  for (int g = 0; g < 2; ++g) {
+    if (nb[g] <= 0) continue;
+    float f[3] = {0.f, 0.f, 0.f};
+    for (int b = b0[g]; b < b0[g] + nb[g]; ++b)
+      for (int i = 0; i < 3; ++i) f[i] += s.ncf[b][i];
+    for (int i = 0; i < sc.force_dims; ++i) out += fabsf(f[i]);
+  }
+  return out;
+}
+
 __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k) {
+  // the branches of ops/fused_physics.CostSpec (the wrapper admits no other
+  // task id); F = force_term
+  if (sc.task == TASK_MOBILE_REACH) {
+    // w_dist·‖xy − goal‖ + w_force·F; xy of the root, or of two dofs
+    const float* xy = sc.xy_dof >= 0 ? &s.q[sc.xy_dof] : s.root[sc.xy_actor];
+    const float dx = xy[0] - sc.goal_x, dy = xy[1] - sc.goal_y;
+    return sc.w_dist * sqrtf(dx * dx + dy * dy + 1e-12f) + sc.w_force * force_term(sc, s);
+  }
+  if (sc.task == TASK_MOBILE_PUSH) {
+    // w_dist·‖ee − block‖ + w_block·‖goal − block‖ + w_ori·|yaw − goal_yaw|
+    //   + w_align·(cos∠ + 1) + w_force·F + w_vel·‖v_block‖, in the xy plane
+    const float* r = k.pos[sc.ee_body];
+    const float* blk = s.root[sc.block_actor];
+    const float rbx = r[0] - blk[0], rby = r[1] - blk[1];
+    const float bgx = sc.goal_x - blk[0], bgy = sc.goal_y - blk[1];
+    const float d_rb = sqrtf(rbx * rbx + rby * rby + 1e-12f);
+    const float d_bg = sqrtf(bgx * bgx + bgy * bgy + 1e-12f);
+    const float x = blk[3], y = blk[4], z = blk[5], w = blk[6];
+    const float yaw = atan2f(2.f * (w * z + x * y), 1.f - 2.f * (y * y + z * z));
+    const float align = (rbx * bgx + rby * bgy) / fmaxf(d_rb * d_bg, 1e-6f) + 1.f;
+    const float vel = sqrtf(blk[7] * blk[7] + blk[8] * blk[8] + 1e-12f);
+    return sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_ori * fabsf(yaw - sc.goal_yaw)
+           + sc.w_align * align + sc.w_force * force_term(sc, s) + sc.w_vel * vel;
+  }
   // TASK_PANDA_REACH: w_dist·‖ee − goal‖ + w_ori·‖(pitch, yaw)‖;
   // TASK_PANDA_PICK: w_dist·‖ee − block‖ + w_block·‖block − goal‖
-  //   + w_force·|F_table|₁ + w_ori·‖(pitch, yaw)‖ (the wrapper admits no
-  //   other id)
+  //   + w_force·F + w_ori·‖(pitch, yaw)‖
   const float* q = k.quat[sc.ee_body];
   const float x = q[0], y = q[1], z = q[2], w = q[3];
   const float sp = fminf(fmaxf(2.f * (w * y - z * x), -1.f), 1.f);
@@ -390,14 +466,11 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
     return sc.w_dist * dist + sc.w_ori * ori;
   }
   const float* block = s.root[sc.block_actor];
-  float d1[3], d2[3], tf[3] = {0.f, 0.f, 0.f};
+  float d1[3], d2[3];
   for (int i = 0; i < 3; ++i) { d1[i] = r[i] - block[i]; d2[i] = block[i] - goal[i]; }
-  for (int b = sc.force_body0; b < sc.force_body0 + sc.force_nbody; ++b)
-    for (int i = 0; i < 3; ++i) tf[i] += s.ncf[b][i];
   const float d_rb = sqrtf(dot3(d1, d1) + 1e-12f);
   const float d_bg = sqrtf(dot3(d2, d2) + 1e-12f);
-  const float forces = fabsf(tf[0]) + fabsf(tf[1]) + fabsf(tf[2]);
-  return sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_force * forces + sc.w_ori * ori;
+  return sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_force * force_term(sc, s) + sc.w_ori * ori;
 }
 
 // ---------------------------------------------------------------------------
@@ -543,9 +616,9 @@ extern "C" {
 int scene_tables_size() { return (int)sizeof(SceneTables); }
 
 int max_bounds(int* out) {
-  const int b[11] = {MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK,
-                     MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S};
-  for (int i = 0; i < 11; ++i) out[i] = b[i];
+  const int b[12] = {MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK,
+                     MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S, MAX_V};
+  for (int i = 0; i < 12; ++i) out[i] = b[i];
   return 0;
 }
 

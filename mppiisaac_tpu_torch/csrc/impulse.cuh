@@ -3,11 +3,14 @@
 //
 // Replaces the second half of dynamics_lanes in
 // mppiisaac_tpu/ops/pallas/fused_physics.py: the implicit couple terms
-// (910-969), Ψ per contact link (971-995), the mass-splitting Jacobi impulse
-// sweeps with their inverse-mass cache, warm start and vector friction cone
-// (1027-1442) and the stiction snap (1443-1535). The sweeps stay Jacobi:
+// (910-969), Ψ per contact link of a couple or stiction block (971-995), the
+// mass-splitting Jacobi impulse sweeps with their inverse-mass cache, warm
+// start and vector friction cone (1027-1442) — stiction blocks (a floating
+// base's link against a static geom) are friction-only there — and the
+// stiction snap of the couple contacts (1443-1535). The sweeps stay Jacobi:
 // every block reads one frozen velocity snapshot, and the summed impulses
-// are applied at the end of the sweep. Plain twin: ops/fused_impulse.py.
+// are applied at the end of the sweep. The articulated side is indexed by
+// velocity coordinate (scene_tables.cuh). Plain twin: ops/fused_impulse.py.
 #pragma once
 
 #include "contacts.cuh"
@@ -18,23 +21,29 @@
 #define SW_RELAX 0.9f
 #define SNAP_CLIP 0.05f
 
-// Solve context of one substep, by global dof / body slot / actor.
+// Solve context of one substep, by velocity coordinate / body slot / actor.
 struct Ctx {
-  float S[MAX_DOFS][6];              // world motion subspace of every dof
-  float M[MAX_DOFS * MAX_DOFS];      // velocity-solve matrices (actor blocks)
-  float L[MAX_DOFS * MAX_DOFS];      // their Cholesky factors
-  float u[MAX_DOFS];                 // couple actors' generalized velocity
-  float psi[MAX_PSI][36];            // Ψ per couple contact link
+  float S[MAX_V][6];                 // world motion subspace of every coordinate
+  float L[MAX_V * MAX_V];            // velocity-solve matrices (actor blocks),
+                                     // factored in place
+  float u[MAX_V];                    // articulated actors' generalized velocity
+  float psi[MAX_PSI][36];            // Ψ per couple or stiction contact link
   float fv[MAX_ACTORS][6];           // free bodies: linvel, angvel
-  bool deferred[MAX_ACTORS];         // articulated actor with couple blocks
+  bool deferred[MAX_ACTORS];         // articulated actor in the impulse pass
 };
 
+// the articulated body of a couple or stiction block
 __device__ __forceinline__ int art_body_of(const SceneTables& sc, int bi) {
-  return (sc.blk_flags[bi] & F_A_ART) ? sc.blk_ba[bi] : sc.blk_bb[bi];
+  return (sc.blk_flags[bi] & (F_A_ART | F_A_STA)) ? sc.blk_ba[bi] : sc.blk_bb[bi];
 }
 
 __device__ __forceinline__ bool is_couple(const SceneTables& sc, int bi) {
   return (sc.blk_flags[bi] & F_SWEPT) && (sc.blk_flags[bi] & (F_A_ART | F_B_ART));
+}
+
+// couple or stiction block: its articulated side takes part in the sweeps
+__device__ __forceinline__ bool is_two_way(const SceneTables& sc, int bi) {
+  return (sc.blk_flags[bi] & F_SWEPT) && (sc.blk_flags[bi] & (F_A_ART | F_B_ART | F_A_STA | F_B_STA));
 }
 
 __device__ __forceinline__ float kd_couple(const SceneTables& sc, int bi, const float* mass, int K,
@@ -47,15 +56,15 @@ __device__ __forceinline__ float kd_couple(const SceneTables& sc, int bi, const 
 // couple blocks; J_j = X·S_j, X = (p×n, n)
 __device__ void couple_terms(const SceneTables& sc, const Kin& k, const Swept& sw, int a,
                              const float* mass, int K, float dt, Ctx& c, float* rhs) {
-  const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
+  const int v0 = sc.actor_v0[a], nv = sc.actor_nv[a];
   const float tau_c = fmaxf(2.f * dt, 1e-3f);
-  float J[MAX_S][MAX_DOFS], coefM[MAX_S], coefR[MAX_S];
+  float J[MAX_S][MAX_V], coefM[MAX_S], coefR[MAX_S];
   for (int bi = 0; bi < sc.nblk; ++bi) {
     if (!is_couple(sc, bi) || !sw.live[bi]) continue;
     const int art_b = art_body_of(sc, bi);
     if (sc.body_actor[art_b] != a) continue;
     const float e = (sc.blk_flags[bi] & F_A_ART) ? 1.f : -1.f;
-    const int mask = sc.body_dofmask[art_b], S = sc.blk_S[bi], c0 = sc.blk_c0[bi];
+    const int mask = sc.body_vmask[art_b], S = sc.blk_S[bi], c0 = sc.blk_c0[bi];
     const int ob = sc.blk_ob[bi];
     const float kn_c = sc.blk_kn[bi] / (tau_c * tau_c);
     const float kd_c = kd_couple(sc, bi, mass, K, dt, tau_c);
@@ -68,10 +77,10 @@ __device__ void couple_terms(const SceneTables& sc, const Kin& k, const Swept& s
       float X6[6], v_oth[3];
       cross3(pt, n, X6);
       X6[3] = n[0]; X6[4] = n[1]; X6[5] = n[2];
-      for (int j = 0; j < nd; ++j) {
-        if (!((mask >> (dof0 + j)) & 1)) continue;
+      for (int j = 0; j < nv; ++j) {
+        if (!((mask >> (v0 + j)) & 1)) continue;
         float v = 0.f;
-        for (int r = 0; r < 6; ++r) v += X6[r] * c.S[dof0 + j][r];
+        for (int r = 0; r < 6; ++r) v += X6[r] * c.S[v0 + j][r];
         J[s][j] = v;
       }
       point_vel(k, ob, pt, v_oth);
@@ -79,55 +88,56 @@ __device__ void couple_terms(const SceneTables& sc, const Kin& k, const Swept& s
       coefM[s] = dt * (kd_c + kap) * act;
       coefR[s] = dt * (e * kn_c * fmaxf(depth_c, 0.f) + (kd_c + kap) * v_oth_n) * act;
     }
-    for (int i = 0; i < nd; ++i) {
-      if (!((mask >> (dof0 + i)) & 1)) continue;
+    for (int i = 0; i < nv; ++i) {
+      if (!((mask >> (v0 + i)) & 1)) continue;
       float r = 0.f;
       for (int s = 0; s < S; ++s) r += coefR[s] * J[s][i];
       rhs[i] += r;
-      for (int j = i; j < nd; ++j) {
-        if (!((mask >> (dof0 + j)) & 1)) continue;
+      for (int j = i; j < nv; ++j) {
+        if (!((mask >> (v0 + j)) & 1)) continue;
         float m = 0.f;
         for (int s = 0; s < S; ++s) m += coefM[s] * J[s][i] * J[s][j];
-        c.M[(dof0 + i) * MAX_DOFS + dof0 + j] += m;
-        if (j != i) c.M[(dof0 + j) * MAX_DOFS + dof0 + i] += m;
+        c.L[(v0 + i) * MAX_V + v0 + j] += m;
+        if (j != i) c.L[(v0 + j) * MAX_V + v0 + i] += m;
       }
     }
   }
 }
 
-// Ψ_b = Φ_b M⁻¹ Φ_bᵀ for actor a's couple contact links, from its factor
+// Ψ_b = Φ_b M⁻¹ Φ_bᵀ for actor a's couple and stiction contact links, from
+// its factor
 __device__ void psi_blocks(const SceneTables& sc, int a, Ctx& c) {
-  const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
+  const int v0 = sc.actor_v0[a], nv = sc.actor_nv[a];
   for (int b = 0; b < sc.nbody; ++b) {
     const int slot = sc.body_psi[b];
     if (slot < 0 || sc.body_actor[b] != a) continue;
-    const int mask = sc.body_dofmask[b];
+    const int mask = sc.body_vmask[b];
     for (int c6 = 0; c6 < 6; ++c6) {
-      float col[MAX_DOFS];
-      for (int j = 0; j < nd; ++j) col[j] = ((mask >> (dof0 + j)) & 1) ? c.S[dof0 + j][c6] : 0.f;
-      chol_solve(c.L, dof0, nd, MAX_DOFS, col, col);
+      float col[MAX_V];
+      for (int j = 0; j < nv; ++j) col[j] = ((mask >> (v0 + j)) & 1) ? c.S[v0 + j][c6] : 0.f;
+      chol_solve(c.L, v0, nv, MAX_V, col, col);
       for (int r = 0; r < 6; ++r) {
         float v = 0.f;
-        for (int j = 0; j < nd; ++j)
-          if ((mask >> (dof0 + j)) & 1) v += c.S[dof0 + j][r] * col[j];
+        for (int j = 0; j < nv; ++j)
+          if ((mask >> (v0 + j)) & 1) v += c.S[v0 + j][r] * col[j];
         c.psi[slot][r * 6 + c6] = v;
       }
     }
   }
 }
 
-// spatial velocity (ω, v_O) of every couple contact link from the couple
-// actors' generalized velocities
+// spatial velocity (ω, v_O) of every couple or stiction contact link from
+// its actor's generalized velocity
 __device__ void link_velocities(const SceneTables& sc, const Ctx& c, float v6[][6]) {
   for (int b = 0; b < sc.nbody; ++b) {
     const int slot = sc.body_psi[b];
     if (slot < 0) continue;
-    const int a = sc.body_actor[b], dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
-    const int mask = sc.body_dofmask[b];
+    const int a = sc.body_actor[b], v0 = sc.actor_v0[a], nv = sc.actor_nv[a];
+    const int mask = sc.body_vmask[b];
     for (int r = 0; r < 6; ++r) v6[slot][r] = 0.f;
-    for (int j = 0; j < nd; ++j) {
-      if (!((mask >> (dof0 + j)) & 1)) continue;
-      for (int r = 0; r < 6; ++r) v6[slot][r] += c.S[dof0 + j][r] * c.u[dof0 + j];
+    for (int j = 0; j < nv; ++j) {
+      if (!((mask >> (v0 + j)) & 1)) continue;
+      for (int r = 0; r < 6; ++r) v6[slot][r] += c.S[v0 + j][r] * c.u[v0 + j];
     }
   }
 }
@@ -139,7 +149,7 @@ __device__ __forceinline__ float quad(const float* Kc, float floor, const float*
 }
 
 // Accumulators of one Jacobi pass: impulse and angular impulse per free
-// actor, Plücker impulse Y per couple contact link.
+// actor, Plücker impulse Y per couple or stiction contact link.
 struct Impulses {
   float dP[MAX_ACTORS][3], dT[MAX_ACTORS][3];
   float Y[MAX_PSI][6];
@@ -172,8 +182,8 @@ __device__ void block_contribs(const SceneTables& sc, const Sample& s0, const Sw
     }
     for (int i = 0; i < 3; ++i) { m.dP[a][i] += p[i]; m.dT[a][i] += t[i]; }
   }
-  if (fl & (F_A_ART | F_B_ART)) {
-    const float sgn = (fl & F_A_ART) ? 1.f : -1.f;
+  if (fl & (F_A_ART | F_B_ART | F_A_STA | F_B_STA)) {
+    const float sgn = (fl & (F_A_ART | F_A_STA)) ? 1.f : -1.f;
     float y[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < S; ++s) {
       float si3[3], tq[3];
@@ -187,7 +197,7 @@ __device__ void block_contribs(const SceneTables& sc, const Sample& s0, const Sw
 }
 
 // Jacobi end-of-pass apply: free-body velocities, and the exact fold-back
-// ΔU = M⁻¹ΦᵀY per couple actor
+// ΔU = M⁻¹ΦᵀY per articulated actor in the pass
 __device__ void commit(const SceneTables& sc, const Impulses& m, const float* inv_m,
                        const float invIw[][9], Ctx& c) {
   for (int a = 0; a < sc.nactor; ++a) {
@@ -200,22 +210,22 @@ __device__ void commit(const SceneTables& sc, const Impulses& m, const float* in
       continue;
     }
     if (!c.deferred[a]) continue;
-    const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
-    float rhsY[MAX_DOFS];
-    for (int j = 0; j < nd; ++j) rhsY[j] = 0.f;
+    const int v0 = sc.actor_v0[a], nv = sc.actor_nv[a];
+    float rhsY[MAX_V];
+    for (int j = 0; j < nv; ++j) rhsY[j] = 0.f;
     for (int b = 0; b < sc.nbody; ++b) {
       const int slot = sc.body_psi[b];
       if (slot < 0 || sc.body_actor[b] != a) continue;
-      const int mask = sc.body_dofmask[b];
-      for (int j = 0; j < nd; ++j) {
-        if (!((mask >> (dof0 + j)) & 1)) continue;
+      const int mask = sc.body_vmask[b];
+      for (int j = 0; j < nv; ++j) {
+        if (!((mask >> (v0 + j)) & 1)) continue;
         float v = 0.f;
-        for (int r = 0; r < 6; ++r) v += c.S[dof0 + j][r] * m.Y[slot][r];
+        for (int r = 0; r < 6; ++r) v += c.S[v0 + j][r] * m.Y[slot][r];
         rhsY[j] += v;
       }
     }
-    chol_solve(c.L, dof0, nd, MAX_DOFS, rhsY, rhsY);
-    for (int j = 0; j < nd; ++j) c.u[dof0 + j] += rhsY[j];
+    chol_solve(c.L, v0, nv, MAX_V, rhsY, rhsY);
+    for (int j = 0; j < nv; ++j) c.u[v0 + j] += rhsY[j];
   }
 }
 
@@ -281,7 +291,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
     }
     if (fl & F_A_FREE) cnt_body[sc.body_actor[sc.blk_ba[bi]]] += sum;
     if (fl & F_B_FREE) cnt_body[sc.body_actor[sc.blk_bb[bi]]] += sum;
-    if (fl & (F_A_ART | F_B_ART)) cnt_act[sc.body_actor[art_body_of(sc, bi)]] += sum;
+    if (is_two_way(sc, bi)) cnt_act[sc.body_actor[art_body_of(sc, bi)]] += sum;
   }
 
   // contact-space inverse mass per candidate, fixed within the substep
@@ -293,7 +303,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
     float ne = 0.f;
     if (fl & F_A_FREE) ne += cnt_body[sc.body_actor[sc.blk_ba[bi]]];
     if (fl & F_B_FREE) ne += cnt_body[sc.body_actor[sc.blk_bb[bi]]];
-    if (fl & (F_A_ART | F_B_ART)) ne += cnt_act[sc.body_actor[art_body_of(sc, bi)]];
+    if (is_two_way(sc, bi)) ne += cnt_act[sc.body_actor[art_body_of(sc, bi)]];
     neff_b[bi] = fmaxf(ne, 1.f);
     if (!sw.live[bi]) {
       floor_b[bi] = 1.f;
@@ -328,7 +338,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
           for (int y = x; y < 3; ++y) Km[x][y] += sk[i1][x] * T[i1][y] + sk[i2][x] * T[i2][y];
         }
       }
-      if (fl & (F_A_ART | F_B_ART)) {
+      if (is_two_way(sc, bi)) {
         const float* P_ = c.psi[sc.body_psi[art_body_of(sc, bi)]];
         const float P[3][3] = {{0.f, -pt[2], pt[1]}, {pt[2], 0.f, -pt[0]}, {-pt[1], pt[0], 0.f}};
         float V[6][3];
@@ -395,9 +405,12 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
           for (int i = 0; i < 3; ++i) v_rel[i] -= vb[i];
         }
         const float vn = dot3(v_rel, n);
-        const float d_lam = active ? -(vn - target) / (kn_c[ci] * ne) * SW_RELAX : 0.f;
+        const bool sta = fl & (F_A_STA | F_B_STA);
         const float ln0 = l[0];
-        const float new_lam = fmaxf(ln0 + d_lam, 0.f);
+        // stiction blocks are friction-only: the stiff penalty carries the
+        // normal force, and λ_n is carried unchanged
+        const float d_lam = active && !sta ? -(vn - target) / (kn_c[ci] * ne) * SW_RELAX : 0.f;
+        const float new_lam = sta ? ln0 : fmaxf(ln0 + d_lam, 0.f);
         float vt[3], t_dir[3], lt_new[3];
         for (int i = 0; i < 3; ++i) vt[i] = v_rel[i] - n[i] * vn;
         const float vt_n = sqrtf(dot3(vt, vt) + 1e-9f);
@@ -406,7 +419,10 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
         const float k_t = quad(Kc[ci], floor_b[bi], t_dir);
         // friction-cone seed from the normal force the velocity solve applied
         float seed = 0.f;
-        if (fl & (F_A_ART | F_B_ART)) {
+        if (sta) {
+          const float knc = sc.blk_kn[bi] / (tau_c * tau_c);
+          seed = fmaxf(knc * fmaxf(depth, 0.f) - (2.f * sc.blk_kn[bi] / tau_c) * vn, 0.f);
+        } else if (fl & (F_A_ART | F_B_ART)) {
           const float knc = sc.blk_kn[bi] / (tau_c * tau_c);
           const float kdc = kd_couple(sc, bi, mass, K, dt, tau_c);
           seed = fmaxf(knc * fmaxf(depth, 0.f) - (kdc + dt * knc) * vn, 0.f);

@@ -12,9 +12,10 @@
 #define MAX_BLK 48     // pair blocks
 #define MAX_CAND 160   // swept contact candidates (λ rows / 4)
 #define MAX_SC 1024    // box-sample constants
-#define MAX_PSI 16     // couple contact links (operational inverse inertia Ψ)
+#define MAX_PSI 16     // couple and stiction contact links (operational inverse inertia Ψ)
 #define MAX_BIN 4      // binarized gripper dofs
 #define MAX_S 16       // manifold samples per block
+#define MAX_V 24       // velocity coordinates of all articulated actors (base + dofs)
 
 #define JOINT_FIXED 0
 #define JOINT_REVOLUTE 1
@@ -30,12 +31,15 @@
 #define ACTOR_FREE 2
 #define TASK_PANDA_REACH 1
 #define TASK_PANDA_PICK 2
+#define TASK_MOBILE_REACH 3
+#define TASK_MOBILE_PUSH 4
 
 // pair-block kinds and flags (ops/fused_contacts.py KIND_*, F_*)
 #define KIND_CP 0
 #define KIND_BP 1
 #define KIND_CB 2
 #define KIND_BBC 3
+#define KIND_CC 4
 #define F_HAS_B 1
 #define F_EMIT_A 2
 #define F_EMIT_B 4
@@ -45,30 +49,38 @@
 #define F_A_ART 64
 #define F_B_ART 128
 #define F_SLAB 256
+#define F_A_STA 512    // side a: a floating-base articulation's link against a static geom
+#define F_B_STA 1024
 
 // Field order and types must match _SceneTablesC in ops/fused_rollout.py;
 // scene_tables_size() lets the wrapper check the size at load. Every field
 // is 4 bytes wide, so the struct has no padding.
+// Articulated actors are solved by velocity coordinate: an actor's actor_nv
+// coordinates start at actor_v0 and are its actor_base (6 for a floating
+// base, its root body's Plücker velocity (ω, v_O)) base coordinates, then one
+// per dof.
 struct SceneTables {
-  int nactor, nbody, ndof, ngeom, nu, nblk, n_fc, nbin;
+  int nactor, nbody, ndof, ngeom, nu, nblk, n_fc, nbin, nv;
   int task, ee_body, goal_actor, vis_body, block_actor, force_body0, force_nbody;
+  int force2_body0, force2_nbody, force_dims, xy_actor, xy_dof;
   float gravity_z, eps_v, max_depth, max_root_linvel, max_root_angvel;
-  float w_dist, w_ori, w_block, w_force;
+  float w_dist, w_ori, w_block, w_force, w_align, w_vel, goal_x, goal_y, goal_yaw;
   int actor_body0[MAX_ACTORS], actor_nbody[MAX_ACTORS];
   int actor_dof0[MAX_ACTORS], actor_ndof[MAX_ACTORS];
   int actor_dynamic[MAX_ACTORS], actor_gravity[MAX_ACTORS];
+  int actor_base[MAX_ACTORS], actor_v0[MAX_ACTORS], actor_nv[MAX_ACTORS];
   float actor_invm[MAX_ACTORS], actor_iinv[MAX_ACTORS * 9];
   int body_parent[MAX_BODIES], body_actor[MAX_BODIES];
   int body_jtype[MAX_BODIES], body_dof[MAX_BODIES];
-  int body_dofmask[MAX_BODIES], body_psi[MAX_BODIES];
+  int body_vmask[MAX_BODIES], body_psi[MAX_BODIES];
   float body_jpos[MAX_BODIES * 3], body_jquat[MAX_BODIES * 4];
   float body_jaxis[MAX_BODIES * 3], body_mass[MAX_BODIES];
   float body_com[MAX_BODIES * 3], body_inertia[MAX_BODIES * 9];
-  int dof_body[MAX_DOFS], dof_mode[MAX_DOFS];
+  int v_body[MAX_V], v_anc[MAX_V * MAX_V];
+  int dof_mode[MAX_DOFS];
   float dof_kp[MAX_DOFS], dof_kd[MAX_DOFS], dof_effort[MAX_DOFS];
   float dof_maxvel[MAX_DOFS], dof_damping[MAX_DOFS], dof_friction[MAX_DOFS];
   float dof_armature[MAX_DOFS], dof_lower[MAX_DOFS], dof_upper[MAX_DOFS];
-  int dof_anc[MAX_DOFS * MAX_DOFS];
   float cmd_W[MAX_DOFS * MAX_NU];
   int bin_dof[MAX_BIN], bin_src[MAX_BIN];
   float bin_lo[MAX_BIN], bin_hi[MAX_BIN], bin_th[MAX_BIN], bin_band[MAX_BIN];
@@ -196,7 +208,9 @@ __device__ __forceinline__ void mat6vec(const float* M, const float* v, float* o
 }
 
 // Cholesky factor of the n×n block of M at (o, o) (row stride ld) into the
-// same block of L, pivots clamped to 1e-9 (lanes cholesky_factor)
+// same block of L, pivots clamped to 1e-9 (lanes cholesky_factor). L may be
+// M: each entry of M's lower triangle is read before its factor entry is
+// written, and the upper triangle is left alone.
 __device__ void chol_factor(const float* M, float* L, int o, int n, int ld) {
   for (int j = 0; j < n; ++j) {
     float d = M[(o + j) * ld + o + j];
@@ -214,7 +228,7 @@ __device__ void chol_factor(const float* M, float* L, int o, int n, int ld) {
 
 // forward + back substitution with the factor block at (o, o); x may alias b
 __device__ void chol_solve(const float* L, int o, int n, int ld, const float* b, float* x) {
-  float y[MAX_DOFS];
+  float y[MAX_V];
   for (int i = 0; i < n; ++i) {
     float v = b[i];
     for (int q = 0; q < i; ++q) v -= L[(o + i) * ld + o + q] * y[q];

@@ -3,12 +3,12 @@ update, Savitzky–Golay filter, shift.
 
 Counterpart of the JAX package's `mppi/solver.py` on one device: the same
 carry (U, λ, Σ, step clock), the same noise construction and the same update.
-Two differences of form:
+Two notes on form:
 
-* randomness comes from a `torch.Generator` held by the planner (the
-  Cranley–Patterson shift of the Halton table) where JAX splits a key in the
-  carry; the two never draw the same numbers, so `_command_impl` takes an
-  optional injected ε for tests that compare the update itself;
+* the carry's key is a numpy array and its draws come from `mppi.prng`,
+  the JAX package's threefry bit for bit: the same seed gives the same
+  Cranley–Patterson shifts of the Halton table, command after command
+  (`_command_impl` also takes an injected ε, for tests of the update alone);
 * the rollout is always the fused rollout (`ops/fused_rollout.FusedRollout`,
   the CUDA kernel on CUDA tensors, its plain version on CPU tensors): the
   port has no per-sample engine step to vmap.
@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import prng
 from .config import MPPIConfig
 from .sampling import bspline_interp_matrix, halton, savgol_coeffs
 
@@ -32,6 +33,7 @@ class MppiCarry:
     lambda_: torch.Tensor    # () temperature
     sigma: torch.Tensor      # (nu, nu) sampling covariance
     t0: int = 0              # world control steps executed so far
+    key: Optional[np.ndarray] = None   # (2,) uint32 PRNG key, split per command
 
 
 class MPPIPlanner:
@@ -74,8 +76,6 @@ class MPPIPlanner:
         self._u_min, self._u_max = f32(c.u_min), f32(c.u_max)
         self._u_init = f32(c.u_init)
         self._noise_mu = f32(c.noise_mu)
-        self.generator = torch.Generator(device="cpu")
-        self.generator.manual_seed(int(c.seed_val))
         self.carry = self.init_carry()
         self.last_info: dict = {}
 
@@ -92,22 +92,25 @@ class MPPIPlanner:
             lambda_=torch.tensor(float(c.lambda_), dtype=torch.float32, device=dev),
             sigma=torch.as_tensor(np.asarray(c.noise_sigma, np.float32), device=dev),
             t0=0,
+            key=prng.prng_key(int(c.seed_val)),
         )
 
     # ------------------------------------------------------------------
-    def _sample_noise(self, sigma: torch.Tensor) -> torch.Tensor:
-        """→ (K, H, nu) noise ε with covariance `sigma` per (sample, step)."""
+    def _sample_noise(self, key: np.ndarray, sigma: torch.Tensor) -> torch.Tensor:
+        """→ (K, H, nu) noise ε with covariance `sigma` per (sample, step),
+        drawn from `key`."""
         c = self.cfg
         K, nu = c.num_samples, self.nu
         L = torch.linalg.cholesky(sigma + torch.eye(nu, dtype=sigma.dtype, device=sigma.device) * 1e-8)
         if c.sampling_method == "halton":
             # Cranley–Patterson rotation refreshes the deterministic table
-            shift = torch.rand(self._sample_dims, generator=self.generator).to(self.device)
+            shift = torch.as_tensor(prng.uniform(key, (self._sample_dims,)), device=self.device)
             u01 = torch.remainder(self._halton_base + shift, 1.0)
             z = torch.special.ndtri(torch.clamp(u01, 1e-6, 1 - 1e-6))
             z = z.reshape(K, self._n_knots, nu)
         else:
-            z = torch.randn(K, self._n_knots, nu, generator=self.generator).to(self.device)
+            u = torch.as_tensor(prng.normal_uniforms(key, (K, self._n_knots, nu)), device=self.device)
+            z = torch.special.erfinv(u) * np.float32(np.sqrt(2.0))
         eps = torch.einsum("ktj,ij->kti", z, L) + self._noise_mu
         if self._interp is not None:
             eps = torch.einsum("ht,ktn->khn", self._interp, eps)
@@ -119,8 +122,10 @@ class MPPIPlanner:
         the (K,H,nu) noise instead of sampling it (tests)."""
         c = self.cfg
         K, H, nu = c.num_samples, c.horizon, self.nu
+        key = carry.key
         if eps is None:
-            eps = self._sample_noise(carry.sigma)
+            key, sub = prng.split(carry.key)
+            eps = self._sample_noise(sub, carry.sigma)
         u_min, u_max = self._u_min, self._u_max
         V = torch.clamp(carry.U[None] + eps, u_min, u_max)            # (K,H,nu)
         if c.sample_null_action:
@@ -175,7 +180,8 @@ class MPPIPlanner:
             sigma = 0.9 * sigma + 0.1 * weighted
             sigma = sigma + eye * 1e-5
 
-        new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma, t0=carry.t0 + c.u_per_command)
+        new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma, t0=carry.t0 + c.u_per_command,
+                              key=key)
         info = {"costs": S, "weights": w, "eta": eta, "vis": vis, "best_cost": beta}
         return action, new_carry, info
 

@@ -3,8 +3,9 @@ csrc/contacts.cuh, batched over a leading sample axis K.
 
 Counterpart of the JAX package's `ops/pallas/fused_physics.py` `block_gate`,
 `block_geometry` and `contacts_lanes`, for the pair-block kinds this port
-has: cp (capsule–plane), bp (box–plane), cb (capsule–box) and bbc (box
-corners and face centres against a box). Every block is read from the flat
+has: cp (capsule–plane), bp (box–plane), cb (capsule–box), bbc (box
+corners and face centres against a box) and cc (capsule–capsule; a sphere is
+a capsule of zero length). Every block is read from the flat
 tables of `KernelScene` (the same tables the CUDA kernels read).
 
 The TPU kernel gated a block on "any lane of the tile is possibly in
@@ -22,13 +23,14 @@ from ..physics.math3d import cross, dot, point_to_box, quat_mul, quat_rotate, qu
 from ..physics.urdf import GEOM_CAPSULE
 
 # pair-block kinds of the kernel tables (csrc/contacts.cuh KIND_*)
-KIND_CP, KIND_BP, KIND_CB, KIND_BBC = 0, 1, 2, 3
-KIND_NAMES = {"cp": KIND_CP, "bp": KIND_BP, "cb": KIND_CB, "bbc": KIND_BBC}
+KIND_CP, KIND_BP, KIND_CB, KIND_BBC, KIND_CC = 0, 1, 2, 3, 4
+KIND_NAMES = {"cp": KIND_CP, "bp": KIND_BP, "cb": KIND_CB, "bbc": KIND_BBC, "cc": KIND_CC}
 
 # per-block flag bits (csrc/contacts.cuh F_*)
 F_HAS_B, F_EMIT_A, F_EMIT_B, F_SWEPT = 1, 2, 4, 8
 F_A_FREE, F_B_FREE, F_A_ART, F_B_ART = 16, 32, 64, 128
 F_SLAB = 256          # b side is an unrotated box: exact slab gate
+F_A_STA, F_B_STA = 512, 1024   # side is a floating-base articulation's link against a static geom
 
 # broadphase gate margin (fused_physics.block_gate)
 GATE_MARGIN = 1e-3
@@ -128,6 +130,16 @@ def block_geometry(ks, bi: int, pos, quat):
         n_w, depth_c, surf = point_to_box(pt, gp_b[:, None], gq_b[:, None],
                                           [float(v) for v in ks.geom_size[gb]])
         return surf, n_w, depth_c
+    if kind == KIND_CC:
+        pa0, pa1, ra = geom_segment(ks, ga, pos, quat)
+        pb0, pb1, rb = geom_segment(ks, gb, pos, quat)
+        ca, cb = segment_closest(pa0, pa1, pb0, pb1)
+        delta = ca - cb
+        dist = torch.sqrt(dot(delta, delta))
+        normal = delta * (1.0 / torch.clamp(dist, min=1e-9))[..., None]
+        depth = (ra + rb) - dist
+        point = cb + normal * (rb - 0.5 * torch.clamp(depth, min=0.0))[..., None]
+        return point[:, None], normal[:, None], depth[:, None]
     raise NotImplementedError(f"pair-block kind {kind}")
 
 

@@ -6,15 +6,21 @@ Counterpart of the second half of the JAX package's
 `ops/pallas/fused_physics.py` `dynamics_lanes`:
 
 * `couple_terms` — the implicit Baraff JᵀJ terms of articulated↔free
-  (grasp) contacts in the articulated velocity solve, with the damper cap;
-* `psi_blocks` — Ψ_b = Φ_b M⁻¹ Φ_bᵀ per contact link, from the live
-  Cholesky factor;
+  (couple: grasp, push) contacts in the articulated velocity solve, with the
+  damper cap;
+* `psi_blocks` — Ψ_b = Φ_b M⁻¹ Φ_bᵀ per contact link of a couple or a
+  stiction block (a floating base's link against a static geom), from the
+  live Cholesky factor;
 * `impulse_pass` — the mass-splitting Jacobi sweeps (relax 0.9, β 0.2,
   slop 2e-3) with the vector friction cone, warm-started from the λ rows,
   impulses applied at the END of each sweep from a frozen velocity snapshot,
-  the two-way fold-back ΔU = M⁻¹ΦᵀY for the articulated side, and the
-  world-fidelity stiction snap (one 6×6 least-squares solve per free body,
-  clipped to ±0.05).
+  the two-way fold-back ΔU = M⁻¹ΦᵀY for the articulated side (stiction
+  blocks: friction only, their λ_n carried unchanged), and the
+  world-fidelity stiction snap of the couple contacts (one 6×6 least-squares
+  solve per free body, clipped to ±0.05).
+
+The articulated side is indexed by velocity coordinate (base, then dofs;
+see ops/fused_physics.py).
 
 Vectors are (K,3) or (K,S,3) tensors, per-sample scalars (K,) or (K,S).
 Every gated region's output is replaced by exact zeros where its block's
@@ -28,24 +34,45 @@ import torch
 
 from ..physics.math3d import cholesky_factor, cholesky_solve_factored, cross, dot, quat_to_matrix
 from ..physics.stacked import DAMP_CAP_BETA
-from .fused_contacts import F_A_ART, F_A_FREE, F_B_ART, F_B_FREE, F_HAS_B, SweptGeo, block_live_or
+from .fused_contacts import (
+    F_A_ART,
+    F_A_FREE,
+    F_A_STA,
+    F_B_ART,
+    F_B_FREE,
+    F_B_STA,
+    F_HAS_B,
+    SweptGeo,
+    block_live_or,
+)
 
 BETA, SLOP, RELAX = 0.2, 2e-3, 0.9
 SNAP_CLIP = 0.05
 
 
-def _sub_dofs(ks, b: int, do: int, nd: int) -> List[int]:
-    """Local dofs of the actor (first global dof `do`) that move body b."""
-    m = int(ks.body_dofmask[b])
-    return [j for j in range(nd) if (m >> (do + j)) & 1]
+def _sub_coords(ks, b: int, v0: int, nv: int) -> List[int]:
+    """Local velocity coordinates of the actor (first coordinate `v0`) that
+    move body b."""
+    m = int(ks.body_vmask[b])
+    return [j for j in range(nv) if (m >> (v0 + j)) & 1]
 
 
 def _is_couple(ks, bi: int) -> bool:
     return bool(int(ks.blk_flags[bi]) & (F_A_ART | F_B_ART))
 
 
+def _is_sta(ks, bi: int) -> bool:
+    return bool(int(ks.blk_flags[bi]) & (F_A_STA | F_B_STA))
+
+
+def _two_way(ks, bi: int) -> bool:
+    """A couple or stiction block: its articulated side takes part in the
+    sweeps through Ψ."""
+    return _is_couple(ks, bi) or _is_sta(ks, bi)
+
+
 def _art_body(ks, bi: int) -> int:
-    return int(ks.blk_ba[bi]) if int(ks.blk_flags[bi]) & F_A_ART else int(ks.blk_bb[bi])
+    return int(ks.blk_ba[bi]) if int(ks.blk_flags[bi]) & (F_A_ART | F_A_STA) else int(ks.blk_bb[bi])
 
 
 def _kd_couple(ks, bi: int, mass, dt: float, tau_c: float):
@@ -56,7 +83,7 @@ def _kd_couple(ks, bi: int, mass, dt: float, tau_c: float):
     return torch.clamp(cap, max=2.0 * kn / tau_c)
 
 
-def couple_terms(ks, geos: List[SweptGeo], S, do: int, nd: int, pos, linv, angv, mass, dt,
+def couple_terms(ks, geos: List[SweptGeo], S, v0: int, nv: int, pos, linv, angv, mass, dt,
                  rhs: List[torch.Tensor], Ms: torch.Tensor):
     """Add the implicit couple-contact terms of one actor's couple blocks:
     M += dt(kd+κ)·JᵀJ, rhs += dt·Jᵀ(e·kn·d⁺ + (kd+κ)·v_oth_n), J_j = X·S_j.
@@ -66,7 +93,7 @@ def couple_terms(ks, geos: List[SweptGeo], S, do: int, nd: int, pos, linv, angv,
         bi = geo.blk
         a_art = bool(int(ks.blk_flags[bi]) & F_A_ART)
         e = 1.0 if a_art else -1.0
-        sub = _sub_dofs(ks, _art_body(ks, bi), do, nd)
+        sub = _sub_coords(ks, _art_body(ks, bi), v0, nv)
         pt, n = geo.point, geo.normal
         depth_c = torch.clamp(geo.depth, max=ks.max_depth)
         act = (depth_c > 0.0).to(pt.dtype)
@@ -93,16 +120,16 @@ def couple_terms(ks, geos: List[SweptGeo], S, do: int, nd: int, pos, linv, angv,
                     Ms[:, j, i] = Ms[:, j, i] + v
 
 
-def psi_blocks(ks, bodies: List[int], S, Lc, do: int, nd: int) -> Dict[int, torch.Tensor]:
+def psi_blocks(ks, bodies: List[int], S, Lc, v0: int, nv: int) -> Dict[int, torch.Tensor]:
     """Ψ_b (K,6,6) per contact link b from the factor Lc of the actor's
     velocity-solve matrix."""
     ref = S[0]
     out = {}
     for b in bodies:
-        sub = _sub_dofs(ks, b, do, nd)
+        sub = _sub_coords(ks, b, v0, nv)
         cols = []
         for c6 in range(6):
-            col = [S[j][:, c6] if j in sub else torch.zeros_like(ref[:, 0]) for j in range(nd)]
+            col = [S[j][:, c6] if j in sub else torch.zeros_like(ref[:, 0]) for j in range(nv)]
             xs = cholesky_solve_factored(Lc, col)
             acc = torch.zeros_like(ref)
             for j in sub:
@@ -134,7 +161,8 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
     st: the substep's input state (root poses of the free bodies before
     integration); free_vel: {actor: [linvel, angvel]} of the free bodies
     after the velocity solve (updated in place); art_ctx: {actor: ctx} of
-    articulated actors with couple blocks (ctx["u"] updated in place);
+    articulated actors with couple or stiction blocks (ctx["u"] updated in
+    place);
     lam (K, n_fc, 4) the warm-start λ rows. → λ rows after the sweeps."""
     dcap = ks.max_depth
     tau_c = max(2.0 * dt, 1e-3)
@@ -179,7 +207,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         s_ = act[si].sum(1)
         for b, _ in free_sides(geo.blk):
             count_body[b] = count_body.get(b, 0.0) + s_
-        if _is_couple(ks, geo.blk):
+        if _two_way(ks, geo.blk):
             aid = body_art[_art_body(ks, geo.blk)]
             count_act[aid] = count_act.get(aid, 0.0) + s_
 
@@ -202,7 +230,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
                     i1, i2 = [i for i in range(3) if i != a_]
                     Kc[a_][b3] = Kc[a_][b3] + (sk[i1][a_] * T[i1][b3] + sk[i2][a_] * T[i2][b3])
             floor = floor + inv_m[b]
-        if _is_couple(ks, bi):
+        if _two_way(ks, bi):
             b2 = _art_body(ks, bi)
             psi = art_ctx[body_art[b2]]["psi"][b2][:, None]        # (K,1,6,6)
             P = _skew(pt)
@@ -230,7 +258,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         ne = 0.0
         for b, _ in free_sides(bi):
             ne = ne + count_body[b]
-        if _is_couple(ks, bi):
+        if _two_way(ks, bi):
             ne = ne + count_act[body_art[_art_body(ks, bi)]]
         neff.append(torch.clamp(ne, min=1.0) if torch.is_tensor(ne)
                     else torch.full((K,), max(ne, 1.0), dtype=ref.dtype, device=ref.device))
@@ -239,6 +267,9 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         bi, depth = swept[si].blk, torch.clamp(swept[si].depth, max=dcap)
         kn = float(ks.blk_kn[bi])
         fl = int(ks.blk_flags[bi])
+        if _is_sta(ks, bi):
+            return torch.clamp((kn / (tau_c * tau_c)) * torch.clamp(depth, min=0.0)
+                               - (2.0 * kn / tau_c) * vn, min=0.0)
         if _is_couple(ks, bi):
             kn_c = kn / (tau_c * tau_c)
             kd_c = _kd_couple(ks, bi, mass, dt, tau_c)[:, None]
@@ -259,8 +290,8 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
             r = pt - st["root_pos"][:, a, None]
             fr.append((a, block_live_or(live, si3.sum(1)), block_live_or(live, cross(r, si3).sum(1))))
         art = None
-        if _is_couple(ks, bi):
-            si3 = imp * (1.0 if int(ks.blk_flags[bi]) & F_A_ART else -1.0)
+        if _two_way(ks, bi):
+            si3 = imp * (1.0 if int(ks.blk_flags[bi]) & (F_A_ART | F_A_STA) else -1.0)
             Y = torch.cat([cross(pt, si3).sum(1), si3.sum(1)], -1)
             art = (_art_body(ks, bi), block_live_or(live, Y))
         return fr, art
@@ -281,22 +312,22 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
                 rlv[a] = rlv[a] + dP[a] * inv_m[b][:, None]
                 rav[a] = rav[a] + (invIw[b] @ dT[a][..., None])[..., 0]
         for aid, ctx in art_ctx.items():
-            S, do, nd = ctx["S"], ctx["do"], ctx["nd"]
-            rhsY = [torch.zeros_like(ref[:, 0]) for _ in range(nd)]
+            S, v0, nv = ctx["S"], ctx["v0"], ctx["nv"]
+            rhsY = [torch.zeros_like(ref[:, 0]) for _ in range(nv)]
             for b in ctx["bodies"]:
                 if not torch.is_tensor(Yb[b]):
                     continue
-                for j in _sub_dofs(ks, b, do, nd):
+                for j in _sub_coords(ks, b, v0, nv):
                     rhsY[j] = rhsY[j] + (S[j] * Yb[b]).sum(-1)
             dU = cholesky_solve_factored(ctx["L"], rhsY)
-            ubys[aid] = [ubys[aid][j] + dU[j] for j in range(nd)]
+            ubys[aid] = [ubys[aid][j] + dU[j] for j in range(nv)]
 
     def v6_of(ubys):
         v6 = {}
         for aid, ctx in art_ctx.items():
             for b in ctx["bodies"]:
                 acc = torch.zeros_like(ref.new_zeros(K, 6))
-                for j in _sub_dofs(ks, b, ctx["do"], ctx["nd"]):
+                for j in _sub_coords(ks, b, ctx["v0"], ctx["nv"]):
                     acc = acc + ctx["S"][j] * ubys[aid][j][:, None]
                 v6[b] = acc
         return v6
@@ -339,9 +370,14 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
                 v_rel = v_rel - vel_at(int(ks.blk_bb[bi]), pt)
             vn = dot(v_rel, n)
             ne = neff[si][:, None]
-            d_lam = torch.where(active, -(vn - target) / (kncache[si] * ne) * RELAX, 0.0)
-            new_lam = torch.clamp(ln0 + d_lam, min=0.0)
-            imp = n * (new_lam - ln0)[..., None]
+            if _is_sta(ks, bi):
+                # friction only: the stiff penalty carries the normal force
+                new_lam = ln0
+                imp = torch.zeros_like(pt)
+            else:
+                d_lam = torch.where(active, -(vn - target) / (kncache[si] * ne) * RELAX, 0.0)
+                new_lam = torch.clamp(ln0 + d_lam, min=0.0)
+                imp = n * (new_lam - ln0)[..., None]
             vt = v_rel - n * vn[..., None]
             vt_n = torch.sqrt(dot(vt, vt) + 1e-9)
             t_dir = vt * (1.0 / vt_n)[..., None]

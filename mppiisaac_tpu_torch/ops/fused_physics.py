@@ -15,10 +15,15 @@ Counterpart of the JAX package's `ops/pallas/fused_physics.py`:
 * `fk`, `dynamics`, `substep`, `task_cost`, `command_targets` — the plain
   twin of the kernels' device code, batched over a leading sample axis K. It
   mirrors `fk_lanes` and `dynamics_lanes` at world fidelity (RNEA bias, CRBA,
-  drives, free single bodies, Cholesky, deferred integration); the contacts
-  are in `fused_contacts`, the couple terms, impulse sweeps and stiction snap
-  in `fused_impulse`. The CPU path of the kernel wrappers runs it, and the
-  kernels are held against it on the card.
+  drives, fixed and floating bases, free single bodies, Cholesky, deferred
+  integration); the contacts are in `fused_contacts`, the couple terms,
+  impulse sweeps and stiction snap in `fused_impulse`. The CPU path of the
+  kernel wrappers runs it, and the kernels are held against it on the card.
+
+The articulated solves are indexed by velocity coordinate: an actor's nv
+coordinates are its 6 base coordinates (a floating base: the root body's
+Plücker velocity (ω, v_O)) and then its dofs, and the actors' coordinates
+follow one another (`actor_v0`).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from ..physics.math3d import (
     quat_mul,
     quat_rotate,
     quat_to_matrix,
+    quat_to_yaw,
 )
 from ..physics.model import (
     DRIVE_EFFORT,
@@ -55,8 +61,10 @@ from ..physics.urdf import GEOM_BOX, GEOM_CAPSULE
 from .fused_contacts import (
     F_A_ART,
     F_A_FREE,
+    F_A_STA,
     F_B_ART,
     F_B_FREE,
+    F_B_STA,
     F_EMIT_A,
     F_EMIT_B,
     F_HAS_B,
@@ -73,6 +81,9 @@ from .fused_impulse import couple_terms, impulse_pass, psi_blocks
 # task ids of the kernels' cost hook (csrc/fused_rollout.cu task_cost)
 TASK_PANDA_REACH = 1
 TASK_PANDA_PICK = 2
+TASK_MOBILE_REACH = 3
+TASK_MOBILE_PUSH = 4
+TASKS = (TASK_PANDA_REACH, TASK_PANDA_PICK, TASK_MOBILE_REACH, TASK_MOBILE_PUSH)
 
 
 def _t3(a):
@@ -224,8 +235,15 @@ class CostSpec:
 
     TASK_PANDA_REACH: w_dist·‖ee − goal‖ + w_ori·‖(pitch, yaw)‖.
     TASK_PANDA_PICK: w_dist·‖ee − block‖ + w_block·‖block − goal‖
-    + w_force·|F_table|₁ + w_ori·‖(pitch, yaw)‖, F_table the summed net
-    contact force of bodies force_body0 .. force_body0 + force_nbody − 1."""
+    + w_force·F + w_ori·‖(pitch, yaw)‖.
+    TASK_MOBILE_REACH: w_dist·‖xy − (goal_x, goal_y)‖ + w_force·F, xy the
+    root position of actor xy_actor or, when xy_dof ≥ 0, q[xy_dof : xy_dof+2].
+    TASK_MOBILE_PUSH: w_dist·‖ee − block‖ + w_block·‖goal − block‖
+    + w_ori·|yaw(block) − goal_yaw| + w_align·(cos∠(ee − block, goal − block) + 1)
+    + w_force·F + w_vel·‖v_block‖, all in the xy plane.
+    F sums |F_i|, i < force_dims, of the net contact force F of each force
+    group: bodies force_body0 .. force_body0 + force_nbody − 1, and
+    force2_body0 .. force2_body0 + force2_nbody − 1."""
     task: int
     ee_body: int
     goal_actor: int
@@ -236,6 +254,16 @@ class CostSpec:
     force_nbody: int = 0
     w_block: float = 0.0
     w_force: float = 0.0
+    force2_body0: int = -1
+    force2_nbody: int = 0
+    force_dims: int = 3
+    xy_actor: int = -1
+    xy_dof: int = -1
+    goal_x: float = 0.0
+    goal_y: float = 0.0
+    goal_yaw: float = 0.0
+    w_align: float = 0.0
+    w_vel: float = 0.0
 
 
 # actor kinds of the kernel tables (actor_dynamic)
@@ -260,10 +288,13 @@ class KernelScene:
     actor_nbody: np.ndarray
     actor_dof0: np.ndarray
     actor_ndof: np.ndarray
-    actor_dynamic: np.ndarray        # ACTOR_STATIC / _ARTICULATED (fixed base) / _FREE
+    actor_dynamic: np.ndarray        # ACTOR_STATIC / _ARTICULATED / _FREE (single body)
     actor_gravity: np.ndarray        # 1: gravity acts on the actor
     actor_invm: np.ndarray           # free bodies: 1 / mass
     actor_iinv: np.ndarray           # (A,9) free bodies: body-frame inverse inertia
+    actor_base: np.ndarray           # articulated: 6 floating base, 0 fixed base
+    actor_v0: np.ndarray             # articulated: first velocity coordinate
+    actor_nv: np.ndarray             # articulated: velocity coordinates (base + ndof)
     # bodies (global indices)
     body_parent: np.ndarray          # -1 for roots
     body_actor: np.ndarray
@@ -275,10 +306,12 @@ class KernelScene:
     body_mass: np.ndarray
     body_com: np.ndarray             # (B,3)
     body_inertia: np.ndarray         # (B,3,3)
-    body_dofmask: np.ndarray         # bit d set: global dof d moves the body
-    body_psi: np.ndarray             # Ψ slot of a couple contact link, -1 none
+    body_vmask: np.ndarray           # bit v set: velocity coordinate v moves the body
+    body_psi: np.ndarray             # Ψ slot of a couple or stiction contact link, -1 none
+    # velocity coordinates
+    v_body: np.ndarray               # global body owning each coordinate
+    v_anc: np.ndarray                # (V,V) 1: coordinate i ancestor-or-self of j
     # dofs (global)
-    dof_body: np.ndarray             # global body of each dof
     dof_mode: np.ndarray
     dof_kp: np.ndarray
     dof_kd: np.ndarray
@@ -289,8 +322,7 @@ class KernelScene:
     dof_armature: np.ndarray
     dof_lower: np.ndarray
     dof_upper: np.ndarray
-    dof_anc: np.ndarray              # (D,D) 1: dof i ancestor-or-self of dof j
-    cmd_W: np.ndarray                # (D,nu) command map
+    cmd_W: np.ndarray               # (D,nu) command map
     # gripper binarize (cmd_map.binarize_dofs), thresholds precomputed
     bin_dof: np.ndarray
     bin_src: np.ndarray
@@ -335,6 +367,10 @@ class KernelScene:
         return len(self.blk_kind)
 
     @property
+    def nv(self) -> int:
+        return len(self.v_body)
+
+    @property
     def ncp(self) -> int:
         return int(np.sum(self.blk_kind == KIND_CP))
 
@@ -358,28 +394,29 @@ class KernelScene:
         kinds = sorted({b["kind"] for b in blocks if b["kind"] not in KIND_NAMES})
         if kinds:
             raise NotImplementedError(
-                f"contact pair blocks of kind {kinds} are not ported (cp, bp, cb, bbc are)")
-        if any(b["a_sta"] or b["b_sta"] for b in blocks):
-            raise NotImplementedError(
-                "articulated stiction contacts (floating-base robots) are not ported")
+                f"contact pair blocks of kind {kinds} are not ported (cp, bp, cb, bbc, cc are)")
         A = scene.nactor
         actor_dynamic = np.zeros(A, np.int32)
         actor_gravity = np.zeros(A, np.int32)
         actor_invm = np.zeros(A, np.float32)
         actor_iinv = np.zeros((A, 9), np.float32)
+        actor_base = np.zeros(A, np.int32)
         for ai, art in enumerate(scene.actors):
             name = scene.actor_names[ai]
             actor_gravity[ai] = 0 if art.disable_gravity else 1
             if art.fixed_base and art.ndof == 0:
                 continue                      # static actor
             if not art.fixed_base:
-                if art.ndof > 0 or art.nbody > 1:
-                    raise NotImplementedError(
-                        f"floating-base articulations are not ported (actor {name!r})")
-                actor_dynamic[ai] = ACTOR_FREE
-                actor_invm[ai] = 1.0 / max(float(art.mass[0]), 1e-6)
-                actor_iinv[ai] = np.linalg.inv(art.inertia[0] + np.eye(3) * 1e-9).reshape(9)
-                continue
+                if art.ndof == 0:
+                    if art.nbody > 1:
+                        raise NotImplementedError(
+                            f"floating actors of several bodies and no joints are not "
+                            f"ported (actor {name!r})")
+                    actor_dynamic[ai] = ACTOR_FREE
+                    actor_invm[ai] = 1.0 / max(float(art.mass[0]), 1e-6)
+                    actor_iinv[ai] = np.linalg.inv(art.inertia[0] + np.eye(3) * 1e-9).reshape(9)
+                    continue
+                actor_base[ai] = 6
             if any(int(art.parent[i]) >= i for i in range(1, art.nbody)) or art.parent[0] >= 0:
                 raise NotImplementedError("articulations whose bodies are not in parent-first order")
             for k in range(art.ndof):
@@ -392,26 +429,34 @@ class KernelScene:
                         f"the finger force gate is not ported ({art.dof_names[k]!r})")
             actor_dynamic[ai] = ACTOR_ARTICULATED
         st = engine.stacked
-        D, B = scene.ndof, scene.nbody
-        dof_body = np.zeros(D, np.int32)
-        dof_anc = np.zeros((D, D), np.int32)
-        body_dofmask = np.zeros(B, np.int64)
-        for ai, art in enumerate(scene.actors):
-            if actor_dynamic[ai] != ACTOR_ARTICULATED:
-                continue
-            m = build_actor_masks(art)
-            bo, do = scene.body_offset[ai], scene.dof_offset[ai]
-            for k in range(art.ndof):
-                dof_body[do + k] = bo + int(m.dof_body[k])
-                for j in range(art.ndof):
-                    dof_anc[do + k, do + j] = int(m.ancestor[k, j])
-                for lb in range(art.nbody):
-                    if m.subtree[k, lb]:
-                        body_dofmask[bo + lb] |= 1 << (do + k)
-        couple_bodies = sorted({b["ba"] if b["a_art"] else b["bb"]
-                                for b in blocks if b["swept"] and (b["a_art"] or b["b_art"])})
+        B = scene.nbody
+        masks = {ai: build_actor_masks(art) for ai, art in enumerate(scene.actors)
+                 if actor_dynamic[ai] == ACTOR_ARTICULATED}
+        actor_v0 = np.zeros(A, np.int32)
+        actor_nv = np.zeros(A, np.int32)
+        NV = 0
+        for ai, m in masks.items():
+            actor_v0[ai], actor_nv[ai] = NV, m.nv
+            NV += m.nv
+        v_body = np.zeros(NV, np.int32)
+        v_anc = np.zeros((NV, NV), np.int32)
+        body_vmask = np.zeros(B, np.int64)
+        for ai, m in masks.items():
+            bo, v0 = scene.body_offset[ai], actor_v0[ai]
+            for j in range(m.nv):
+                v_body[v0 + j] = bo + int(m.dof_body[j])
+                for k in range(m.nv):
+                    v_anc[v0 + j, v0 + k] = int(m.ancestor[j, k])
+                for lb in range(scene.actors[ai].nbody):
+                    if m.subtree[j, lb]:
+                        body_vmask[bo + lb] |= 1 << int(v0 + j)
+        # Ψ per articulated contact link of a couple (art↔free) or stiction
+        # (floating base↔static) block
+        art_bodies = sorted({b["ba"] if (b["a_art"] or b["a_sta"]) else b["bb"]
+                             for b in blocks
+                             if b["swept"] and (b["a_art"] or b["b_art"] or b["a_sta"] or b["b_sta"])})
         body_psi = np.full(B, -1, np.int32)
-        for slot, b in enumerate(couple_bodies):
+        for slot, b in enumerate(art_bodies):
             body_psi[b] = slot
 
         def f32(x, shape=None):
@@ -435,7 +480,8 @@ class KernelScene:
             for bit, on in ((F_HAS_B, b["has_b"]), (F_EMIT_A, not b["a_art"]),
                             (F_EMIT_B, b["has_b"] and not b["b_art"]), (F_SWEPT, b["swept"]),
                             (F_A_FREE, b["a_free"]), (F_B_FREE, b["b_free"]),
-                            (F_A_ART, b["a_art"]), (F_B_ART, b["b_art"]), (F_SLAB, _slab(scene, b))):
+                            (F_A_ART, b["a_art"]), (F_B_ART, b["b_art"]), (F_SLAB, _slab(scene, b)),
+                            (F_A_STA, b["a_sta"]), (F_B_STA, b["b_sta"])):
                 f |= bit if on else 0
             return f
 
@@ -449,7 +495,7 @@ class KernelScene:
         b_soft = [b["b_free"] or (b["b_static"] and b["a_free"]) for b in blocks]
         bz = built.cmd_map.binarize_dofs
         return KernelScene(
-            nactor=A, nbody=B, ndof=D, ngeom=scene.ngeom, nu=built.cmd_map.nu,
+            nactor=A, nbody=B, ndof=scene.ndof, ngeom=scene.ngeom, nu=built.cmd_map.nu,
             gravity_z=float(-scene.gravity[2]),
             eps_v=float(scene.friction_smoothing_vel),
             max_depth=float(scene.max_contact_depth),
@@ -459,18 +505,18 @@ class KernelScene:
             actor_dof0=i32(scene.dof_offset), actor_ndof=i32([a.ndof for a in scene.actors]),
             actor_dynamic=actor_dynamic, actor_gravity=actor_gravity,
             actor_invm=actor_invm, actor_iinv=actor_iinv,
+            actor_base=actor_base, actor_v0=actor_v0, actor_nv=actor_nv,
             body_parent=i32(st.parent), body_actor=i32(st.body_actor),
             body_jtype=i32(st.jtype), body_dof=i32(st.body_jdof),
             body_jpos=f32(st.jpos), body_jquat=f32(st.jquat), body_jaxis=f32(st.jaxis),
             body_mass=f32(st.mass), body_com=f32(st.com), body_inertia=f32(st.inertia),
-            body_dofmask=body_dofmask, body_psi=body_psi,
-            dof_body=dof_body, dof_mode=i32(st.drive_mode),
+            body_vmask=body_vmask, body_psi=body_psi, v_body=v_body, v_anc=v_anc,
+            dof_mode=i32(st.drive_mode),
             dof_kp=f32(st.drive_kp), dof_kd=f32(st.drive_kd), dof_effort=f32(st.dof_effort),
             dof_maxvel=f32(st.dof_maxvel), dof_damping=f32(st.dof_damping),
             dof_friction=f32(st.dof_friction), dof_armature=f32(st.dof_armature),
             dof_lower=f32(st.dof_lower), dof_upper=f32(st.dof_upper),
-            dof_anc=dof_anc,
-            cmd_W=f32(built.cmd_map.W, (D, built.cmd_map.nu)),
+            cmd_W=f32(built.cmd_map.W, (scene.ndof, built.cmd_map.nu)),
             bin_dof=i32([z[0] for z in bz]), bin_src=i32([z[1] for z in bz]),
             bin_lo=f32([z[2] for z in bz]), bin_hi=f32([z[3] for z in bz]),
             bin_th=f32([z[4] for z in bz]), bin_band=f32([z[5] for z in bz]),
@@ -514,7 +560,7 @@ def state_to_rows(ks: KernelScene, root_state, q, qd, lam=None) -> torch.Tensor:
     """(K,A,13), (K,D), (K,D) [, (K,n_fc,4) λ] → (rows, K) with zero
     net-force rows; λ rows follow the state rows when `lam` is given."""
     K = q.shape[0]
-    z = torch.zeros(K, 3 * ks.nbody, dtype=torch.float32, device=q.device)
+    z = torch.zeros(K, 3 * ks.nbody, dtype=q.dtype, device=q.device)
     parts = [root_state.reshape(K, 13 * ks.nactor), q, qd, z]
     if lam is not None:
         parts.append(lam.reshape(K, 4 * ks.n_fc))
@@ -680,6 +726,29 @@ def _integrate_dofs(ks, st, new_q, new_qd, do, nd, u, dt):
         new_qd[:, dg] = qd_k
 
 
+def _integrate_base(ks, st, ai, w, v_o, dt):
+    """Root of a floating base from its Plücker velocity (ω, v_O):
+    v_r = v_O + ω×p_root, both clamped, then position and orientation.
+    → (pos, quat, linvel, angvel)."""
+    p_r = st["root_pos"][:, ai]
+    v_r = v_o + cross(w, p_r)
+    wcap, vcap = ks.max_root_angvel, ks.max_root_linvel
+    w = torch.clamp(w, -wcap, wcap)
+    v_r = torch.clamp(v_r, -vcap, vcap)
+    return p_r + v_r * dt, qintegrate(st["root_quat"][:, ai], w, dt), v_r, w
+
+
+def _art_side(ks, bi: int) -> int:
+    """The articulated body of a couple or stiction block."""
+    return int(ks.blk_ba[bi]) if int(ks.blk_flags[bi]) & (F_A_ART | F_A_STA) else int(ks.blk_bb[bi])
+
+
+def _unit6(k: int, like: torch.Tensor) -> torch.Tensor:
+    e = [0.0] * 6
+    e[k] = 1.0
+    return _c(e, like).expand(like.shape[0], 6)
+
+
 def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
              tgt, mass_scale, fric, dt, swept: List[SweptGeo] = (), sweeps: int = 2):
     """Implicit velocity update of every dynamic actor, the impulse pass, and
@@ -692,11 +761,10 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
     couple: Dict[int, List[SweptGeo]] = {}
     for geo in swept:
         if int(ks.blk_flags[geo.blk]) & (F_A_ART | F_B_ART):
-            fl = int(ks.blk_flags[geo.blk])
-            art_b = int(ks.blk_ba[geo.blk]) if fl & F_A_ART else int(ks.blk_bb[geo.blk])
-            couple.setdefault(int(ks.body_actor[art_b]), []).append(geo)
+            couple.setdefault(int(ks.body_actor[_art_side(ks, geo.blk)]), []).append(geo)
     free_vel: Dict[int, list] = {}
     art_ctx: Dict[int, dict] = {}
+    roots: Dict[int, tuple] = {}
     for ai in range(ks.nactor):
         kind = int(ks.actor_dynamic[ai])
         if kind == ACTOR_FREE:
@@ -707,16 +775,18 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
             continue
         bo, nb = int(ks.actor_body0[ai]), int(ks.actor_nbody[ai])
         do, nd = int(ks.actor_dof0[ai]), int(ks.actor_ndof[ai])
+        v0, nv, base = int(ks.actor_v0[ai]), int(ks.actor_nv[ai]), int(ks.actor_base[ai])
         # spatial inertias + composite
         Iw = [_body_inertia(ks, bo + i, pos, quat, mass_scale) for i in range(nb)]
         Ic = list(Iw)
         for i in range(nb - 1, 0, -1):
             p = int(ks.body_parent[bo + i]) - bo
             Ic[p] = Ic[p] + Ic[i]
-        # motion subspaces (world Plücker) per dof
-        S = []
+        # motion subspaces (world Plücker) per velocity coordinate: the base's
+        # unit vectors, then one per dof
+        S = [_unit6(k, ref) for k in range(base)]
         for k in range(nd):
-            g = int(ks.dof_body[do + k])
+            g = int(ks.v_body[v0 + base + k])
             a = axis_w[g]
             if int(ks.body_jtype[g]) == JOINT_REVOLUTE:
                 S.append(torch.cat([a, cross(pos[g], a)], -1))
@@ -724,7 +794,7 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
                 S.append(torch.cat([torch.zeros_like(a), a], -1))
         v_b = [torch.cat([angv[bo + i], linv[bo + i] - cross(angv[bo + i], pos[bo + i])], -1)
                for i in range(nb)]
-        u = [st["qd"][:, do + k] for k in range(nd)]
+        u = [v_b[0][:, k] for k in range(base)] + [st["qd"][:, do + k] for k in range(nd)]
         # bias forces (RNEA with qdd = 0; gravity as base acceleration)
         gz = ks.gravity_z if ks.actor_gravity[ai] else 0.0
         a_sp = [None] * nb
@@ -734,7 +804,7 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
             a_i = a_sp[p]
             kd_ = int(ks.body_dof[bo + i])
             if kd_ >= 0:
-                a_i = a_i + _crm6(v_b[i], S[kd_ - do] * st["qd"][:, kd_, None])
+                a_i = a_i + _crm6(v_b[i], S[base + kd_ - do] * st["qd"][:, kd_, None])
             a_sp[i] = a_i
         f_sub = []
         for i in range(nb):
@@ -747,20 +817,21 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
             f_sub[p] = f_sub[p] + f_sub[i]
         C = []
         F = []
-        for j in range(nd):
-            bj = int(ks.dof_body[do + j]) - bo
+        for j in range(nv):
+            bj = int(ks.v_body[v0 + j]) - bo
             C.append((S[j] * f_sub[bj]).sum(-1))
             F.append((Ic[bj] @ S[j][..., None])[..., 0])
-        M = [[torch.zeros(K, dtype=ref.dtype, device=ref.device)] * nd for _ in range(nd)]
-        for i in range(nd):
-            for j in range(nd):
-                if ks.dof_anc[do + i, do + j]:
+        M = [[torch.zeros(K, dtype=ref.dtype, device=ref.device)] * nv for _ in range(nv)]
+        for i in range(nv):
+            for j in range(nv):
+                if ks.v_anc[v0 + i, v0 + j]:
                     val = (S[i] * F[j]).sum(-1)
                     M[i][j] = val
                     M[j][i] = val
         # drives (force-limited implicit gains), damping, Coulomb friction,
-        # joint-limit penalty
-        tau, d_imp = [], []
+        # joint-limit penalty; nothing drives the base coordinates
+        zero = torch.zeros_like(ref[:, 0])
+        tau, d_imp = [zero] * base, [zero] * base
         for k in range(nd):
             dg = do + k
             mode = int(ks.dof_mode[dg])
@@ -789,40 +860,48 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
             tau.append(tk)
             d_imp.append(dk + float(ks.dof_armature[dg]))
         rhs = []
-        Ms = torch.stack([torch.stack(row, -1) for row in M], -2)      # (K,nd,nd)
-        for i in range(nd):
+        Ms = torch.stack([torch.stack(row, -1) for row in M], -2)      # (K,nv,nv)
+        for i in range(nv):
             acc = M[i][0] * u[0]
-            for j in range(1, nd):
+            for j in range(1, nv):
                 acc = acc + M[i][j] * u[j]
             rhs.append(acc + dt * (tau[i] - C[i]))
         Ms = Ms + torch.diag_embed(torch.stack(d_imp, -1) * dt + 1e-8)
-        if ai in couple:
-            # grasp contacts enter the solve implicitly; the factor, the
-            # subspaces and Ψ stay live for the impulse sweeps, and the
-            # integration waits until after them
-            couple_terms(ks, couple[ai], S, do, nd, pos, linv, angv, mass_scale, dt, rhs, Ms)
+        bodies = [b for b in range(ks.nbody) if ks.body_psi[b] >= 0 and int(ks.body_actor[b]) == ai]
+        if bodies:
+            # couple contacts enter the solve implicitly; for them and for the
+            # stiction contacts the factor, the subspaces and Ψ stay live for
+            # the impulse sweeps, and the integration waits until after them
+            if ai in couple:
+                couple_terms(ks, couple[ai], S, v0, nv, pos, linv, angv, mass_scale, dt, rhs, Ms)
             Lc = cholesky_factor(Ms)
-            bodies = [b for b in range(ks.nbody)
-                      if ks.body_psi[b] >= 0 and int(ks.body_actor[b]) == ai]
-            art_ctx[ai] = dict(S=S, L=Lc, u=cholesky_solve_factored(Lc, rhs), do=do, nd=nd,
-                               bodies=bodies, psi=psi_blocks(ks, bodies, S, Lc, do, nd))
+            art_ctx[ai] = dict(S=S, L=Lc, u=cholesky_solve_factored(Lc, rhs), v0=v0, nv=nv,
+                               base=base, do=do, nd=nd, bodies=bodies,
+                               psi=psi_blocks(ks, bodies, S, Lc, v0, nv))
             continue
         u_new = cholesky_solve_factored(cholesky_factor(Ms), rhs)
-        _integrate_dofs(ks, st, new_q, new_qd, do, nd, u_new, dt)
+        if base:
+            roots[ai] = _integrate_base(ks, st, ai, torch.stack(u_new[0:3], -1),
+                                        torch.stack(u_new[3:6], -1), dt)
+        _integrate_dofs(ks, st, new_q, new_qd, do, nd, u_new[base:], dt)
 
     out = dict(st)
     if swept and sweeps > 0 and (free_vel or art_ctx):
         out["lam"] = impulse_pass(ks, list(swept), st, pos, linv, angv, mass_scale, fric, dt,
                                   sweeps, free_vel, art_ctx, st["lam"])
     for ai, ctx in art_ctx.items():
-        _integrate_dofs(ks, st, new_q, new_qd, ctx["do"], ctx["nd"], ctx["u"], dt)
-    if free_vel:
+        u, base = ctx["u"], ctx["base"]
+        if base:
+            roots[ai] = _integrate_base(ks, st, ai, torch.stack(u[0:3], -1),
+                                        torch.stack(u[3:6], -1), dt)
+        _integrate_dofs(ks, st, new_q, new_qd, ctx["do"], ctx["nd"], u[base:], dt)
+    for ai, (v, w) in free_vel.items():
+        roots[ai] = (st["root_pos"][:, ai] + v * dt, qintegrate(st["root_quat"][:, ai], w, dt), v, w)
+    if roots:
         rp, rq = st["root_pos"].clone(), st["root_quat"].clone()
         rlv, rav = st["root_linvel"].clone(), st["root_angvel"].clone()
-        for ai, (v, w) in free_vel.items():
-            rp[:, ai] = st["root_pos"][:, ai] + v * dt
-            rq[:, ai] = qintegrate(st["root_quat"][:, ai], w, dt)
-            rlv[:, ai], rav[:, ai] = v, w
+        for ai, (p, q, v, w) in roots.items():
+            rp[:, ai], rq[:, ai], rlv[:, ai], rav[:, ai] = p, q, v, w
         out.update(root_pos=rp, root_quat=rq, root_linvel=rlv, root_angvel=rav)
     out["q"], out["qd"] = new_q, new_qd
     return out
@@ -844,11 +923,42 @@ def substep(ks: KernelScene, st, tgt, mass_scale, fric, dt, sweeps: int = 2):
     return out
 
 
+def _force_term(c: CostSpec, st) -> torch.Tensor:
+    """Σ over the force groups of |F_i|, i < force_dims, F the group's summed
+    net contact force."""
+    out = 0.0
+    for b0, n in ((c.force_body0, c.force_nbody), (c.force2_body0, c.force2_nbody)):
+        if n <= 0:
+            continue
+        f = st["net_cf"][:, b0]
+        for b in range(b0 + 1, b0 + n):
+            f = f + st["net_cf"][:, b]
+        for i in range(c.force_dims):
+            out = out + f[:, i].abs()
+    return out
+
+
 def task_cost(ks: KernelScene, st, pos, quat) -> torch.Tensor:
     """The kernels' per-step task cost on the post-step state."""
     c = ks.cost
-    if c is None or c.task not in (TASK_PANDA_REACH, TASK_PANDA_PICK):
+    if c is None or c.task not in TASKS:
         raise NotImplementedError(f"no kernel cost for task spec {c}")
+    if c.task == TASK_MOBILE_REACH:
+        xy = st["q"][:, c.xy_dof:c.xy_dof + 2] if c.xy_dof >= 0 else st["root_pos"][:, c.xy_actor, 0:2]
+        dx, dy = xy[:, 0] - c.goal_x, xy[:, 1] - c.goal_y
+        return c.w_dist * torch.sqrt(dx * dx + dy * dy + 1e-12) + c.w_force * _force_term(c, st)
+    if c.task == TASK_MOBILE_PUSH:
+        r, block = pos[c.ee_body], st["root_pos"][:, c.block_actor]
+        bv = st["root_linvel"][:, c.block_actor]
+        rbx, rby = r[:, 0] - block[:, 0], r[:, 1] - block[:, 1]
+        bgx, bgy = c.goal_x - block[:, 0], c.goal_y - block[:, 1]
+        d_rb = torch.sqrt(rbx * rbx + rby * rby + 1e-12)
+        d_bg = torch.sqrt(bgx * bgx + bgy * bgy + 1e-12)
+        yaw = quat_to_yaw(st["root_quat"][:, c.block_actor])
+        align = (rbx * bgx + rby * bgy) / torch.clamp(d_rb * d_bg, min=1e-6) + 1.0
+        vel = torch.sqrt(bv[:, 0] * bv[:, 0] + bv[:, 1] * bv[:, 1] + 1e-12)
+        return (c.w_dist * d_rb + c.w_block * d_bg + c.w_ori * (yaw - c.goal_yaw).abs()
+                + c.w_align * align + c.w_force * _force_term(c, st) + c.w_vel * vel)
     _, p, y = euler_zyx_atan2(quat[c.ee_body])
     ori = torch.sqrt(y * y + p * p + 1e-12)
     r = pos[c.ee_body]
@@ -859,11 +969,7 @@ def task_cost(ks: KernelScene, st, pos, quat) -> torch.Tensor:
     block = st["root_pos"][:, c.block_actor]
     d_rb = torch.sqrt(dot(r - block, r - block) + 1e-12)
     d_bg = torch.sqrt(dot(block - goal, block - goal) + 1e-12)
-    tf = 0.0
-    for b in range(c.force_body0, c.force_body0 + c.force_nbody):
-        tf = tf + st["net_cf"][:, b]
-    forces = tf[:, 0].abs() + tf[:, 1].abs() + tf[:, 2].abs()
-    return c.w_dist * d_rb + c.w_block * d_bg + c.w_force * forces + c.w_ori * ori
+    return c.w_dist * d_rb + c.w_block * d_bg + c.w_force * _force_term(c, st) + c.w_ori * ori
 
 
 def command_targets(ks: KernelScene, u: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

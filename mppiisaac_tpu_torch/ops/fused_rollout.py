@@ -27,8 +27,7 @@ import torch
 
 from ..physics.types import ModelParams, SimState
 from .fused_physics import (
-    TASK_PANDA_PICK,
-    TASK_PANDA_REACH,
+    TASKS,
     CostSpec,
     KernelScene,
     command_targets,
@@ -45,8 +44,9 @@ from .fused_physics import (
 # reports them (checked against the library)
 MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU = 8, 32, 16, 16
 MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S = 64, 48, 160, 1024, 16, 4, 16
+MAX_V = 24      # velocity coordinates (base + dofs) of all articulated actors
 BOUNDS = (MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC,
-          MAX_PSI, MAX_BIN, MAX_S)
+          MAX_PSI, MAX_BIN, MAX_S, MAX_V)
 
 
 def _arr(ctype, n):
@@ -57,30 +57,32 @@ class _SceneTablesC(ctypes.Structure):
     """Mirror of `struct SceneTables` in csrc/scene_tables.cuh."""
     _fields_ = [
         *[(n, ctypes.c_int) for n in (
-            "nactor", "nbody", "ndof", "ngeom", "nu", "nblk", "n_fc", "nbin", "task", "ee_body",
-            "goal_actor", "vis_body", "block_actor", "force_body0", "force_nbody")],
+            "nactor", "nbody", "ndof", "ngeom", "nu", "nblk", "n_fc", "nbin", "nv", "task",
+            "ee_body", "goal_actor", "vis_body", "block_actor", "force_body0", "force_nbody",
+            "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof")],
         *[(n, ctypes.c_float) for n in (
             "gravity_z", "eps_v", "max_depth", "max_root_linvel", "max_root_angvel",
-            "w_dist", "w_ori", "w_block", "w_force")],
+            "w_dist", "w_ori", "w_block", "w_force", "w_align", "w_vel", "goal_x", "goal_y",
+            "goal_yaw")],
         *[(n, _arr(ctypes.c_int, MAX_ACTORS)) for n in (
             "actor_body0", "actor_nbody", "actor_dof0", "actor_ndof", "actor_dynamic",
-            "actor_gravity")],
+            "actor_gravity", "actor_base", "actor_v0", "actor_nv")],
         ("actor_invm", _arr(ctypes.c_float, MAX_ACTORS)),
         ("actor_iinv", _arr(ctypes.c_float, MAX_ACTORS * 9)),
         *[(n, _arr(ctypes.c_int, MAX_BODIES)) for n in (
-            "body_parent", "body_actor", "body_jtype", "body_dof", "body_dofmask", "body_psi")],
+            "body_parent", "body_actor", "body_jtype", "body_dof", "body_vmask", "body_psi")],
         ("body_jpos", _arr(ctypes.c_float, MAX_BODIES * 3)),
         ("body_jquat", _arr(ctypes.c_float, MAX_BODIES * 4)),
         ("body_jaxis", _arr(ctypes.c_float, MAX_BODIES * 3)),
         ("body_mass", _arr(ctypes.c_float, MAX_BODIES)),
         ("body_com", _arr(ctypes.c_float, MAX_BODIES * 3)),
         ("body_inertia", _arr(ctypes.c_float, MAX_BODIES * 9)),
-        ("dof_body", _arr(ctypes.c_int, MAX_DOFS)),
+        ("v_body", _arr(ctypes.c_int, MAX_V)),
+        ("v_anc", _arr(ctypes.c_int, MAX_V * MAX_V)),
         ("dof_mode", _arr(ctypes.c_int, MAX_DOFS)),
         *[(n, _arr(ctypes.c_float, MAX_DOFS)) for n in (
             "dof_kp", "dof_kd", "dof_effort", "dof_maxvel", "dof_damping", "dof_friction",
             "dof_armature", "dof_lower", "dof_upper")],
-        ("dof_anc", _arr(ctypes.c_int, MAX_DOFS * MAX_DOFS)),
         ("cmd_W", _arr(ctypes.c_float, MAX_DOFS * MAX_NU)),
         ("bin_dof", _arr(ctypes.c_int, MAX_BIN)),
         ("bin_src", _arr(ctypes.c_int, MAX_BIN)),
@@ -102,10 +104,10 @@ class _SceneTablesC(ctypes.Structure):
 
 _TABLE_ARRAYS = (
     "actor_body0", "actor_nbody", "actor_dof0", "actor_ndof", "actor_dynamic", "actor_gravity",
-    "actor_invm", "actor_iinv",
-    "body_parent", "body_actor", "body_jtype", "body_dof", "body_dofmask", "body_psi",
+    "actor_base", "actor_v0", "actor_nv", "actor_invm", "actor_iinv",
+    "body_parent", "body_actor", "body_jtype", "body_dof", "body_vmask", "body_psi",
     "body_jpos", "body_jquat", "body_jaxis", "body_mass", "body_com", "body_inertia",
-    "dof_body", "dof_mode", "dof_kp", "dof_kd", "dof_effort", "dof_maxvel", "dof_damping",
+    "v_body", "dof_mode", "dof_kp", "dof_kd", "dof_effort", "dof_maxvel", "dof_damping",
     "dof_friction", "dof_armature", "dof_lower", "dof_upper",
     "bin_dof", "bin_src", "bin_lo", "bin_hi", "bin_th", "bin_band", "bin_uhi", "bin_ulo",
     "bin_qopen",
@@ -121,10 +123,12 @@ def check_bounds(ks: KernelScene) -> None:
     S = int(ks.blk_S.max()) if ks.nblk else 0
     for what, n, cap in (("actors", ks.nactor, MAX_ACTORS), ("bodies", ks.nbody, MAX_BODIES),
                          ("dofs", ks.ndof, MAX_DOFS), ("controls", ks.nu, MAX_NU),
+                         ("velocity coordinates", ks.nv, MAX_V),
                          ("geoms", ks.ngeom, MAX_GEOMS), ("pair blocks", ks.nblk, MAX_BLK),
                          ("swept candidates", ks.n_fc, MAX_CAND),
                          ("box-sample constants", len(ks.sconst), MAX_SC),
-                         ("couple contact links", int((ks.body_psi >= 0).sum()), MAX_PSI),
+                         ("couple and stiction contact links", int((ks.body_psi >= 0).sum()),
+                          MAX_PSI),
                          ("binarized dofs", len(ks.bin_dof), MAX_BIN),
                          ("samples per block", S, MAX_S)):
         if n > cap:
@@ -138,22 +142,21 @@ def pack_tables(ks: KernelScene, vis_body: int = -1) -> bytes:
     c = ks.cost or CostSpec(0, -1, -1, 0.0, 0.0)
     for n, v in (("nactor", ks.nactor), ("nbody", ks.nbody), ("ndof", ks.ndof),
                  ("ngeom", ks.ngeom), ("nu", ks.nu), ("nblk", ks.nblk), ("n_fc", ks.n_fc),
-                 ("nbin", len(ks.bin_dof)), ("task", c.task), ("ee_body", c.ee_body),
-                 ("goal_actor", c.goal_actor), ("vis_body", vis_body),
-                 ("block_actor", c.block_actor), ("force_body0", c.force_body0),
-                 ("force_nbody", c.force_nbody),
+                 ("nbin", len(ks.bin_dof)), ("nv", ks.nv), ("vis_body", vis_body),
                  ("gravity_z", ks.gravity_z), ("eps_v", ks.eps_v), ("max_depth", ks.max_depth),
-                 ("max_root_linvel", ks.max_root_linvel), ("max_root_angvel", ks.max_root_angvel),
-                 ("w_dist", c.w_dist), ("w_ori", c.w_ori), ("w_block", c.w_block),
-                 ("w_force", c.w_force)):
+                 ("max_root_linvel", ks.max_root_linvel), ("max_root_angvel", ks.max_root_angvel)):
         setattr(t, n, v)
+    for n in ("task", "ee_body", "goal_actor", "block_actor", "force_body0", "force_nbody",
+              "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof", "w_dist",
+              "w_ori", "w_block", "w_force", "w_align", "w_vel", "goal_x", "goal_y", "goal_yaw"):
+        setattr(t, n, getattr(c, n))
     for n in _TABLE_ARRAYS:
         flat = np.asarray(getattr(ks, n)).reshape(-1)
         getattr(t, n)[: len(flat)] = flat.tolist()
-    # row-major (MAX_DOFS, MAX_DOFS) and (MAX_DOFS, MAX_NU) tables
-    anc = np.zeros((MAX_DOFS, MAX_DOFS), np.int32)
-    anc[: ks.ndof, : ks.ndof] = ks.dof_anc
-    t.dof_anc[:] = anc.reshape(-1).tolist()
+    # row-major (MAX_V, MAX_V) and (MAX_DOFS, MAX_NU) tables
+    anc = np.zeros((MAX_V, MAX_V), np.int32)
+    anc[: ks.nv, : ks.nv] = ks.v_anc
+    t.v_anc[:] = anc.reshape(-1).tolist()
     W = np.zeros((MAX_DOFS, MAX_NU), np.float32)
     W[: ks.ndof, : ks.nu] = ks.cmd_W
     t.cmd_W[:] = W.reshape(-1).tolist()
@@ -268,7 +271,7 @@ class FusedRollout:
     def __init__(self, built, engine, cost: CostSpec, H: int, K: int,
                  vis_body: Optional[int] = None, substeps: Optional[int] = None,
                  impulse_sweeps: int = 2, world_fidelity: bool = True, manifold: str = "full"):
-        if cost is None or cost.task not in (TASK_PANDA_REACH, TASK_PANDA_PICK):
+        if cost is None or cost.task not in TASKS:
             raise NotImplementedError(f"no CUDA cost for task spec {cost}")
         if not world_fidelity:
             raise NotImplementedError(

@@ -17,7 +17,7 @@ from ..utils.config_store import ExampleConfig
 
 
 class MPPIisaacPlanner:
-    def __init__(self, cfg: ExampleConfig, objective, randomize: bool = True, device="cpu"):
+    def __init__(self, cfg: ExampleConfig, objective, randomize: bool = True, device="cuda"):
         if not hasattr(objective, "kernel_cost"):
             raise NotImplementedError(
                 f"{type(objective).__name__} has no CUDA cost (kernel_cost)")

@@ -23,6 +23,15 @@ class SimView:
     def actor_position(self, name: str) -> torch.Tensor:       # (K,3)
         return self.state.root_pos[..., self._ai(name), :]
 
+    def actor_orientation(self, name: str) -> torch.Tensor:    # (K,4) xyzw
+        return self.state.root_quat[..., self._ai(name), :]
+
+    def actor_linvel(self, name: str) -> torch.Tensor:         # (K,3)
+        return self.state.root_linvel[..., self._ai(name), :]
+
+    def actor_q(self, name: str) -> torch.Tensor:              # (K,ndof of the actor)
+        return self.state.q[..., self.scene.actor_dof_slice(name)]
+
     def link_position(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
         return self.state.body_pos[..., self.scene.body_index(link, actor), :]
 

@@ -54,10 +54,11 @@ def run_task(
     observer: Optional[Callable] = None,
     verbose: bool = False,
     randomize: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> LoopMetrics:
     """success_fn(world: Simulation) -> bool; observer(step, world, action).
-    device: "cuda" (the kernels) or "cpu" (their plain versions)."""
+    device: "cuda" (the kernels; the default) or "cpu" (their plain
+    versions)."""
     device = torch.device(device)
     world = Simulation(
         cfg=cfg.isaacgym,

@@ -60,7 +60,7 @@ class Simulation:
         actors: Sequence[Union[str, ActorSpec, dict]] = (),
         init_positions: Optional[List[List[float]]] = None,
         num_envs: int = 1,
-        device="cpu",
+        device="cuda",
         conf_dir: Optional[str] = None,
         randomize: bool = False,
         seed: int = 0,

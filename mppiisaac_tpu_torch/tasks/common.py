@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..physics.math3d import quat_to_euler_zyx
+from ..physics.math3d import quat_to_euler_zyx, quat_to_yaw
 
 
 def norm(x, dim=-1):
@@ -21,3 +21,31 @@ def contact_force_mag(view, actor: str, dims: int = 3):
     """|F|₁ of an actor's net contact force (its 'box' link or root body)."""
     f = view.get_actor_contact_forces_by_name(actor, "box")
     return torch.sum(torch.abs(f[..., :dims]), dim=-1)
+
+
+def push_align_cost(robot_to_block, block_to_goal):
+    """Cosine alignment term (+1 offset) — reference
+    `examples/heijn_push/planner.py:45-49`."""
+    num = torch.sum(robot_to_block * block_to_goal, dim=-1)
+    den = norm(robot_to_block) * norm(block_to_goal)
+    return num / torch.clamp(den, min=1e-6) + 1.0
+
+
+def yaw_of(quat):
+    return quat_to_yaw(quat)
+
+
+def split_cli(argv, defaults):
+    """Hydra-style `key=value` arguments → (the config overrides, the values
+    of the keys in `defaults`, each defaulting to its entry there)."""
+    from ..utils.confsys import parse_cli
+
+    opts = dict(defaults)
+    rest = []
+    for a in parse_cli(argv):
+        key, eq, val = a.partition("=")
+        if eq and key in defaults:
+            opts[key] = val
+        else:
+            rest.append(a)
+    return rest, opts

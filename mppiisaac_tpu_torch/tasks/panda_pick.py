@@ -4,8 +4,8 @@ goal. EE-to-block and block-to-goal distances, a table-contact penalty and
 the upright EE orientation term.
 
 Run the control loop: ``python -m mppiisaac_tpu_torch.tasks.panda_pick
-device=cuda [mppi.num_samples=1000 ...]`` (``device=cpu`` runs the kernels'
-plain versions).
+[device=cuda|cpu] [mppi.num_samples=1000 ...]`` (the card by default;
+``device=cpu`` runs the kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 from ..ops.fused_physics import TASK_PANDA_PICK, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import contact_force_mag, ee_upright_cost, norm
+from .common import contact_force_mag, ee_upright_cost, norm, split_cli
 
 
 class PandaPickObjective(Objective):
@@ -72,7 +72,7 @@ def success_fn(tol: float = 0.2):
     return success
 
 
-def run(overrides=None, device="cpu", **kw):
+def run(overrides=None, device="cuda", **kw):
     from ..runtime.loop import run_task
     from ..utils.config_store import load_config
 
@@ -83,11 +83,5 @@ def run(overrides=None, device="cpu", **kw):
 if __name__ == "__main__":
     import sys
 
-    from ..utils.confsys import parse_cli
-
-    args = parse_cli(sys.argv[1:])
-    dev = [a.partition("=")[2] for a in args if a.startswith("device=")]
-    rest = [a for a in args if not a.startswith("device=")]
-    if not dev:
-        raise SystemExit("pass device=cuda or device=cpu")
-    print(run(rest, device=dev[0], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
+    print(run(rest, device=opts["device"], verbose=True).summary())

@@ -2,8 +2,8 @@
 distance + upright orientation term.
 
 Run the control loop: ``python -m mppiisaac_tpu_torch.tasks.panda_reach
-device=cuda [mppi.num_samples=500 ...]`` (``device=cpu`` runs the kernels'
-plain versions).
+[device=cuda|cpu] [mppi.num_samples=500 ...]`` (the card by default;
+``device=cpu`` runs the kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 from ..ops.fused_physics import TASK_PANDA_REACH, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import ee_upright_cost, norm
+from .common import ee_upright_cost, norm, split_cli
 
 
 class PandaReachObjective(Objective):
@@ -51,7 +51,7 @@ def success_fn(ee_link: str = "panda_ee_tip", tol: float = 0.1):
     return success
 
 
-def run(overrides=None, task="panda", device="cpu", **kw):
+def run(overrides=None, task="panda", device="cuda", **kw):
     from ..runtime.loop import run_task
     from ..utils.config_store import load_config
 
@@ -64,11 +64,5 @@ def run(overrides=None, task="panda", device="cpu", **kw):
 if __name__ == "__main__":
     import sys
 
-    from ..utils.confsys import parse_cli
-
-    args = parse_cli(sys.argv[1:])
-    dev = [a.partition("=")[2] for a in args if a.startswith("device=")]
-    rest = [a for a in args if not a.startswith("device=")]
-    if not dev:
-        raise SystemExit("pass device=cuda or device=cpu")
-    print(run(rest, device=dev[0], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
+    print(run(rest, device=opts["device"], verbose=True).summary())

@@ -1,15 +1,23 @@
 """Where a control step of the PyTorch port goes on the GPU.
 
-    python scripts/profile_torch_step.py [--task panda|panda_pick] [--warmup 5]
-                                         [--steps 20] [--out profile_out]
+    python scripts/profile_torch_step.py [--task panda|panda_pick|boxer_push|...]
+                                         [--warmup 5] [--steps 20] [--out profile_out]
 
 Runs the per-step loop of `run_task` (plan → command map → world step) on
 CUDA: first --warmup steps (the pick loop grasps the block from about step
-110), then host-timed steps with a synchronize between the
-phases, then a torch.profiler window over the same steps. Prints the median
-phase times, the device time by kernel, the device's busy and idle share of
-the window, and the card's name and power limit; writes the Chrome trace to
---out.
+110; the boxer reaches the block in boxer_push after about 20), then
+host-timed steps with a synchronize between the phases, then a
+torch.profiler window over the same steps. Prints the median phase times,
+the device time by kernel, the device's busy and idle share of the window,
+and the card's name and power limit; writes the Chrome trace to --out.
+
+    python scripts/profile_torch_step.py --task boxer_push --drift STATES
+
+runs on the CPU instead: how far the kernels' plain versions in float32
+drift from the same in float64, at the task's shipped config, from each
+world state in STATES (the file `chip_smoke.py` writes to
+chiprun_out/boxer_push_states.pt) — K1 with the inputs and the statistics
+chip_smoke.py holds the kernel to, and K2 over 5 world steps by row group.
 """
 import argparse
 import json
@@ -25,11 +33,69 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner  # noqa: E402
 from mppiisaac_tpu_torch.runtime.sim import Simulation  # noqa: E402
+from mppiisaac_tpu_torch.tasks.mobile_push import EE_LINK, MobilePushObjective  # noqa: E402
+from mppiisaac_tpu_torch.tasks.mobile_reach import MobileReachObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective  # noqa: E402
 from mppiisaac_tpu_torch.utils.config_store import load_config  # noqa: E402
 
-OBJECTIVES = {"panda": PandaReachObjective, "panda_pick": PandaPickObjective}
+OBJECTIVES = {
+    "panda": PandaReachObjective,
+    "panda_pick": PandaPickObjective,
+    **{f"{r}_push": (lambda cfg, r=r: MobilePushObjective(cfg, r, EE_LINK[r])) for r in EE_LINK},
+    **{f"{r}_reach": (lambda cfg, r=r: MobileReachObjective(cfg, r)) for r in EE_LINK},
+}
+
+
+def drift(task, path):
+    """float32 against float64 of the plain K1 and K2 from the saved states."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import (
+        FusedRollout, FusedWorldStep, rollout_plain, world_step_plain)
+    from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
+    from mppiisaac_tpu_torch.runtime.sim import broadcast_state
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = load_config(f"tasks/{task}")
+    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
+    b = world.built
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = FusedRollout(b, world.engine, OBJECTIVES[task](cfg).kernel_cost(b), H, K,
+                      vis_body=b.visualize_bodies[0], impulse_sweeps=cfg.mppi.rollout_sweeps)
+    fw = FusedWorldStep(b, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    ks = fw.ks
+    A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
+    pm = ModelParams(torch.ones(K, b.scene.nbody), torch.ones(K, b.scene.ngeom))
+    for name, fields in torch.load(path).items():
+        s0 = SimState(**fields)
+        # the inputs of chip_smoke.py phase 8 (the same generator draws)
+        g = torch.Generator().manual_seed(0)
+        V = torch.rand(K, H, fr.nu, generator=g) * 2.0 - 1.0
+        rows, Vb, mass, fric = fr.pack(broadcast_state(s0, K), pm, V)
+        t0 = time.perf_counter()
+        out = {dt: rollout_plain(fr.ks, rows.to(dt), Vb.to(dt), mass.to(dt), fric.to(dt), H,
+                                 fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps)[0]
+               for dt in (torch.float32, torch.float64)}
+        d = (out[torch.float32].double() - out[torch.float64]).abs()
+        print(f"{name}: K1 float32 vs float64 at K={K}, H={H}: max {d.max().item():.3e}, first "
+              f"step {d[:, 0].max().item():.3e}, median over samples "
+              f"{d.max(1).values.median().item():.3e} (costs up to "
+              f"{out[torch.float64].abs().max().item():.3f}; {time.perf_counter() - t0:.0f} s)",
+              flush=True)
+        r = {dt: fw.pack(s0).to(dt) for dt in (torch.float32, torch.float64)}
+        ones_b, ones_g = torch.ones(ks.nbody), torch.ones(ks.ngeom)
+        for _ in range(5):
+            u = torch.rand(fr.nu, generator=g) * 2.0 - 1.0
+            tgt = b.cmd_map.apply(u[None], s0.q[None])[0]
+            for dt in r:
+                r[dt] = world_step_plain(ks, r[dt], tgt.to(dt), ones_b.to(dt), ones_g.to(dt),
+                                         fw.substeps, fw.dt_sub, fw.impulse_sweeps)
+        dd = (r[torch.float32].double() - r[torch.float64]).abs()
+        root = dd[: 13 * A].reshape(A, 13)
+        q = dd[13 * A: 13 * A + D].max().item() if D else 0.0
+        print(f"{name}: K2 float32 vs float64 after 5 world steps: pose "
+              f"{max(root[:, :7].max().item(), q):.3e}, vel "
+              f"{max(root[:, 7:].max().item(), dd[13 * A + D: NS].max().item()):.3e}, lam "
+              f"{dd[NS:].max().item():.3e}", flush=True)
 
 
 def main():
@@ -38,7 +104,11 @@ def main():
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--drift", metavar="STATES", help="measure float32 drift on the CPU instead")
     args = ap.parse_args()
+    if args.drift:
+        drift(args.task, args.drift)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     dev = torch.device("cuda")

@@ -2,7 +2,8 @@
 kernels' contacts.cuh) against the JAX package's lanes functions on the
 panda_pick scene: `block_gate`, `block_geometry` for the cp, bp, cb and bbc
 blocks, and `contacts_lanes`, called on plain arrays of K random poses, plus
-the math the narrowphase stands on.
+the math the narrowphase stands on, and the cc narrowphase on random pairs
+of segments.
 
 Poses: the arm bent at random (a quarter of the samples into the ground),
 the fingers at random openings, the block between the fingers, on or into
@@ -235,3 +236,55 @@ def test_contacts_match_lanes(pick, seed):
         jd = np.broadcast_to(np.asarray(jd), (S, K)).T
         np.testing.assert_allclose(g.depth.numpy()[lv], jd[lv], atol=GEO_TOL)
         assert (g.depth.numpy()[~lv] == 0).all()
+
+
+CC_CASES = {
+    # name: (geom types, (radius, half-length) per geom, pose generator)
+    "crossing capsules": ((2, 2), ((0.05, 0.2), (0.08, 0.1)), "near"),
+    "parallel capsules": ((2, 2), ((0.05, 0.2), (0.08, 0.1)), "parallel"),
+    "capsule and sphere": ((2, 0), ((0.08, 0.005), (0.15, 0.0)), "near"),
+    "two spheres": ((0, 0), ((0.15, 0.0), (0.15, 0.0)), "near"),
+    "coincident spheres": ((0, 0), ((0.15, 0.0), (0.15, 0.0)), "same"),
+    "separated capsules": ((2, 2), ((0.05, 0.2), (0.08, 0.1)), "far"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CC_CASES))
+def test_cc_geometry_matches_lanes(case):
+    """The capsule–capsule (cc) narrowphase, one sample per block (a sphere
+    is a capsule of zero length), against the JAX `block_geometry` on K
+    random pairs of segments: crossing, parallel (one orientation for both),
+    capsule against sphere, sphere against sphere, coincident centres (the
+    1e-9 distance guard) and separated (negative depth)."""
+    from types import SimpleNamespace
+
+    types, sizes, how = CC_CASES[case]
+    rng = np.random.RandomState(sorted(CC_CASES).index(case))
+    qa = rng.normal(size=(K, 4)).astype(np.float32)
+    qa /= np.linalg.norm(qa, axis=-1, keepdims=True)
+    qb = qa.copy() if how == "parallel" else rng.normal(size=(K, 4)).astype(np.float32)
+    qb /= np.linalg.norm(qb, axis=-1, keepdims=True)
+    pa = rng.uniform(-0.5, 0.5, (K, 3)).astype(np.float32)
+    off = {"near": rng.uniform(-0.25, 0.25, (K, 3)), "parallel": rng.uniform(-0.2, 0.2, (K, 3)),
+           "same": np.zeros((K, 3)), "far": 1.0 + rng.uniform(0.0, 0.5, (K, 3))}[how]
+    pb = (pa + off).astype(np.float32)
+    geom = dict(geom_body=np.array([0, 1]), geom_type=np.array(types),
+                geom_pos=np.zeros((2, 3), np.float32),
+                geom_quat=np.array([[0, 0, 0, 1], [0, 0, 0, 1]], np.float32),
+                geom_size=np.array([[r, h, 0.0] for r, h in sizes], np.float32))
+    ks = SimpleNamespace(blk_kind=np.array([tfc.KIND_CC]), blk_ga=np.array([0]), blk_gb=np.array([1]),
+                         **geom)
+    pt, nrm, dep = tfc.block_geometry(ks, 0, [torch.as_tensor(pa), torch.as_tensor(pb)],
+                                      [torch.as_tensor(qa), torch.as_tensor(qb)])
+    T = lambda x: tuple(jnp.asarray(x[..., i]) for i in range(x.shape[-1]))   # noqa: E731
+    blk = dict(kind="cc", ga=0, gb=1)
+    jpt, jn, jd = jfp.block_geometry(SimpleNamespace(**geom), blk, [T(pa), T(pb)], [T(qa), T(qb)], None)
+    stack = lambda t: np.stack([np.asarray(c) for c in t], -1).transpose(1, 0, 2)  # noqa: E731
+    assert pt.shape == (K, 1, 3) and dep.shape == (K, 1)
+    np.testing.assert_allclose(dep.numpy(), np.asarray(jd).T, atol=GEO_TOL)
+    np.testing.assert_allclose(pt.numpy(), stack(jpt), atol=GEO_TOL)
+    np.testing.assert_allclose(nrm.numpy(), stack(jn), atol=NRM_TOL)
+    if how == "far":
+        assert float(dep.max()) < 0.0
+    if how == "same":
+        assert float(nrm.abs().max()) == 0.0 and np.allclose(dep.numpy(), 0.3)

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at the
-shapes of the panda reach and panda pick main paths, and on the mini-gripper
-grasp scene. Marked `cuda`: they skip without an
+shapes of the panda reach, panda pick and boxer_push main paths, and on the
+mini-gripper grasp scene. Marked `cuda`: they skip without an
 NVIDIA GPU and run on the card (whose machine has no JAX, which
 tests/conftest.py imports) with
 
@@ -217,3 +217,64 @@ def test_grasp_scene_kernels_match_plain(panda):
     costs_p, vis_p = fr.plain(*inputs)
     torch.testing.assert_close(costs, costs_p, rtol=COST_TOL, atol=COST_TOL)
     torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+
+
+@pytest.fixture(scope="module")
+def boxer_push(panda):
+    from mppiisaac_tpu_torch.tasks.mobile_push import MobilePushObjective
+
+    cfg = load_config("tasks/boxer_push")
+    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cuda")
+    return cfg, world, MobilePushObjective(cfg, "boxer", "ee_link")
+
+
+def test_boxer_push_rollout_kernel_matches_plain(boxer_push):
+    """K1 at the boxer_push config (K=400, H=12, 2 sweeps) from the boxer
+    resting on its wheels: the floating base and its stiction blocks.
+    Bounds: chip_smoke.py BOXER_BOUNDS["initial"]."""
+    import chip_smoke
+
+    cfg, world, obj = boxer_push
+    built = world.built
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = FusedRollout(built, world.engine, obj.kernel_cost(built), H, K,
+                      vis_body=built.visualize_bodies[0], impulse_sweeps=cfg.mppi.rollout_sweeps)
+    g = torch.Generator().manual_seed(7)
+    V = (torch.rand(K, H, fr.nu, generator=g) * 2 - 1).cuda()
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(broadcast_state(world.state.map(lambda x: x[0]), K), pm, V)
+    n0 = FusedRollout.launches
+    costs, vis = fr.run(*inputs)
+    torch.cuda.synchronize()
+    assert FusedRollout.launches == n0 + 1
+    costs_p, vis_p = fr.plain(*inputs)
+    bound = chip_smoke.BOXER_BOUNDS["initial"]["k1_max"]
+    torch.testing.assert_close(costs, costs_p, rtol=0.0, atol=bound)
+    torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+
+
+def test_boxer_push_world_step_kernel_matches_plain(boxer_push):
+    """K2 (16 sweeps) over 5 world steps under random (v, ω) from rest, λ
+    rows included. Bounds: chip_smoke.py BOXER_BOUNDS["initial"] (the
+    largest of its row groups)."""
+    import chip_smoke
+
+    cfg, world, _ = boxer_push
+    built = world.built
+    fw = FusedWorldStep(built, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    st = world.state.map(lambda x: x[0])
+    rows = fw.pack(st).contiguous()
+    rows_p = rows.clone()
+    ones_b = torch.ones(built.scene.nbody, device="cuda")
+    ones_g = torch.ones(built.scene.ngeom, device="cuda")
+    g = torch.Generator().manual_seed(8)
+    for _ in range(5):
+        u = (torch.rand(fw.ks.nu, generator=g) * 2 - 1).cuda()
+        tgt = built.cmd_map.apply(u[None], st.q[None])[0].contiguous()
+        rows = fw.step_rows(rows, tgt, ones_b, ones_g)
+        rows_p = fw.plain(rows_p, tgt, ones_b, ones_g)
+    torch.cuda.synchronize()
+    b = chip_smoke.BOXER_BOUNDS["initial"]
+    torch.testing.assert_close(rows, rows_p, rtol=0.0, atol=max(b["pose"], b["vel"], b["lam"]))
+    assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"

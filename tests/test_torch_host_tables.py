@@ -1,6 +1,8 @@
 """Host-side tables of the PyTorch port equal the JAX package's exactly: the
 conf reader, the scene, the contact tables, the stacked articulation model and
-the pair-block contact plan, for `panda`, `point_robot` and `panda_pick`."""
+the pair-block contact plan, for `panda`, `point_robot`, `panda_pick` and the
+mobile-robot tasks `boxer_reach`, `boxer_push`, `heijn_reach` and
+`heijn_push`."""
 import dataclasses
 import glob
 import os
@@ -18,6 +20,7 @@ from mppiisaac_tpu.scene.builder import build_scene as j_build
 from mppiisaac_tpu.utils.config_store import actors_conf_dir as j_actor_dir
 from mppiisaac_tpu.utils.config_store import load_config as j_load
 
+from mppiisaac_tpu_torch.ops import fused_contacts as tfc
 from mppiisaac_tpu_torch.ops import fused_physics as tfp
 from mppiisaac_tpu_torch.physics.dynamics import build_actor_masks as t_masks
 from mppiisaac_tpu_torch.physics.step import Engine as TEngine
@@ -32,7 +35,8 @@ torch.set_num_threads(1)
 CONF_FILES = sorted(
     os.path.relpath(p, CONF_ROOT) for p in glob.glob(os.path.join(CONF_ROOT, "**", "*.yaml"), recursive=True)
 )
-TASKS = ["panda", "point_robot", "panda_pick"]
+TASKS = ["panda", "point_robot", "panda_pick", "boxer_reach", "boxer_push", "heijn_reach",
+         "heijn_push"]
 
 
 @pytest.mark.parametrize("rel", CONF_FILES)
@@ -158,16 +162,38 @@ def test_kernel_scene_pick_tables():
     assert np.allclose(ks.bin_uhi, 0.15) and np.allclose(ks.bin_qopen, 0.03)
 
 
+def test_kernel_scene_boxer_push_tables():
+    """The packed kernel tables of boxer_push: 27 pair blocks (cp 6, bp 2,
+    cc 9, cb 8, bbc 2), all swept, 89 candidates (455 rows with λ), the boxer
+    as the one floating-base articulation (6 base + 2 wheel coordinates), 16
+    couple and 5 stiction blocks, a Ψ for each of the boxer's 5 contact
+    links, and the diff-drive map."""
+    *_, tb, _, te = _build("boxer_push")
+    ks = tfp.KernelScene.build(tb, te)
+    blocks, _ = tfp.pair_blocks(tb.scene, te.tables)
+    kinds = [b["kind"] for b in blocks]
+    assert ks.nblk == 27 and ks.n_fc == 89 and ks.n_rows == 455 and ks.n_state_rows == 99
+    assert {k: kinds.count(k) for k in set(kinds)} == dict(cp=6, bp=2, cc=9, cb=8, bbc=2)
+    assert all(b["swept"] for b in blocks)
+    assert ks.actor_dynamic.tolist() == [1, 2, 2, 2, 0]
+    assert ks.actor_base.tolist() == [6, 0, 0, 0, 0] and ks.nv == 8
+    assert int(((ks.blk_flags & (tfc.F_A_ART | tfc.F_B_ART)) != 0).sum()) == 16
+    assert int(((ks.blk_flags & (tfc.F_A_STA | tfc.F_B_STA)) != 0).sum()) == 5
+    assert sorted(np.flatnonzero(ks.body_psi >= 0).tolist()) == [0, 1, 2, 3, 4]
+    assert np.allclose(ks.cmd_W, tb.cmd_map.W) and ks.nu == 2
+
+
 @pytest.mark.parametrize("task,feature", [
-    ("boxer_push", "cc"),
-    ("boxer_reach", "floating-base"),
+    ("omni_panda_pick", "effort drives"),
+    ("albert", "mesh collision fitting"),
     ("panda_effort", "effort drives"),
 ])
 def test_kernel_scene_rejects_unported_features(task, feature):
-    """Features outside the ported slice (boxer_push's capsule–capsule
-    blocks, boxer_reach's floating base and its stiction contacts,
-    panda_effort's effort drives): the kernel plan names the feature instead
-    of computing something else."""
-    *_, tb, _, te = _build(task)
+    """Features outside the ported slice (omni_panda_pick's and
+    panda_effort's effort drives, albert's mesh collision fitting): the scene
+    or the kernel plan names the feature instead of computing something
+    else."""
+    tc = t_load(f"tasks/{task}")
     with pytest.raises(NotImplementedError, match=feature):
-        tfp.KernelScene.build(tb, te)
+        tb = t_build(t_actors(tc.actors, actors_conf_dir()), tc.isaacgym, tc.initial_actor_positions)
+        tfp.KernelScene.build(tb, TEngine(tb.scene))

@@ -1,10 +1,12 @@
-"""The panda reach and panda pick slices end to end: one planner command of
-the port against the JAX planner from the same world state with the same
-injected noise (panda reach on the XLA rollout; the mini-gripper grasp scene
-on the fused Pallas rollout in interpret mode), the pick cost hook against
-the JAX objective's kernel cost, short control loops of the port on the CPU,
-the planner and world wiring of the rollout and world-step settings, and the
-port running without JAX or PyYAML installed."""
+"""The panda reach, panda pick and mobile-robot slices end to end: one
+planner command of the port against the JAX planner from the same world
+state with the same injected noise (panda reach on the XLA rollout; the
+mini-gripper grasp scene on the fused Pallas rollout in interpret mode), the
+pick, mobile reach and mobile push cost hooks against the JAX objectives'
+kernel costs, short control loops of the port on the CPU, the planner and
+world wiring of the rollout and world-step settings, the entry points'
+device defaults, and the port running without JAX or PyYAML installed."""
+import inspect
 import os
 import re
 import subprocess
@@ -31,10 +33,13 @@ from mppiisaac_tpu_torch.ops import fused_physics as tfp
 from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
 from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner as TPlanner
 from mppiisaac_tpu_torch.planner.objective import Objective
+from mppiisaac_tpu_torch.planner.observables import SimView
 from mppiisaac_tpu_torch.runtime.loop import run_task
 from mppiisaac_tpu_torch.runtime.sim import Simulation as TSim
+from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 from mppiisaac_tpu_torch.scene.actor import ActorSpec as TSpec
-from mppiisaac_tpu_torch.tasks import panda_pick
+from mppiisaac_tpu_torch.tasks import mobile_push, mobile_reach, panda_pick, panda_reach
+from mppiisaac_tpu_torch.tasks.common import split_cli
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective, success_fn
 from mppiisaac_tpu_torch.utils.config_store import load_config as t_load
 
@@ -72,7 +77,7 @@ def test_planner_command_matches_jax():
     eps = np.array(jp.mppi._sample_noise(sub, carry.sigma))
     a_j, c_j, info_j = jp._full_command(carry, world.state)
 
-    tp = TPlanner(tc, PandaReachObjective(tc))
+    tp = TPlanner(tc, PandaReachObjective(tc), device="cpu")
     a_t, c_t, info_t = tp._full(carry_from_jax(carry), sim_state_from_jax(world.state),
                                 eps=torch.tensor(eps))
     np.testing.assert_allclose(info_t["costs"].numpy(), np.asarray(info_j["costs"]), rtol=1e-5, atol=1e-5)
@@ -101,7 +106,7 @@ def test_pick_cost_matches_jax_kernel_cost():
     net contact forces included. Bound 1e-5 relative: the JAX kernel takes its
     pitch and yaw from a ~1e-6 rad polynomial atan, the port from atan2."""
     jc, tc = j_load("tasks/panda_pick"), t_load("tasks/panda_pick")
-    tw = TSim(tc.isaacgym, tc.actors, tc.initial_actor_positions)
+    tw = TSim(tc.isaacgym, tc.actors, tc.initial_actor_positions, device="cpu")
     jw = JSim(cfg=jc.isaacgym, actors=jc.actors, init_positions=jc.initial_actor_positions)
     ks = tfp.KernelScene.build(tw.built, tw.engine, panda_pick.PandaPickObjective(tc).kernel_cost(tw.built))
     rng = np.random.RandomState(7)
@@ -114,6 +119,13 @@ def test_pick_cost_matches_jax_kernel_cost():
     st["net_cf"] = torch.as_tensor(rng.uniform(-50, 50, (K, ks.nbody, 3)), dtype=torch.float32)
     pos, quat, _, _, _ = tfp.fk(ks, st)
     got = tfp.task_cost(ks, st, pos, quat)
+    view = _lane_view(jw.built.scene, ks, st)
+    ref = np.asarray(JPickObjective(jc).kernel_cost(jw.built.scene)(view, 0))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _lane_view(jscene, ks, st):
+    """The JAX lanes view (fk_lanes + LaneView) of the twin's K states."""
 
     def tiles(x):
         return tuple(jnp.asarray(x[..., i].numpy()) for i in range(x.shape[-1]))
@@ -123,12 +135,116 @@ def test_pick_cost_matches_jax_kernel_cost():
            "root_linvel": [tiles(st["root_linvel"][:, a]) for a in range(ks.nactor)],
            "root_angvel": [tiles(st["root_angvel"][:, a]) for a in range(ks.nactor)],
            "q": list(tiles(st["q"])), "qd": list(tiles(st["qd"]))}
-    jpos, jquat, jlinv, jangv, _ = jfp.fk_lanes(jw.built.scene, jst)
-    view = jfp.LaneView(jw.built.scene, jpos, jquat, jlinv, jangv,
+    jpos, jquat, jlinv, jangv, _ = jfp.fk_lanes(jscene, jst)
+    return jfp.LaneView(jscene, jpos, jquat, jlinv, jangv,
                         [tiles(st["net_cf"][:, b]) for b in range(ks.nbody)], jst["q"], jst["qd"],
                         jst["root_pos"], jst["root_quat"], jst["root_linvel"])
-    ref = np.asarray(JPickObjective(jc).kernel_cost(jw.built.scene)(view, 0))
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# the JAX kernel costs take a yaw from the polynomial atan (lanes
+# atan2_tiles); its largest error against atan2 over random quaternions
+YAW_POLY_ERR = 2e-6
+
+
+def test_yaw_polynomial_error():
+    """The error of the JAX kernels' polynomial yaw against atan2, which the
+    port's kernels and twin use: below YAW_POLY_ERR rad (measured 1.3e-6 at
+    this seed)."""
+    rng = np.random.RandomState(11)
+    q = rng.normal(size=(4096, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    got = np.asarray(JL.yaw_of(tuple(jnp.asarray(q[:, i]) for i in range(4))))
+    ref = np.asarray(tfp.quat_to_yaw(torch.as_tensor(q)))
+    err = np.abs(got - ref)
+    err = np.minimum(err, 2 * np.pi - err)
+    assert err.max() < YAW_POLY_ERR, err.max()
+
+
+MOBILE = [("boxer_reach", "reach", "boxer"), ("heijn_reach", "reach", "heijn"),
+          ("boxer_push", "push", "boxer"), ("heijn_push", "push", "heijn")]
+
+
+def _objectives(kind, robot, jc, tc):
+    from mppiisaac_tpu.tasks.mobile_push import MobilePushObjective as JPush
+    from mppiisaac_tpu.tasks.mobile_reach import MobileReachObjective as JReach
+
+    if kind == "reach":
+        return JReach(jc, robot), mobile_reach.MobileReachObjective(tc, robot)
+    ee = mobile_push.EE_LINK[robot]
+    return JPush(jc, robot, ee), mobile_push.MobilePushObjective(tc, robot, ee)
+
+
+@pytest.mark.parametrize("task,kind,robot", MOBILE)
+def test_mobile_cost_matches_jax_kernel_cost(task, kind, robot):
+    """The kernels' TASK_MOBILE_REACH / TASK_MOBILE_PUSH branches (the twin's
+    task_cost, with each task's CostSpec) against the JAX objectives'
+    kernel_cost on the same K states: random base and dof poses, block yaws
+    over the whole circle, block velocities and net contact forces. Bound:
+    rtol 1e-5 with atol 3·YAW_POLY_ERR + 1e-5 (the yaw term's weight is 3)."""
+    jc, tc = j_load(f"tasks/{task}"), t_load(f"tasks/{task}")
+    tw = TSim(tc.isaacgym, tc.actors, tc.initial_actor_positions, device="cpu")
+    jw = JSim(cfg=jc.isaacgym, actors=jc.actors, init_positions=jc.initial_actor_positions)
+    jobj, tobj = _objectives(kind, robot, jc, tc)
+    ks = tfp.KernelScene.build(tw.built, tw.engine, tobj.kernel_cost(tw.built))
+    rng = np.random.RandomState(8)
+    K = 32
+    s0 = tw.state.map(lambda x: x[0])
+    q = s0.q + torch.as_tensor(rng.uniform(-1.0, 1.0, (K, ks.ndof)), dtype=torch.float32)
+    root = s0.root_state.expand(K, -1, -1).clone()
+    root[:, :, 0:2] += torch.as_tensor(rng.uniform(-1.5, 1.5, (K, ks.nactor, 2)), dtype=torch.float32)
+    ang = rng.uniform(-np.pi, np.pi, (K, ks.nactor))
+    root[:, :, 3:7] = torch.as_tensor(np.stack([0 * ang, 0 * ang, np.sin(ang / 2), np.cos(ang / 2)], -1),
+                                      dtype=torch.float32)
+    root[:, :, 7:13] = torch.as_tensor(rng.uniform(-1, 1, (K, ks.nactor, 6)), dtype=torch.float32)
+    st = tfp.rows_to_state(ks, tfp.state_to_rows(ks, root, q, torch.zeros_like(q)))
+    st["net_cf"] = torch.as_tensor(rng.uniform(-20, 20, (K, ks.nbody, 3)), dtype=torch.float32)
+    pos, quat, _, _, _ = tfp.fk(ks, st)
+    got = tfp.task_cost(ks, st, pos, quat)
+    ref = np.asarray(jobj.kernel_cost(jw.built.scene)(_lane_view(jw.built.scene, ks, st), 0))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=3 * YAW_POLY_ERR + 1e-5)
+    # the kernel branch is the objective's own cost where the two coincide
+    # (single-body force actors, heijn's xy from its dofs)
+    state = broadcast_state(s0, K).map(torch.Tensor.clone).replace(
+        q=q, qd=torch.zeros_like(q), root_pos=st["root_pos"], root_quat=st["root_quat"],
+        root_linvel=st["root_linvel"], root_angvel=st["root_angvel"])
+    state = tw.engine.refresh(state).replace(net_contact_force=st["net_cf"])
+    view = SimView(tw.built, state)
+    np.testing.assert_allclose(tobj.compute_cost(view).numpy(), got.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_entry_points_default_to_cuda():
+    """run_task, Simulation, MPPIisaacPlanner and every task's run default
+    to the card; a task CLI without device= asks for the card too, and on a
+    machine without one it fails instead of falling back to the CPU."""
+    for fn in (run_task, TSim.__init__, TPlanner.__init__, panda_reach.run, panda_pick.run,
+               mobile_reach.run, mobile_push.run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    rest, opts = split_cli(["mppi.horizon=2", "robot=heijn"], {"robot": "boxer", "device": "cuda"})
+    assert rest == ["mppi.horizon=2"] and opts == {"robot": "heijn", "device": "cuda"}
+    if not torch.cuda.is_available():
+        proc = subprocess.run([sys.executable, "-m", "mppiisaac_tpu_torch.tasks.mobile_reach",
+                               "mppi.num_samples=4", "mppi.horizon=2", "n_steps=1"],
+                              cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0 and "CUDA" in proc.stderr, proc.stderr[-2000:]
+
+
+def test_run_task_short_boxer_push_cpu_loop():
+    """Two control steps of boxer_push on the CPU at K=8, H=2: the plain
+    versions run the floating base, the stiction, couple and cc blocks (no
+    kernel launch is counted), the boxer drives, the state stays finite and
+    λ rows reach contact_lam."""
+    cfg = t_load("tasks/boxer_push", ["mppi.num_samples=8", "mppi.horizon=2"])
+    n1, n2 = FusedRollout.launches, FusedWorldStep.launches
+    seen = []
+    obj = mobile_push.MobilePushObjective(cfg, "boxer", "ee_link")
+    m = run_task(cfg, obj, n_steps=2, success_fn=mobile_push.success_fn(obj.goal),
+                 observer=lambda step, world, action: seen.append(
+                     (step, tuple(action.shape), world.state.contact_lam.clone())),
+                 device="cpu")
+    assert m.steps == 2 and m.final_state_finite and m.success_step is None
+    assert [x[:2] for x in seen] == [(0, (2,)), (1, (2,))]
+    assert float(seen[-1][2].abs().max()) > 0.0, "no λ row reached contact_lam"
+    assert (FusedRollout.launches, FusedWorldStep.launches) == (n1, n2)
 
 
 def test_run_task_short_pick_cpu_loop():
@@ -152,14 +268,14 @@ def test_planner_passes_rollout_and_world_settings():
     """The planner hands rollout_sweeps to K1 and refuses fast fidelity by
     name; the world hands fused_world_sweeps to K2."""
     cfg = t_load("tasks/panda", ["mppi.num_samples=8", "mppi.horizon=2", "mppi.rollout_sweeps=3"])
-    planner = TPlanner(cfg, PandaReachObjective(cfg))
+    planner = TPlanner(cfg, PandaReachObjective(cfg), device="cpu")
     assert planner.mppi.fused.impulse_sweeps == 3
     cfg.isaacgym.fused_world_sweeps = 5
-    world = TSim(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions)
+    world = TSim(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
     assert world._world_step.impulse_sweeps == 5
     cfg = t_load("tasks/panda", ["mppi.num_samples=8", "mppi.horizon=2", "mppi.rollout_fidelity=fast"])
     with pytest.raises(NotImplementedError, match="fast"):
-        TPlanner(cfg, PandaReachObjective(cfg))
+        TPlanner(cfg, PandaReachObjective(cfg), device="cpu")
 
 
 def _jax_pick_form(c):
@@ -210,12 +326,12 @@ def test_planner_command_matches_jax_gripper():
         world.apply_robot_cmd(np.array([-1.0, -1.0], np.float32))
         world.step()
     assert np.abs(np.asarray(world.state.contact_lam)).max() > 1e-6
-    s = TSim(tc.isaacgym, tc.actors, None).scene
+    s = TSim(tc.isaacgym, tc.actors, None, device="cpu").scene
     ball = s.actor_index("ball")
     spec = tfp.CostSpec(task=tfp.TASK_PANDA_PICK, ee_body=s.body_offset[ball] - 1, goal_actor=0,
                         w_dist=1.0, w_ori=0.5, block_actor=ball, force_body0=s.body_offset[ball],
                         force_nbody=1, w_block=2.0, w_force=0.01)
-    tp = TPlanner(tc, _SpecObjective(spec))
+    tp = TPlanner(tc, _SpecObjective(spec), device="cpu")
     jp = JPlanner(jc, _SpecObjective(spec, jax_form=True), use_fused=True)
     carry = jp.mppi.carry
     _, sub = jax.random.split(carry.key)

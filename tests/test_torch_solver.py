@@ -1,5 +1,7 @@
 """The port's MPPI update against the JAX solver with the noise ε injected,
-and the port's Halton/ndtri sampler checked by its statistics.
+the port's Halton/ndtri sampler checked by its statistics, and the port's
+random numbers (`mppi.prng`) against `jax.random`: the same keys bit for bit,
+so whole commands agree with the noise drawn, not injected.
 
 Both solvers roll out through the same stub (a smooth cost of the controls),
 so the comparison isolates the update: clip, null sample, action cost,
@@ -16,6 +18,7 @@ from mppiisaac_tpu.mppi.solver import MPPIPlanner as JPlanner
 from mppiisaac_tpu.utils.config_store import load_config as j_load
 
 from mppiisaac_tpu_torch.convert import carry_from_jax
+from mppiisaac_tpu_torch.mppi import prng
 from mppiisaac_tpu_torch.mppi.sampling import bspline_interp_matrix
 from mppiisaac_tpu_torch.mppi.solver import MPPIPlanner as TPlanner
 from mppiisaac_tpu_torch.utils.config_store import load_config as t_load
@@ -76,7 +79,10 @@ def test_halton_ndtri_noise_statistics():
     tp = TPlanner(tc.mppi, tc.nx, fused=_TStub())
     c = tp.cfg
     sigma = tp.carry.sigma
-    draws = [tp._sample_noise(sigma) for _ in range(4)]
+    key, draws = tp.carry.key, []
+    for _ in range(4):
+        key, sub = prng.split(key)
+        draws.append(tp._sample_noise(sub, sigma))
     eps = torch.cat(draws).double()                                  # (4K,H,nu)
     assert eps.shape[1:] == (c.horizon, tp.nu)
     P = bspline_interp_matrix(tp._n_knots, c.horizon, c.spline_degree)
@@ -86,7 +92,45 @@ def test_halton_ndtri_noise_statistics():
     np.testing.assert_allclose(eps.var(0).numpy(), expect_var, rtol=0.1)
     assert not torch.equal(draws[0], draws[1])
     tp2 = TPlanner(tc.mppi, tc.nx, fused=_TStub())
-    assert torch.equal(tp2._sample_noise(sigma), draws[0])
+    assert torch.equal(tp2._sample_noise(prng.split(tp2.carry.key)[1], sigma), draws[0])
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 + 5])
+def test_prng_matches_jax_random(seed):
+    """Keys, splits and uniform draws are bit-identical to jax.random's; the
+    normal draws agree to the rounding of float32 erfinv, which grows in the
+    tails (3e-6 relative at |z| = 3.6)."""
+    jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed)
+    np.testing.assert_array_equal(tk, np.asarray(jk))
+    for _ in range(3):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = prng.split(tk)
+        np.testing.assert_array_equal(tk, np.asarray(jk))
+        np.testing.assert_array_equal(tsub, np.asarray(jsub))
+        np.testing.assert_array_equal(prng.uniform(tsub, (3, 37)),
+                                      np.asarray(jax.random.uniform(jsub, (3, 37))))
+        z = torch.special.erfinv(torch.as_tensor(prng.normal_uniforms(tsub, (5, 8)))) * np.sqrt(2.0)
+        np.testing.assert_allclose(z.numpy(), np.asarray(jax.random.normal(jsub, (5, 8))),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("task,overrides", [("panda", []), ("boxer_reach", []),
+                                            ("point_robot", ["mppi.sampling_method=random"])])
+def test_commands_match_jax_with_drawn_noise(task, overrides):
+    """Three commands from the same seed, each drawing its own noise: the port
+    draws what the JAX solver draws, so actions and carries agree."""
+    jc, tc = j_load(f"tasks/{task}", overrides), t_load(f"tasks/{task}", overrides)
+    jp = JPlanner(jc.mppi, jc.nx, dynamics=None, running_cost=None, fused=_JStub())
+    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub())
+    jcar, tcar = jp.init_carry(), tp.carry
+    for i in range(3):
+        a_j, jcar, i_j = jp._command_impl(jcar, (None, None))
+        a_t, tcar, i_t = tp._command_impl(tcar, (None, None))
+        np.testing.assert_array_equal(tcar.key, np.asarray(jcar.key))
+        np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=TOL, atol=TOL,
+                                   err_msg=f"action {i}")
+        np.testing.assert_allclose(tcar.U.numpy(), np.asarray(jcar.U), rtol=TOL, atol=TOL,
+                                   err_msg=f"U {i}")
 
 
 def test_update_noise_sigma_matches_jax():
