@@ -37,9 +37,38 @@ Phases (any failure exits non-zero before the result line):
      blocks on a floating actor, cc and the two-way sweeps live); K2 over 5
      world steps from each, λ rows included (bounds at BOXER_BOUNDS); both
      states go to chiprun_out/boxer_push_states.pt;
-  9. time K1 and K2 on the reach, pick and boxer_push paths against their
-     plain versions (CUDA events; few repetitions of the plain versions,
-     Python loops of small torch ops).
+  9. the point-robot loops (`run_task` through each task's own objective and
+     success test) at their shipped configs, with the launch counters
+     checked: point_robot (K=100, H=20) to within 0.1 m of its goal in 100
+     steps, alone and with the sphere paper_obst1 as its obstacle (the scene
+     the JAX package's benchmark runner builds), and multi_pointbot (K=200,
+     H=20) both robots within 0.2 m of their goals in 200; each then holds
+     K1 (all samples) and K2 against their plain versions from the initial
+     state and a state of its loop: point_robot's after 20 steps, the others'
+     at the step where the robot is closest to the obstacle or to the other
+     robot (POINT_BOUNDS); the states go to chiprun_out/<path>_states.pt;
+ 10. panda_effort (K=500, H=8, simple mode, 7 effort-driven joints) to within
+     0.1 m of its goal in 500 steps, launch counters checked; then K1 and K2
+     against their plain versions from the initial state and the loop's
+     state after 20 steps (bounds at EFFORT_BOUNDS);
+ 11. panda_stick_push (K=1000, H=12) for 200 steps, launch counters checked:
+     fails unless a stick–block λ row carried an impulse, and prints ‖block −
+     goal‖ at the start and the end; K1 and K2 against their plain versions
+     from the initial state and the first touching state (STICK_BOUNDS);
+ 12. omni_panda_pick (K=750, H=6, 8 sweeps in K1, effort drives with the
+     finger motor) for 150 steps, launch counters checked: fails on a
+     non-finite state or if the finger dofs never move; K1 and K2 against
+     their plain versions from the initial state and the loop's last state
+     (OMNI_BOUNDS). The states of phases 10-12 go to
+     chiprun_out/<task>_states.pt;
+ 13. time K1 and K2 on the reach, pick, boxer_push, panda_stick_push and
+     omni_panda_pick paths against their plain versions (CUDA events). To
+     keep the run short, the plain K1 of phases 10-12 runs on the first
+     PLAIN_K1_SAMPLES samples of the same packed inputs (samples are
+     independent: the kernel's first costs are held against them), and the
+     plain versions of the pick, boxer_push, stick-push and omni paths are
+     timed once, in their holds (Python loops of small torch ops, seconds
+     each); each path's phases print their seconds.
 Each kernel's bound — the least time the card could take for the same work —
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s; the operations are
@@ -113,6 +142,63 @@ BOXER_BOUNDS = {
     "initial": dict(k1_max=1.5, pose=1.5e-2, vel=6.0, lam=3.5e-2),
     "touching": dict(k1_first=3e-2, k1_median=6e-2, pose=2.5e-5, vel=1.5e-2, lam=3e-4),
 }
+# panda_effort, panda_stick_push and omni_panda_pick (phases 10-12): 10× (or
+# more) the drift of the float32 twin from the float64 twin on the CPU, from
+# the same states with the same inputs (`scripts/profile_torch_step.py
+# --task <task> --drift chiprun_out/<task>_states.pt`, K1 on the first
+# PLAIN_K1_SAMPLES samples):
+# * panda_effort (no contact in reach; initial and step 20): K1 costs drift
+#   by 9.7e-7 at most (costs up to 1.7); K2 over 5 steps by 1.5e-7 in poses,
+#   6.7e-7 in velocities (no λ rows);
+# * panda_stick_push initial: K1 4.7e-5 (costs up to 64); K2 1.5e-6 / 2.2e-5
+#   / 3.0e-7 in λ. Touching (the loop's first step at which a stick–block λ
+#   row carries an impulse): the stick pressing the block turns roundings
+#   into switched contacts, as pick's grasp does: K1 1.4e-4 at the first
+#   step, 2.8e-4 as the median over samples, 0.39 at most (costs up to 38);
+#   K2 1.6e-6 / 1.4e-4 / 1.4e-8. Held at the first step and by the median;
+# * omni_panda_pick initial: the block and the base start at zero depth, so
+#   K2's velocities drift by 1.6e-3 (poses 8.4e-7, λ 1.3e-6), K1 by 2.6e-4
+#   (costs up to 36); its last state (step 150): K1 2.5e-4, K2 3.8e-7 /
+#   2.7e-4 / 1.2e-7 — no sensitive contact there, so held by the maximum.
+# point_robot, point_robot_obst1 and multi_pointbot (phase 9): 10× (or more)
+# the same drift (`--task <path> --drift chiprun_out/<path>_states.pt`, K1 on
+# all samples; the floors where it is 0: 1e-6), from the two states of each:
+# * point_robot (one bp block, nothing swept): initial K1 3.3e-7 (costs up to
+#   3.2), K2 over 5 steps 2.1e-8 in poses, 1.9e-7 in velocities; step 20 K1
+#   8.2e-7, K2 5.4e-8 / 2.3e-7;
+# * point_robot_obst1 initial: the obstacle starts at zero depth on the
+#   ground, so K2 drifts by 2.3e-5 / 7.7e-3 / 4.8e-5 in λ (K1 6.8e-7, costs
+#   up to 3.2); closest (the robot pushing the obstacle, step 16 of the
+#   loop): K1 4.6e-4 at most (costs up to 2.2), 2.1e-7 at the first step,
+#   1.2e-6 as the median; K2 1.0e-5 / 2.0e-4 / 7.8e-7. Held by the maximum;
+# * multi_pointbot (the robots' xy are dof coordinates, both 0 at the start,
+#   so the separation term is on in both states; nothing swept): initial K1
+#   9.9e-7 (costs up to 5.5), K2 1.4e-8 / 7.1e-8; closest (step 0) K1
+#   8.6e-7, K2 2.0e-8 / 9.0e-8.
+POINT_BOUNDS = {
+    "point_robot": {"initial": dict(k1_max=5e-6, pose=5e-7, vel=2e-6, lam=1e-6),
+                    "step 20": dict(k1_max=1e-5, pose=6e-7, vel=2.5e-6, lam=1e-6)},
+    "point_robot_obst1": {"initial": dict(k1_max=1e-5, pose=2.5e-4, vel=8e-2, lam=5e-4),
+                          "closest": dict(k1_max=5e-3, pose=1.1e-4, vel=2e-3, lam=8e-6)},
+    "multi_pointbot": {"initial": dict(k1_max=1e-5, pose=2e-7, vel=1e-6, lam=1e-6),
+                       "closest": dict(k1_max=1e-5, pose=2e-7, vel=1e-6, lam=1e-6)},
+}
+EFFORT_BOUNDS = {
+    "initial": dict(k1_max=1e-5, pose=2e-6, vel=1e-5, lam=1e-6),
+    "step 20": dict(k1_max=1e-5, pose=2e-6, vel=1e-5, lam=1e-6),
+}
+STICK_BOUNDS = {
+    "initial": dict(k1_max=5e-4, pose=1.5e-5, vel=2.5e-4, lam=3e-6),
+    "touching": dict(k1_first=1.5e-3, k1_median=3e-3, pose=2e-5, vel=1.5e-3, lam=1.5e-7),
+}
+OMNI_BOUNDS = {
+    "initial": dict(k1_max=3e-3, pose=1e-5, vel=1.6e-2, lam=1.5e-5),
+    "last": dict(k1_max=3e-3, pose=4e-6, vel=3e-3, lam=1.5e-6),
+}
+PLAIN_K1_SAMPLES = 128
+# the holds' controls: uniform in ±HOLD_AMP·u_max for each control
+HOLD_AMP = {"panda_effort": 0.3, "panda_stick_push": 1.0, "omni_panda_pick": 0.3,
+            "point_robot": 1.0, "point_robot_obst1": 1.0, "multi_pointbot": 1.0}
 SEED = 0
 PICK_MAX_STEPS = 600
 SETTLE_STEPS = 20
@@ -280,18 +366,45 @@ def _bound(flops, nbytes):
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def hold_controls(task, cfg, g, shape):
+    """The holds' controls of phases 9-12: uniform in ±HOLD_AMP·u_max, drawn
+    from g on the CPU (scripts/profile_torch_step.py --drift draws the same)."""
+    amp = HOLD_AMP[task] * torch.as_tensor(cfg.mppi.u_max, dtype=torch.float32)
+    return (torch.rand(shape, generator=g) * 2.0 - 1.0) * amp
+
+
+class Timer:
+    """Milliseconds of the enclosed GPU work (CUDA events)."""
+
+    def __enter__(self):
+        self.a = torch.cuda.Event(enable_timing=True)
+        self.b = torch.cuda.Event(enable_timing=True)
+        self.a.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.b.record()
+        self.b.synchronize()
+        self.ms = self.a.elapsed_time(self.b)
+
+
 def hold_k2(fw, s0, tgt_of, n, bound, name):
     """K2 against its plain version over n world steps from state s0: max
-    |d| by row group (pose, vel, lam), checked against `bound`."""
+    |d| by row group (pose, vel, lam), checked against `bound`. → (the
+    largest group's |d|, the last step's inputs, the plain version's ms per
+    step)."""
     dev = s0.q.device
     ones_b = torch.ones(fw.ks.nbody, device=dev)
     ones_g = torch.ones(fw.ks.ngeom, device=dev)
     r = fw.pack(s0).contiguous()
     rp = r.clone()
+    plain_ms = 0.0
     for i in range(n):
         tgt = tgt_of(i)
         r = fw.step_rows(r, tgt, ones_b, ones_g)
-        rp = fw.plain(rp, tgt, ones_b, ones_g)
+        with Timer() as t:
+            rp = fw.plain(rp, tgt, ones_b, ones_g)
+        plain_ms += t.ms / n
     torch.cuda.synchronize()
     ks = fw.ks
     A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
@@ -300,22 +413,34 @@ def hold_k2(fw, s0, tgt_of, n, bound, name):
     q = dd[13 * A: 13 * A + D].max().item() if D else 0.0
     groups = dict(pose=max(root[:, :7].max().item(), q),
                   vel=max(root[:, 7:].max().item(), dd[13 * A + D: NS].max().item()),
-                  lam=dd[NS:].max().item())
+                  lam=dd[NS:].max().item() if ks.n_fc else 0.0)
     print(f"  {name}: K2 rows after {n} steps: max|d| " + ", ".join(
         f"{k} {e:.3e} (bound {bound[k]:g})" for k, e in groups.items()), flush=True)
     if not bool(torch.isfinite(r).all()) or any(e > bound[k] for k, e in groups.items()):
         fail(f"{name}: K2 disagrees with its plain version")
-    if float(rp[NS:].abs().max()) == 0.0:
+    if ks.n_fc and float(rp[NS:].abs().max()) == 0.0:
         fail(f"{name}: no λ row carried a contact impulse")
-    return max(groups.values()), (r, tgt, ones_b, ones_g)
+    return max(groups.values()), (r, tgt, ones_b, ones_g), plain_ms
 
 
-def hold_k1(fr, k1_in, bound, name):
+def hold_k1(fr, k1_in, bound, name, n_plain=None):
     """K1 against its plain version: max, first-step and median-over-samples
-    cost differences, checked against the k1_* entries of `bound`."""
+    cost differences, checked against the k1_* entries of `bound`; with
+    n_plain, the plain version runs on the first n_plain samples of the same
+    packed inputs and the kernel's first n_plain samples are held against
+    it. The plain version's ms go to the result's "plain_ms"."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import rollout_plain
+
     c, v = fr.run(*k1_in)
     torch.cuda.synchronize()
-    cp, vp = fr.plain(*k1_in)
+    with Timer() as t:
+        if n_plain is None:
+            cp, vp = fr.plain(*k1_in)
+        else:
+            rows, V, mass, fric = (x[..., :n_plain].contiguous() for x in k1_in)
+            cp, vp = rollout_plain(fr.ks, rows, V.float(), mass, fric, fr.H, fr.substeps,
+                                   fr.dt_sub, fr.vis_body, fr.impulse_sweeps)
+            c, v = c[:n_plain], v[:, :n_plain]
     if not bool(torch.isfinite(c).all()):
         fail(f"{name}: K1 costs are not finite")
     d = (c.double() - cp.double()).abs()
@@ -327,6 +452,7 @@ def hold_k1(fr, k1_in, bound, name):
           f"{', '.join(f'{k[3:]} {b:g}' for k, _, b in checks)})", flush=True)
     if any(e > b for _, e, b in checks):
         fail(f"{name}: K1 disagrees with its plain version")
+    err["plain_ms"] = t.ms
     if "k1_first" not in bound:
         within(f"{name}: vis", v, vp, VIS_ATOL, 0.0)
         return err
@@ -347,18 +473,9 @@ def state_dict(st):
             for f in dataclasses.fields(st)}
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("FAIL: torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
-        sys.exit(2)
-    root = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(root, "mppiisaac_tpu_torch")):
-        print("FAIL: mppiisaac_tpu_torch is not beside chip_smoke.py")
-        sys.exit(2)
-    sys.path.insert(0, root)
-    if "jax" in sys.modules:
-        fail("jax is imported")
-    from mppiisaac_tpu_torch.ops import native
+def earlier_paths(dev, root):
+    """Phases 2-8: panda reach, panda_pick and the mobile robots. → the
+    timed paths' records (see timed_path)."""
     from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
     from mppiisaac_tpu_torch.physics.types import ModelParams
     from mppiisaac_tpu_torch.runtime.loop import run_task
@@ -367,21 +484,7 @@ def main():
     from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective, success_fn
     from mppiisaac_tpu_torch.utils.config_store import load_config
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-
-    # ---- 1. build ----
-    t0 = time.perf_counter()
-    path, nvcc_s, ptxas = native.build()
-    native.load_library()
-    print(f"[1] build: nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s -> "
-          f"{os.path.relpath(path, root)}")
-    for line in ptxas.splitlines():
-        if "registers" in line or "bytes stack frame" in line:
-            print("    ptxas:", line.strip())
-
+    t_phase = time.perf_counter()
     # ---- 2. panda reach: kernels against their plain versions ----
     cfg = load_config("tasks/panda")
     K, H = cfg.mppi.num_samples, cfg.mppi.horizon
@@ -438,6 +541,9 @@ def main():
         fail("launch counters do not match the commands and world steps run")
     reach = dict(k1_in=k1_in, k2_in=(rows, tgt, ones_b, ones_g), fr=fr, fw=fw,
                  n_k1=n_k1, n_k2=n_k2, k1_err=k1_err, k2_err=k2_err)
+
+    print(f"    phases 2-4: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
 
     # ---- 5. the panda_pick control loop, with the launch counters ----
     pcfg = load_config("tasks/panda_pick")
@@ -496,11 +602,13 @@ def main():
             t[7:9] = s0.dof_target[7:9]
             return t
 
-        k2_err, k2p_in = hold_k2(pfw, s0, pick_tgt, 5, PICK_BOUNDS[name], name)
+        k2_err, k2p_in, k2p_plain = hold_k2(pfw, s0, pick_tgt, 5, PICK_BOUNDS[name], name)
         pick_err[name] = (err, k2_err)
 
+    print(f"    phases 5-6: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+
     # ---- 7. the mobile-robot loops, with the launch counters ----
-    from mppiisaac_tpu_torch.ops.fused_physics import swept_blocks
     from mppiisaac_tpu_torch.tasks import mobile_push, mobile_reach
 
     mobile = {}
@@ -517,13 +625,7 @@ def main():
         def observer(step, w, a, seen=seen):
             # the first step at which a boxer–block couple row carries an impulse
             if "rows" not in seen:
-                sc = w.scene
-                boxer = range(sc.body_offset[0], sc.body_offset[0] + sc.actors[0].nbody)
-                blk = sc.body_offset[sc.actor_index("block")]
-                seen["rows"] = torch.as_tensor(
-                    [r for b in swept_blocks(sc, w.engine.tables)
-                     if (b["ba"] in boxer and b["bb"] == blk) or (b["bb"] in boxer and b["ba"] == blk)
-                     for r in b["rows"]], device=dev)
+                seen["rows"] = pair_rows(w.scene, w.engine.tables, "boxer", "block", dev)
             if "touch" not in seen and float(w.state.contact_lam[0, seen["rows"]].abs().max()) > 0:
                 seen["touch"], seen["touch_step"] = w.state, step
             seen["last"] = w.state
@@ -585,61 +687,355 @@ def main():
             u = (torch.rand(bfr.nu, generator=gb) * 2.0 - 1.0).to(dev)
             return bb.cmd_map.apply(u[None], s0.q[None])[0].contiguous()
 
-        k2_err, k2b_in = hold_k2(bfw, s0, boxer_tgt, 5, BOXER_BOUNDS[name], name)
+        k2_err, k2b_in, k2b_plain = hold_k2(bfw, s0, boxer_tgt, 5, BOXER_BOUNDS[name], name)
         boxer_err[name] = (err, k2_err)
 
-    # ---- 9. timing, and each kernel's bound on the timed inputs ----
-    times, bounds = {}, {}
-    for key, f_, fwx, k1_in_, k2_in_, k1_reps in (
-            ("reach", reach["fr"], reach["fw"], reach["k1_in"], reach["k2_in"], 5),
-            ("pick", pfr, pfw, k1p_in, k2p_in, 2),
-            ("boxer_push", bfr, bfw, k1b_in, k2b_in, 2)):
-        times[key] = (cuda_time_ms(lambda: f_.run(*k1_in_)),
-                      cuda_time_ms(lambda: f_.plain(*k1_in_), reps=k1_reps, warmup=1),
-                      cuda_time_ms(lambda: fwx.step_rows(*k2_in_)),
-                      cuda_time_ms(lambda: fwx.plain(*k2_in_), reps=5, warmup=1))
-        bounds[key] = b1, b2 = k1_bound(f_, k1_in_), k2_bound(fwx, k2_in_)
-        print(f"[9] {key}: K1 {times[key][0]:.3f} ms vs plain {times[key][1]:.3f} ms; "
-              f"K2 {times[key][2]:.3f} ms vs plain {times[key][3]:.3f} ms (medians); bounds: "
-              f"K1 {b1[0]:.6f} ms ({b1[1]}: {b1[2]:.4g} flop, {b1[3]} B, live block share "
-              f"{b1[4]:.3f}), K2 {b2[0]:.6f} ms ({b2[1]}: {b2[2]:.4g} flop, {b2[3]} B, live "
-              f"block share {b2[4]:.3f})", flush=True)
+    print(f"    phases 7-8: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    held_k1, held_k2 = pick_err["held grasp"]
+    t_k1, t_k2 = boxer_err["touching"]
+    return [
+        timed_path("panda_reach", reach["fr"], reach["fw"], reach["k1_in"], reach["k2_in"],
+                   reach["n_k1"], reach["n_k2"], reach["k1_err"], reach["k2_err"]),
+        timed_path("panda_pick", pfr, pfw, k1p_in, k2p_in, p_k1, p_k2,
+                   pick_err["settled block"][0]["max"], pick_err["settled block"][1],
+                   plain=(held_k1["plain_ms"], k2p_plain),
+                   k1_extra=dict(held_grasp_first_step_max_abs_err=held_k1["first"],
+                                 held_grasp_median_max_abs_err=held_k1["median"],
+                                 held_grasp_max_abs_err=held_k1["max"]),
+                   k2_extra=dict(held_grasp_max_abs_err=held_k2)),
+        timed_path("boxer_push", bfr, bfw, k1b_in, k2b_in, mobile["boxer_push"]["n1"],
+                   mobile["boxer_push"]["n2"], boxer_err["initial"][0]["max"],
+                   boxer_err["initial"][1], plain=(boxer_err["touching"][0]["plain_ms"], k2b_plain),
+                   k1_extra=dict(touching_first_step_max_abs_err=t_k1["first"],
+                                 touching_median_max_abs_err=t_k1["median"],
+                                 touching_max_abs_err=t_k1["max"]),
+                   k2_extra=dict(touching_max_abs_err=t_k2)),
+    ]
+
+
+def timed_path(key, fr, fw, k1_in, k2_in, n1, n2, e1, e2, plain=None, k1_extra=None,
+               k2_extra=None):
+    """A path whose kernels phase 13 times: its wrappers, the inputs to time
+    them on, the launches of its loop, the kernels' largest differences from
+    their plain versions, and the plain versions' ms where its holds timed
+    them (else phase 13 does)."""
+    return dict(key=key, fr=fr, fw=fw, k1_in=k1_in, k2_in=k2_in, n1=n1, n2=n2, e1=e1, e2=e2,
+                plain=plain, k1_extra=k1_extra or {}, k2_extra=k2_extra or {})
+
+
+# phase 9: (the conf's task, the JAX package's success step, the second hold
+# state)
+POINT_PATHS = {
+    "point_robot": ("point_robot", "41", "step 20"),
+    "point_robot_obst1": ("point_robot", "no recorded step", "closest"),
+    "multi_pointbot": ("multi_pointbot", "no recorded step", "closest"),
+}
+
+
+def point_config(key):
+    """The conf, objective and success test of a phase-9 path.
+    point_robot_obst1 is point_robot with the sphere `paper_obst1` (actor
+    `obst1`) added as its obstacle, as the JAX package's benchmark runner
+    builds it."""
+    from mppiisaac_tpu_torch.tasks import multi_robot, point_robot
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    cfg = load_config(f"tasks/{POINT_PATHS[key][0]}")
+    if key == "multi_pointbot":
+        obj = multi_robot.MultiPointbotObjective(cfg)
+        return cfg, obj, multi_robot.success_fn(key, obj)
+    obstacles = []
+    if key == "point_robot_obst1":
+        cfg.actors = list(cfg.actors) + ["paper_obst1"]
+        obstacles = ["obst1"]
+    obj = point_robot.PointRobotObjective(cfg, obstacles)
+    return cfg, obj, point_robot.success_fn(obj.nav_goal)
+
+
+def hold_states(key, cfg, obj, dev, root, second, bounds, n_plain=None):
+    """K1 and K2 of the scene of `cfg` against their plain versions, with the
+    hold controls of `key`, from its initial state and from `second`, a
+    (name, state) of its loop; both states are first saved to
+    chiprun_out/<key>_states.pt. → (fr, fw, the second state's K1 and K2
+    inputs, {state: (K1 errors, K2 error, K2 plain ms)})."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+    from mppiisaac_tpu_torch.physics.types import ModelParams
+    from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
+
+    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, num_envs=1, device=dev)
+    b = world.built
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = FusedRollout(b, world.engine, obj.kernel_cost(b), H, K,
+                      vis_body=b.visualize_bodies[0] if b.visualize_bodies else None,
+                      impulse_sweeps=cfg.mppi.rollout_sweeps)
+    fw = FusedWorldStep(b, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    params_K = ModelParams(torch.ones(K, b.scene.nbody, device=dev),
+                           torch.ones(K, b.scene.ngeom, device=dev))
+    print(f"    K1 vs plain at K={K}" + (f" (plain on the first {n_plain})" if n_plain else "")
+          + f", H={H}, nu={fr.nu}, {fr.substeps} substeps, {fr.impulse_sweeps} sweep(s), "
+          f"{fr.ks.nblk} pair blocks, {fr.ks.n_fc} candidates, rows={fr.ks.n_rows}; K2 vs plain "
+          f"over 5 world steps, {fw.impulse_sweeps} sweeps", flush=True)
+    states = {"initial": world.state.map(lambda x: x[0]), second[0]: second[1].map(lambda x: x[0])}
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    torch.save({k: state_dict(v) for k, v in states.items()},
+               os.path.join(root, "chiprun_out", f"{key}_states.pt"))
+    errs = {}
+    for name, s0 in states.items():
+        g = torch.Generator().manual_seed(SEED)
+        V = hold_controls(key, cfg, g, (K, H, fr.nu)).to(dev)
+        k1_in = fr.pack(broadcast_state(s0, K), params_K, V)
+        err = hold_k1(fr, k1_in, bounds[name], f"{key} {name}", n_plain=n_plain)
+
+        def tgt_of(i, s0=s0, g=g):
+            u = hold_controls(key, cfg, g, (fr.nu,)).to(dev)
+            return b.cmd_map.apply(u[None], s0.q[None])[0].contiguous()
+
+        k2_err, k2_in, k2_plain = hold_k2(fw, s0, tgt_of, 5, bounds[name], f"{key} {name}")
+        errs[name] = (err, k2_err, k2_plain)
+    return fr, fw, k1_in, k2_in, errs
+
+
+def point_paths(dev, root):
+    """Phase 9: each point-robot path to its goal with its launch counters,
+    then K1 and K2 against their plain versions from two states."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+
+    for key, (task, jax_step, second) in POINT_PATHS.items():
+        t0 = time.perf_counter()
+        cfg, obj, succ = point_config(key)
+        seen = {"d": float("inf")}
+
+        def observer(step, w, a, seen=seen, key=key):
+            # point_robot: the state after 20 steps; the others: the step at
+            # which the robot is closest to the obstacle or to the other robot
+            st = w.state
+            if key == "point_robot" and step == 19:
+                seen["step 20"] = st
+            elif key != "point_robot":
+                if key == "multi_pointbot":
+                    other = st.q[0, w.scene.dof_offset[1]: w.scene.dof_offset[1] + 2]
+                else:
+                    other = st.root_pos[0, w.scene.actor_index("obst1"), :2]
+                d = float((st.q[0, 0:2] - other).norm())
+                if d < seen["d"]:
+                    seen["d"], seen["closest"], seen["step"] = d, st, step
+            seen["last"] = st
+
+        FusedRollout.launches = 0
+        FusedWorldStep.launches = 0
+        m = run_task(cfg, obj, success_fn=succ, observer=observer, device=dev)
+        torch.cuda.synchronize()
+        n1, n2 = FusedRollout.launches, FusedWorldStep.launches
+        print(f"[9] run_task {key} K={cfg.mppi.num_samples} H={cfg.mppi.horizon} on cuda: "
+              f"success_step {m.success_step} (the JAX package: {jax_step}), {m.steps} steps (conf "
+              f"n_steps {cfg.n_steps}), median control step {1e3 / float(np.median(m.fps)):.3f} ms, "
+              f"finite {m.final_state_finite}; launches K1 {n1}, K2 {n2}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if m.success_step is None:
+            fail(f"{key} did not reach its goal within the conf's {cfg.n_steps} steps")
+        if not m.final_state_finite:
+            fail("non-finite world state")
+        if n1 != m.steps or n2 != m.steps or n1 == 0:
+            fail("launch counters do not match the commands and world steps run")
+        if second == "closest":
+            what = ("the other robot (in dof coordinates, as the cost reads them)"
+                    if key == "multi_pointbot" else "the obstacle")
+            print(f"    closest at step {seen['step']}: {seen['d']:.4f} m between the robot and "
+                  f"{what}", flush=True)
+        t0 = time.perf_counter()
+        # (a loop that ends before step 20 holds its last state instead)
+        hold_states(key, cfg, obj, dev, root, (second, seen.get(second, seen["last"])),
+                    POINT_BOUNDS[key])
+        print(f"    holds: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# phases 10-12: (task, loop steps, the JAX package's result there, the second
+# hold state, its bounds)
+ARM_PATHS = {
+    "panda_effort": (500, "success at step 328", "step 20", EFFORT_BOUNDS),
+    "panda_stick_push": (200, "its 0.4 m gate at step 1511 with seed 1; parks at seed 0",
+                         "touching", STICK_BOUNDS),
+    "omni_panda_pick": (150, "0 of 5 seeds succeed", "last", OMNI_BOUNDS),
+}
+
+
+def pair_rows(scene, tables, actor_a, actor_b, dev):
+    """contact_lam rows of the swept candidates between two actors' bodies."""
+    from mppiisaac_tpu_torch.ops.fused_physics import swept_blocks
+
+    def bodies(name):
+        ai = scene.actor_index(name)
+        return range(scene.body_offset[ai], scene.body_offset[ai] + scene.actors[ai].nbody)
+
+    ba, bb = bodies(actor_a), bodies(actor_b)
+    return torch.as_tensor([r for b in swept_blocks(scene, tables)
+                            if (b["ba"] in ba and b["bb"] in bb) or (b["bb"] in ba and b["ba"] in bb)
+                            for r in b["rows"]], device=dev)
+
+
+def arm_path(task, dev, root):
+    """Phases 10-12: one loop of `task` with its launch counters, then K1 and
+    K2 against their plain versions from two states. → its timed path."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+    from mppiisaac_tpu_torch.tasks import omni_panda_pick, panda_reach, panda_stick_push
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    phase = {"panda_effort": 10, "panda_stick_push": 11, "omni_panda_pick": 12}[task]
+    n_steps, jax_result, second, bounds = ARM_PATHS[task]
+    t0 = time.perf_counter()
+    cfg = load_config(f"tasks/{task}")
+    if task == "panda_effort":
+        obj = panda_reach.PandaReachObjective(cfg, "panda_link7")
+        succ = panda_reach.success_fn("panda_link7")
+    elif task == "panda_stick_push":
+        obj = panda_stick_push.PandaStickPushObjective(cfg)
+        succ = panda_stick_push.success_fn()
+    else:
+        obj = omni_panda_pick.OmniPandaPickObjective(cfg)
+        succ = omni_panda_pick.success_fn()
+    seen = {"finger_move": 0.0}
+
+    def observer(step, w, a):
+        st = w.state
+        if step == 0:
+            seen["first"] = st
+            if task == "panda_stick_push":
+                seen["rows"] = pair_rows(w.scene, w.engine.tables, "panda", "panda_push_block", dev)
+                seen["ai"] = (w.scene.actor_index("panda_push_block"), w.scene.actor_index("goal"))
+                seen["block0"] = st.root_pos[0, seen["ai"][0]].clone()
+        if task == "panda_effort" and step == 19:
+            seen["step 20"] = st
+        if task == "panda_stick_push" and "touching" not in seen \
+                and float(st.contact_lam[0, seen["rows"]].abs().max()) > 0:
+            seen["touching"], seen["touch_step"] = st, step
+        if task == "omni_panda_pick":
+            d0 = w.scene.dof_offset[w.scene.actor_index("omnipanda")]
+            fq = st.q[0, d0 + 10: d0 + 12]
+            seen.setdefault("finger_q0", fq.clone())
+            seen["finger_move"] = max(seen["finger_move"], float((fq - seen["finger_q0"]).abs().max()))
+        seen["last"] = st
+
+    FusedRollout.launches = 0
+    FusedWorldStep.launches = 0
+    m = run_task(cfg, obj, n_steps=n_steps, success_fn=succ, observer=observer, device=dev)
+    torch.cuda.synchronize()
+    n1, n2 = FusedRollout.launches, FusedWorldStep.launches
+    print(f"[{phase}] run_task {task} K={cfg.mppi.num_samples} H={cfg.mppi.horizon} "
+          f"({cfg.mppi.mppi_mode} mode, {cfg.mppi.rollout_sweeps} sweep(s) in K1) on cuda: "
+          f"success_step {m.success_step} (the JAX package: {jax_result}), {m.steps} steps of "
+          f"{n_steps}, median solver {np.median(m.solver_time) * 1e3:.3f} ms/step, median "
+          f"control step {1e3 / float(np.median(m.fps)):.3f} ms, finite {m.final_state_finite}; "
+          f"launches K1 {n1}, K2 {n2}; {time.perf_counter() - t0:.1f} s", flush=True)
+    if not m.final_state_finite:
+        fail("non-finite world state")
+    if n1 != m.steps or n2 != m.steps or n1 == 0:
+        fail("launch counters do not match the commands and world steps run")
+    if task == "panda_effort" and m.success_step is None:
+        fail(f"panda_effort did not reach its goal within {n_steps} steps")
+    if task == "panda_stick_push":
+        block0, block1 = seen["block0"], seen["last"].root_pos[0, seen["ai"][0]]
+        goal = seen["last"].root_pos[0, seen["ai"][1]]
+        print(f"    the stick touches the block at step {seen.get('touch_step')}; ‖block − goal‖ "
+              f"{float((block0 - goal).norm()):.4f} m at the start, "
+              f"{float((block1 - goal).norm()):.4f} m after {m.steps} steps; the block moved "
+              f"{float((block1 - block0).norm()):.4f} m", flush=True)
+        if "touching" not in seen:
+            fail("the stick never touched the block (no stick–block λ row carried an impulse)")
+    if task == "omni_panda_pick":
+        print(f"    the finger dofs moved by up to {seen['finger_move']:.4f} m", flush=True)
+        if seen["finger_move"] < 1e-3:
+            fail("omni_panda_pick's finger dofs never moved")
+
+    t0 = time.perf_counter()
+    # (a loop that ends before step 20 holds its last state instead)
+    fr, fw, k1_in, k2_in, errs = hold_states(task, cfg, obj, dev, root,
+                                             (second, seen.get(second, seen["last"])), bounds,
+                                             n_plain=PLAIN_K1_SAMPLES)
+    print(f"    holds: {time.perf_counter() - t0:.1f} s", flush=True)
+    tag = second.replace(" ", "_")
+    e1, e2, k2_plain = errs[second]
+    return timed_path(task, fr, fw, k1_in, k2_in, n1, n2, errs["initial"][0]["max"],
+                      errs["initial"][1], plain=(e1["plain_ms"], k2_plain),
+                      k1_extra={f"{tag}_first_step_max_abs_err": e1["first"],
+                                f"{tag}_median_max_abs_err": e1["median"],
+                                f"{tag}_max_abs_err": e1["max"]},
+                      k2_extra={f"{tag}_max_abs_err": e2})
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
+        sys.exit(2)
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "mppiisaac_tpu_torch")):
+        print("FAIL: mppiisaac_tpu_torch is not beside chip_smoke.py")
+        sys.exit(2)
+    sys.path.insert(0, root)
+    if "jax" in sys.modules:
+        fail("jax is imported")
+    if len(sys.argv) > 1:
+        fail(f"unknown arguments {sys.argv[1:]} (usage: chip_smoke.py)")
+    from mppiisaac_tpu_torch.ops import native
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+
+    # ---- 1. build ----
+    t0 = time.perf_counter()
+    path, nvcc_s, ptxas = native.build()
+    native.load_library()
+    print(f"[1] build: nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s -> "
+          f"{os.path.relpath(path, root)}")
+    for line in ptxas.splitlines():
+        if "registers" in line or "bytes stack frame" in line:
+            print("    ptxas:", line.strip())
+
+    records = earlier_paths(dev, root)
+    point_paths(dev, root)
+    for task in ARM_PATHS:
+        rec = arm_path(task, dev, root)
+        if task != "panda_effort":
+            records.append(rec)
+
+    # ---- 13. timing, and each kernel's bound on the timed inputs ----
+    t0 = time.perf_counter()
+    entries = []
+    src = "mppiisaac_tpu_torch/csrc/fused_rollout.cu"
+    for r in records:
+        fr, fw, k1_in, k2_in = r["fr"], r["fw"], r["k1_in"], r["k2_in"]
+        k1_ms, k2_ms = cuda_time_ms(lambda: fr.run(*k1_in)), cuda_time_ms(lambda: fw.step_rows(*k2_in))
+        if r["plain"] is None:
+            plain = (cuda_time_ms(lambda: fr.plain(*k1_in), reps=5, warmup=1),
+                     cuda_time_ms(lambda: fw.plain(*k2_in), reps=5, warmup=1))
+        else:
+            plain = r["plain"]
+        b1, b2 = k1_bound(fr, k1_in), k2_bound(fw, k2_in)
+        print(f"[13] {r['key']}: K1 {k1_ms:.3f} ms vs plain {plain[0]:.3f} ms; K2 {k2_ms:.3f} ms "
+              f"vs plain {plain[1]:.3f} ms (kernels: medians); bounds: K1 {b1[0]:.6f} ms ({b1[1]}: "
+              f"{b1[2]:.4g} flop, {b1[3]} B, live block share {b1[4]:.3f}), K2 {b2[0]:.6f} ms "
+              f"({b2[1]}: {b2[2]:.4g} flop, {b2[3]} B, live block share {b2[4]:.3f})", flush=True)
+        for kname, line, n, e, tk, tp, b, extra in (
+                ("fused_rollout_kernel", 367, r["n1"], r["e1"], k1_ms, plain[0], b1, r["k1_extra"]),
+                ("fused_world_step_kernel", 533, r["n2"], r["e2"], k2_ms, plain[1], b2,
+                 r["k2_extra"])):
+            entries.append({
+                "name": kname, "path": r["key"], "route": "cuda", "source": src,
+                "replaces": f"mppiisaac_tpu/ops/pallas/fused_rollout.py:{line}",
+                "launches": n, "max_abs_err": e, "ms": tk, "plain_ms": tp,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None, **extra})
+            if kname == "fused_rollout_kernel" and r["key"] in ("panda_stick_push", "omni_panda_pick"):
+                entries[-1]["plain_samples"] = PLAIN_K1_SAMPLES
+    print(f"    phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     )
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
           else f"nvidia-smi unavailable (rc {smi.returncode})")
-    src = "mppiisaac_tpu_torch/csrc/fused_rollout.cu"
-    entries = []
-    for key, n1, n2, e1, e2 in (
-            ("panda_reach", reach["n_k1"], reach["n_k2"], reach["k1_err"], reach["k2_err"]),
-            ("panda_pick", p_k1, p_k2, pick_err["settled block"][0]["max"],
-             pick_err["settled block"][1]),
-            ("boxer_push", mobile["boxer_push"]["n1"], mobile["boxer_push"]["n2"],
-             boxer_err["initial"][0]["max"], boxer_err["initial"][1])):
-        tkey = {"panda_reach": "reach", "panda_pick": "pick"}.get(key, key)
-        t, bnd = times[tkey], bounds[tkey]
-        for kname, line, n, e, tk, tp, b in (
-                ("fused_rollout_kernel", 367, n1, e1, t[0], t[1], bnd[0]),
-                ("fused_world_step_kernel", 533, n2, e2, t[2], t[3], bnd[1])):
-            entries.append({
-                "name": kname, "path": key, "route": "cuda", "source": src,
-                "replaces": f"mppiisaac_tpu/ops/pallas/fused_rollout.py:{line}",
-                "launches": n, "max_abs_err": e, "ms": tk, "plain_ms": tp,
-                "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
-        if key == "panda_pick":
-            held_k1, held_k2 = pick_err["held grasp"]
-            entries[-2].update(held_grasp_first_step_max_abs_err=held_k1["first"],
-                               held_grasp_median_max_abs_err=held_k1["median"],
-                               held_grasp_max_abs_err=held_k1["max"])
-            entries[-1].update(held_grasp_max_abs_err=held_k2)
-        if key == "boxer_push":
-            t_k1, t_k2 = boxer_err["touching"]
-            entries[-2].update(touching_first_step_max_abs_err=t_k1["first"],
-                               touching_median_max_abs_err=t_k1["median"],
-                               touching_max_abs_err=t_k1["max"])
-            entries[-1].update(touching_max_abs_err=t_k2)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,15 @@
 //   dynamics()   velocity solve of every articulation, fixed or floating
 //                base, over its velocity coordinates (spatial and composite
 //                inertias, RNEA bias, CRBA, force-limited implicit drives,
-//                joint damping, Coulomb friction, joint-limit penalty,
+//                effort drives with the finger motor curve, the finger
+//                force gate, joint damping, Coulomb friction, joint-limit penalty,
 //                implicit couple terms, Cholesky) and of every free single
 //                body; the impulse pass with the couple and stiction blocks
 //                (impulse.cuh); clamped, deferred integration of dofs and
 //                roots (replaces dynamics_lanes)
 // and the task cost hook task_cost() (replaces the objective kernel_cost
-// functions; panda reach, panda pick, mobile reach and mobile push are
-// ported).
+// functions; panda reach, panda pick, mobile reach, mobile push, point
+// robot, multi robot, stick push and omni pick are ported).
 //
 // The TPU kernels unrolled each scene into straight-line code with the scene
 // constants baked in. These kernels are TABLE-DRIVEN instead: the scene is one
@@ -324,7 +325,15 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
         const int dg = dof0 + i - base;
         const float qk = s.q[dg], qdk = s.qd[dg], tg = tgt[dg];
         const float effort = sc.dof_effort[dg];
-        if (sc.dof_mode[dg] == DRIVE_VELOCITY) {
+        if (sc.dof_mode[dg] == DRIVE_EFFORT) {
+          tk = fminf(fmaxf(tg, -effort), effort);
+          dk = sc.dof_kd[dg];
+          // the effort finger's motor curve |τ|/v_max and its
+          // load-proportional spindle stiction, both implicit
+          if (sc.dof_motor[dg])
+            dk = dk + fabsf(tk) * (1.f / fmaxf(sc.dof_maxvel[dg], 1e-6f)
+                                   + sc.mu_spindle / (fabsf(qdk) + 0.02f));
+        } else if (sc.dof_mode[dg] == DRIVE_VELOCITY) {
           const float kd_eff = fminf(sc.dof_kd[dg], effort / fmaxf(fabsf(tg - qdk), 1e-6f));
           tk = kd_eff * tg;
           dk = kd_eff;
@@ -400,9 +409,18 @@ struct Work {
 
 __device__ void substep(const SceneTables& sc, Sample& s, Work& w, const float* tgt,
                         const float* mass, const float* fric, int K, float dt, int sweeps) {
+  // the finger force gate: a velocity-driven finger stops closing once its
+  // link's net contact force (the last substep's report, which contacts()
+  // overwrites) exceeds grip_force_gate
+  float tg[MAX_DOFS];
+  for (int d = 0; d < sc.ndof; ++d) {
+    tg[d] = tgt[d];
+    const int b = sc.dof_gate_body[d];
+    if (b >= 0 && tg[d] < 0.f && sqrtf(dot3(s.ncf[b], s.ncf[b])) > sc.grip_force_gate) tg[d] = 0.f;
+  }
   fk(sc, s, w.kin);
   contacts(sc, w.kin, fric, K, dt, w.plk_n, w.plk_f, s.ncf, w.sw);
-  dynamics(sc, s, w.kin, w.plk_n, w.plk_f, tgt, mass, fric, K, dt, w.sw, sweeps, w.ctx);
+  dynamics(sc, s, w.kin, w.plk_n, w.plk_f, tg, mass, fric, K, dt, w.sw, sweeps, w.ctx);
 }
 
 // ---------------------------------------------------------------------------
@@ -449,9 +467,47 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
     return sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_ori * fabsf(yaw - sc.goal_yaw)
            + sc.w_align * align + sc.w_force * force_term(sc, s) + sc.w_vel * vel;
   }
+  if (sc.task == TASK_POINT_ROBOT) {
+    // w_dist·‖xy − goal‖ + w_pair·Σ_obstacles 1 / max(‖xy − p_i‖, 1e-3)
+    //   + w_force·F; xy = q[xy_dof : xy_dof + 2]
+    const float x = s.q[sc.xy_dof], y = s.q[sc.xy_dof + 1];
+    const float dx = x - sc.goal_x, dy = y - sc.goal_y;
+    float cost = sc.w_dist * sqrtf(dx * dx + dy * dy + 1e-12f);
+    for (int i = 0; i < sc.n_xy; ++i) {
+      const float* o = s.root[sc.xy_actors[i]];
+      const float ox = x - o[0], oy = y - o[1];
+      cost += sc.w_pair / fmaxf(sqrtf(ox * ox + oy * oy + 1e-12f), 1e-3f);
+    }
+    return cost + sc.w_force * force_term(sc, s);
+  }
+  if (sc.task == TASK_MULTI_ROBOT) {
+    // Σ_i w_dist·‖xy_i − goal_i‖ + Σ_{i<j} w_pair·max(min_sep − ‖xy_i − xy_j‖, 0);
+    // xy_i from two dofs, or the root of an actor
+    float xy[MAX_XY][2];
+    float cost = 0.f;
+    for (int i = 0; i < sc.n_xy; ++i) {
+      const float* p = sc.xy_dofs[i] >= 0 ? &s.q[sc.xy_dofs[i]] : s.root[sc.xy_actors[i]];
+      xy[i][0] = p[0];
+      xy[i][1] = p[1];
+      const float dx = p[0] - sc.xy_gx[i], dy = p[1] - sc.xy_gy[i];
+      cost += sc.w_dist * sqrtf(dx * dx + dy * dy + 1e-12f);
+    }
+    for (int i = 0; i < sc.n_xy; ++i)
+      for (int j = i + 1; j < sc.n_xy; ++j) {
+        const float dx = xy[i][0] - xy[j][0], dy = xy[i][1] - xy[j][1];
+        cost += sc.w_pair * fmaxf(sc.min_sep - sqrtf(dx * dx + dy * dy + 1e-12f), 0.f);
+      }
+    return cost;
+  }
   // TASK_PANDA_REACH: w_dist·‖ee − goal‖ + w_ori·‖(pitch, yaw)‖;
   // TASK_PANDA_PICK: w_dist·‖ee − block‖ + w_block·‖block − goal‖
-  //   + w_force·F + w_ori·‖(pitch, yaw)‖
+  //   + w_force·F + w_ori·‖(pitch, yaw)‖;
+  // TASK_STICK_PUSH: the pick terms + w_height·|ee_z − block_z|
+  //   + w_align·(cos∠_xy(ee − block, goal − block) + 1);
+  // TASK_OMNI_PICK: the pick terms + w_base_vel·Σ_{i<3} qd_i²
+  //   + w_arm_vel·Σ_{3≤i<10} qd_i² + w_pose·Σ_{i<7} (q_{3+i} − pose_i)²
+  //   + w_grip·Σ_{i<2} (q_{10+i} − pose_{7+i})² + w_height·max(floor − ee_z, 0),
+  //   dof i of the actor whose first dof is dof0
   const float* q = k.quat[sc.ee_body];
   const float x = q[0], y = q[1], z = q[2], w = q[3];
   const float sp = fminf(fmaxf(2.f * (w * y - z * x), -1.f), 1.f);
@@ -470,7 +526,26 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
   for (int i = 0; i < 3; ++i) { d1[i] = r[i] - block[i]; d2[i] = block[i] - goal[i]; }
   const float d_rb = sqrtf(dot3(d1, d1) + 1e-12f);
   const float d_bg = sqrtf(dot3(d2, d2) + 1e-12f);
-  return sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_force * force_term(sc, s) + sc.w_ori * ori;
+  float cost = sc.w_dist * d_rb + sc.w_block * d_bg + sc.w_force * force_term(sc, s) + sc.w_ori * ori;
+  if (sc.task == TASK_STICK_PUSH) {
+    const float rbx = r[0] - block[0], rby = r[1] - block[1];
+    const float bgx = goal[0] - block[0], bgy = goal[1] - block[1];
+    const float d2xy = sqrtf(rbx * rbx + rby * rby + 1e-12f) * sqrtf(bgx * bgx + bgy * bgy + 1e-12f);
+    const float align = (rbx * bgx + rby * bgy) / fmaxf(d2xy, 1e-6f) + 1.f;
+    return cost + sc.w_height * fabsf(r[2] - block[2]) + sc.w_align * align;
+  }
+  if (sc.task == TASK_OMNI_PICK) {
+    const float* qa = &s.q[sc.dof0];
+    const float* qda = &s.qd[sc.dof0];
+    float base_vel = 0.f, arm_vel = 0.f, arm_pose = 0.f, grip = 0.f;
+    for (int i = 0; i < 3; ++i) base_vel += qda[i] * qda[i];
+    for (int i = 3; i < 10; ++i) arm_vel += qda[i] * qda[i];
+    for (int i = 0; i < 7; ++i) arm_pose += (qa[3 + i] - sc.pose_c[i]) * (qa[3 + i] - sc.pose_c[i]);
+    for (int i = 0; i < 2; ++i) grip += (qa[10 + i] - sc.pose_c[7 + i]) * (qa[10 + i] - sc.pose_c[7 + i]);
+    return cost + sc.w_base_vel * base_vel + sc.w_arm_vel * arm_vel + sc.w_pose * arm_pose
+           + sc.w_grip * grip + sc.w_height * fmaxf(sc.height_floor - r[2], 0.f);
+  }
+  return cost;
 }
 
 // ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@
 #define MAX_BIN 4      // binarized gripper dofs
 #define MAX_S 16       // manifold samples per block
 #define MAX_V 24       // velocity coordinates of all articulated actors (base + dofs)
+#define MAX_XY 4       // obstacles or robots of a cost hook
+#define N_POSE 9       // pose constants of TASK_OMNI_PICK (7 arm + 2 finger)
 
 #define JOINT_FIXED 0
 #define JOINT_REVOLUTE 1
@@ -23,6 +25,7 @@
 #define DRIVE_NONE 0
 #define DRIVE_VELOCITY 1
 #define DRIVE_POSITION 2
+#define DRIVE_EFFORT 3
 #define GEOM_SPHERE 0
 #define GEOM_BOX 1
 #define GEOM_CAPSULE 2
@@ -33,6 +36,10 @@
 #define TASK_PANDA_PICK 2
 #define TASK_MOBILE_REACH 3
 #define TASK_MOBILE_PUSH 4
+#define TASK_POINT_ROBOT 5
+#define TASK_MULTI_ROBOT 6
+#define TASK_STICK_PUSH 7
+#define TASK_OMNI_PICK 8
 
 // pair-block kinds and flags (ops/fused_contacts.py KIND_*, F_*)
 #define KIND_CP 0
@@ -62,9 +69,13 @@
 struct SceneTables {
   int nactor, nbody, ndof, ngeom, nu, nblk, n_fc, nbin, nv;
   int task, ee_body, goal_actor, vis_body, block_actor, force_body0, force_nbody;
-  int force2_body0, force2_nbody, force_dims, xy_actor, xy_dof;
-  float gravity_z, eps_v, max_depth, max_root_linvel, max_root_angvel;
+  int force2_body0, force2_nbody, force_dims, xy_actor, xy_dof, n_xy, dof0;
+  int xy_actors[MAX_XY], xy_dofs[MAX_XY];
+  float gravity_z, eps_v, max_depth, max_root_linvel, max_root_angvel, grip_force_gate;
+  float mu_spindle;  // effort-finger spindle stiction (physics/stacked.py)
   float w_dist, w_ori, w_block, w_force, w_align, w_vel, goal_x, goal_y, goal_yaw;
+  float w_pair, min_sep, w_height, height_floor, w_base_vel, w_arm_vel, w_pose, w_grip;
+  float xy_gx[MAX_XY], xy_gy[MAX_XY], pose_c[N_POSE];
   int actor_body0[MAX_ACTORS], actor_nbody[MAX_ACTORS];
   int actor_dof0[MAX_ACTORS], actor_ndof[MAX_ACTORS];
   int actor_dynamic[MAX_ACTORS], actor_gravity[MAX_ACTORS];
@@ -77,7 +88,7 @@ struct SceneTables {
   float body_jaxis[MAX_BODIES * 3], body_mass[MAX_BODIES];
   float body_com[MAX_BODIES * 3], body_inertia[MAX_BODIES * 9];
   int v_body[MAX_V], v_anc[MAX_V * MAX_V];
-  int dof_mode[MAX_DOFS];
+  int dof_mode[MAX_DOFS], dof_motor[MAX_DOFS], dof_gate_body[MAX_DOFS];
   float dof_kp[MAX_DOFS], dof_kd[MAX_DOFS], dof_effort[MAX_DOFS];
   float dof_maxvel[MAX_DOFS], dof_damping[MAX_DOFS], dof_friction[MAX_DOFS];
   float dof_armature[MAX_DOFS], dof_lower[MAX_DOFS], dof_upper[MAX_DOFS];

@@ -57,6 +57,7 @@ from ..physics.model import (
     JOINT_PRISMATIC,
     JOINT_REVOLUTE,
 )
+from ..physics.stacked import MU_SPINDLE
 from ..physics.urdf import GEOM_BOX, GEOM_CAPSULE
 from .fused_contacts import (
     F_A_ART,
@@ -83,7 +84,14 @@ TASK_PANDA_REACH = 1
 TASK_PANDA_PICK = 2
 TASK_MOBILE_REACH = 3
 TASK_MOBILE_PUSH = 4
-TASKS = (TASK_PANDA_REACH, TASK_PANDA_PICK, TASK_MOBILE_REACH, TASK_MOBILE_PUSH)
+TASK_POINT_ROBOT = 5
+TASK_MULTI_ROBOT = 6
+TASK_STICK_PUSH = 7
+TASK_OMNI_PICK = 8
+TASKS = (TASK_PANDA_REACH, TASK_PANDA_PICK, TASK_MOBILE_REACH, TASK_MOBILE_PUSH,
+         TASK_POINT_ROBOT, TASK_MULTI_ROBOT, TASK_STICK_PUSH, TASK_OMNI_PICK)
+MAX_XY = 4          # obstacles or robots of a cost (CostSpec.xy_*)
+N_POSE = 9          # pose constants of TASK_OMNI_PICK (7 arm + 2 finger)
 
 
 def _t3(a):
@@ -241,9 +249,24 @@ class CostSpec:
     TASK_MOBILE_PUSH: w_dist·‖ee − block‖ + w_block·‖goal − block‖
     + w_ori·|yaw(block) − goal_yaw| + w_align·(cos∠(ee − block, goal − block) + 1)
     + w_force·F + w_vel·‖v_block‖, all in the xy plane.
-    F sums |F_i|, i < force_dims, of the net contact force F of each force
-    group: bodies force_body0 .. force_body0 + force_nbody − 1, and
-    force2_body0 .. force2_body0 + force2_nbody − 1."""
+    TASK_POINT_ROBOT: w_dist·‖xy − (goal_x, goal_y)‖ + w_pair·Σ_i 1 /
+    max(‖xy − p_i‖, 1e-3) + w_force·F, xy = q[xy_dof : xy_dof+2], p_i the root
+    xy of obstacle actor xy_actors[i].
+    TASK_MULTI_ROBOT: Σ_i w_dist·‖xy_i − xy_goals[i]‖ + Σ_{i<j} w_pair·
+    max(min_sep − ‖xy_i − xy_j‖, 0), xy_i = q[xy_dofs[i] : +2] where
+    xy_dofs[i] ≥ 0, else the root xy of actor xy_actors[i].
+    TASK_STICK_PUSH: w_dist·‖ee − block‖ + w_block·‖goal − block‖ + w_force·F
+    + w_ori·‖(pitch, yaw)‖ + w_height·|ee_z − block_z| + w_align·(cos∠(ee −
+    block, goal − block) + 1), the angle in the xy plane.
+    TASK_OMNI_PICK: w_dist·‖ee − block‖ + w_block·‖block − goal‖ + w_force·F
+    + w_ori·‖(pitch, yaw)‖ + w_base_vel·Σ_{i<3} qd_i² + w_arm_vel·Σ_{3≤i<10}
+    qd_i² + w_pose·Σ_{i<7} (q_{3+i} − pose[i])² + w_grip·Σ_{i<2} (q_{10+i} −
+    pose[7+i])² + w_height·max(height_floor − ee_z, 0), dof i of the actor
+    whose first dof is dof0 (3 base, 7 arm, 2 finger dofs).
+    The goal of the 3-D costs is the root of goal_actor. F sums |F_i|,
+    i < force_dims, of the net contact force F of each force group: bodies
+    force_body0 .. force_body0 + force_nbody − 1, and force2_body0 ..
+    force2_body0 + force2_nbody − 1."""
     task: int
     ee_body: int
     goal_actor: int
@@ -264,6 +287,19 @@ class CostSpec:
     goal_yaw: float = 0.0
     w_align: float = 0.0
     w_vel: float = 0.0
+    xy_actors: Tuple[int, ...] = ()             # ≤ MAX_XY
+    xy_dofs: Tuple[int, ...] = ()
+    xy_goals: Tuple[Tuple[float, float], ...] = ()
+    w_pair: float = 0.0
+    min_sep: float = 0.0
+    w_height: float = 0.0
+    height_floor: float = 0.0
+    dof0: int = 0
+    w_base_vel: float = 0.0
+    w_arm_vel: float = 0.0
+    w_pose: float = 0.0
+    w_grip: float = 0.0
+    pose: Tuple[float, ...] = ()                # N_POSE
 
 
 # actor kinds of the kernel tables (actor_dynamic)
@@ -283,6 +319,8 @@ class KernelScene:
     max_depth: float                 # penetration cap of the force law
     max_root_linvel: float
     max_root_angvel: float
+    grip_force_gate: float           # the finger force gate's threshold
+    mu_spindle: float                # effort-finger spindle stiction (physics/stacked.py)
     # actors
     actor_body0: np.ndarray
     actor_nbody: np.ndarray
@@ -322,6 +360,8 @@ class KernelScene:
     dof_armature: np.ndarray
     dof_lower: np.ndarray
     dof_upper: np.ndarray
+    dof_motor: np.ndarray            # 1: effort-mode finger (motor curve, spindle stiction)
+    dof_gate_body: np.ndarray        # velocity-driven finger: its link (force gate), -1 none
     cmd_W: np.ndarray               # (D,nu) command map
     # gripper binarize (cmd_map.binarize_dofs), thresholds precomputed
     bin_dof: np.ndarray
@@ -419,14 +459,6 @@ class KernelScene:
                 actor_base[ai] = 6
             if any(int(art.parent[i]) >= i for i in range(1, art.nbody)) or art.parent[0] >= 0:
                 raise NotImplementedError("articulations whose bodies are not in parent-first order")
-            for k in range(art.ndof):
-                mode = int(art.drive_mode[k])
-                if mode == DRIVE_EFFORT:
-                    raise NotImplementedError(
-                        f"effort drives are not ported ({art.dof_names[k]!r})")
-                if "finger" in art.dof_names[k] and mode == DRIVE_VELOCITY:
-                    raise NotImplementedError(
-                        f"the finger force gate is not ported ({art.dof_names[k]!r})")
             actor_dynamic[ai] = ACTOR_ARTICULATED
         st = engine.stacked
         B = scene.nbody
@@ -501,6 +533,7 @@ class KernelScene:
             max_depth=float(scene.max_contact_depth),
             max_root_linvel=float(scene.max_root_linvel),
             max_root_angvel=float(scene.max_root_angvel),
+            grip_force_gate=float(scene.grip_force_gate), mu_spindle=float(MU_SPINDLE),
             actor_body0=i32(scene.body_offset), actor_nbody=i32([a.nbody for a in scene.actors]),
             actor_dof0=i32(scene.dof_offset), actor_ndof=i32([a.ndof for a in scene.actors]),
             actor_dynamic=actor_dynamic, actor_gravity=actor_gravity,
@@ -516,6 +549,7 @@ class KernelScene:
             dof_maxvel=f32(st.dof_maxvel), dof_damping=f32(st.dof_damping),
             dof_friction=f32(st.dof_friction), dof_armature=f32(st.dof_armature),
             dof_lower=f32(st.dof_lower), dof_upper=f32(st.dof_upper),
+            dof_motor=i32(st.finger_motor > 0), dof_gate_body=i32(st.dof_gate_body),
             cmd_W=f32(built.cmd_map.W, (scene.ndof, built.cmd_map.nu)),
             bin_dof=i32([z[0] for z in bz]), bin_src=i32([z[1] for z in bz]),
             bin_lo=f32([z[2] for z in bz]), bin_hi=f32([z[3] for z in bz]),
@@ -828,8 +862,9 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
                     val = (S[i] * F[j]).sum(-1)
                     M[i][j] = val
                     M[j][i] = val
-        # drives (force-limited implicit gains), damping, Coulomb friction,
-        # joint-limit penalty; nothing drives the base coordinates
+        # drives (force-limited implicit gains, effort drives with the finger
+        # motor curve), damping, Coulomb friction, joint-limit penalty;
+        # nothing drives the base coordinates
         zero = torch.zeros_like(ref[:, 0])
         tau, d_imp = [zero] * base, [zero] * base
         for k in range(nd):
@@ -838,7 +873,23 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
             kp, kd = float(ks.dof_kp[dg]), float(ks.dof_kd[dg])
             effort = float(ks.dof_effort[dg])
             qk, qdk, tg = st["q"][:, dg], st["qd"][:, dg], tgt[:, dg]
-            if mode == DRIVE_VELOCITY:
+            gb = int(ks.dof_gate_body[dg])
+            if gb >= 0:
+                # the finger force gate: a velocity-driven finger stops closing
+                # once its link's net contact force (the last substep's
+                # report) exceeds grip_force_gate
+                f = st["net_cf"][:, gb]
+                fmag = torch.sqrt((f * f).sum(-1))
+                tg = torch.where((fmag > ks.grip_force_gate) & (tg < 0.0), 0.0, tg)
+            if mode == DRIVE_EFFORT:
+                tk = torch.clamp(tg, -effort, effort)
+                dk = torch.full_like(qk, kd)
+                if ks.dof_motor[dg]:
+                    # the effort finger's motor curve |τ|/v_max and its
+                    # load-proportional spindle stiction, both implicit
+                    dk = dk + tk.abs() * (1.0 / max(float(ks.dof_maxvel[dg]), 1e-6)
+                                          + ks.mu_spindle / (qdk.abs() + 0.02))
+            elif mode == DRIVE_VELOCITY:
                 kd_eff = torch.clamp(effort / torch.clamp((tg - qdk).abs(), min=1e-6), max=kd)
                 tk = kd_eff * tg
                 dk = kd_eff
@@ -959,6 +1010,29 @@ def task_cost(ks: KernelScene, st, pos, quat) -> torch.Tensor:
         vel = torch.sqrt(bv[:, 0] * bv[:, 0] + bv[:, 1] * bv[:, 1] + 1e-12)
         return (c.w_dist * d_rb + c.w_block * d_bg + c.w_ori * (yaw - c.goal_yaw).abs()
                 + c.w_align * align + c.w_force * _force_term(c, st) + c.w_vel * vel)
+    if c.task == TASK_POINT_ROBOT:
+        x, y = st["q"][:, c.xy_dof], st["q"][:, c.xy_dof + 1]
+        dx, dy = x - c.goal_x, y - c.goal_y
+        cost = c.w_dist * torch.sqrt(dx * dx + dy * dy + 1e-12)
+        for a in c.xy_actors:
+            o = st["root_pos"][:, a]
+            ox, oy = x - o[:, 0], y - o[:, 1]
+            cost = cost + c.w_pair / torch.clamp(torch.sqrt(ox * ox + oy * oy + 1e-12), min=1e-3)
+        return cost + c.w_force * _force_term(c, st)
+    if c.task == TASK_MULTI_ROBOT:
+        dofs = c.xy_dofs or (-1,) * len(c.xy_actors)
+        xys = [st["q"][:, d:d + 2] if d >= 0 else st["root_pos"][:, a, 0:2]
+               for a, d in zip(c.xy_actors, dofs)]
+        cost = 0.0
+        for xy, (gx, gy) in zip(xys, c.xy_goals):
+            dx, dy = xy[:, 0] - gx, xy[:, 1] - gy
+            cost = cost + c.w_dist * torch.sqrt(dx * dx + dy * dy + 1e-12)
+        for i in range(len(xys)):
+            for j in range(i + 1, len(xys)):
+                dx, dy = xys[i][:, 0] - xys[j][:, 0], xys[i][:, 1] - xys[j][:, 1]
+                d = torch.sqrt(dx * dx + dy * dy + 1e-12)
+                cost = cost + c.w_pair * torch.clamp(c.min_sep - d, min=0.0)
+        return cost
     _, p, y = euler_zyx_atan2(quat[c.ee_body])
     ori = torch.sqrt(y * y + p * p + 1e-12)
     r = pos[c.ee_body]
@@ -969,7 +1043,22 @@ def task_cost(ks: KernelScene, st, pos, quat) -> torch.Tensor:
     block = st["root_pos"][:, c.block_actor]
     d_rb = torch.sqrt(dot(r - block, r - block) + 1e-12)
     d_bg = torch.sqrt(dot(block - goal, block - goal) + 1e-12)
-    return c.w_dist * d_rb + c.w_block * d_bg + c.w_force * _force_term(c, st) + c.w_ori * ori
+    cost = c.w_dist * d_rb + c.w_block * d_bg + c.w_force * _force_term(c, st) + c.w_ori * ori
+    if c.task == TASK_STICK_PUSH:
+        rbx, rby = r[:, 0] - block[:, 0], r[:, 1] - block[:, 1]
+        bgx, bgy = goal[:, 0] - block[:, 0], goal[:, 1] - block[:, 1]
+        d2 = torch.sqrt(rbx * rbx + rby * rby + 1e-12) * torch.sqrt(bgx * bgx + bgy * bgy + 1e-12)
+        align = (rbx * bgx + rby * bgy) / torch.clamp(d2, min=1e-6) + 1.0
+        return cost + c.w_height * (r[:, 2] - block[:, 2]).abs() + c.w_align * align
+    if c.task == TASK_OMNI_PICK:
+        q, qd, d0 = st["q"], st["qd"], c.dof0
+        base_vel = sum(qd[:, d0 + i] * qd[:, d0 + i] for i in range(3))
+        arm_vel = sum(qd[:, d0 + i] * qd[:, d0 + i] for i in range(3, 10))
+        arm_pose = sum((q[:, d0 + 3 + i] - c.pose[i]) ** 2 for i in range(7))
+        grip = sum((q[:, d0 + 10 + i] - c.pose[7 + i]) ** 2 for i in range(2))
+        return (cost + c.w_base_vel * base_vel + c.w_arm_vel * arm_vel + c.w_pose * arm_pose
+                + c.w_grip * grip + c.w_height * torch.clamp(c.height_floor - r[:, 2], min=0.0))
+    return cost
 
 
 def command_targets(ks: KernelScene, u: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,8 @@ import torch
 
 from ..physics.types import ModelParams, SimState
 from .fused_physics import (
+    MAX_XY,
+    N_POSE,
     TASKS,
     CostSpec,
     KernelScene,
@@ -59,11 +61,17 @@ class _SceneTablesC(ctypes.Structure):
         *[(n, ctypes.c_int) for n in (
             "nactor", "nbody", "ndof", "ngeom", "nu", "nblk", "n_fc", "nbin", "nv", "task",
             "ee_body", "goal_actor", "vis_body", "block_actor", "force_body0", "force_nbody",
-            "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof")],
+            "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof", "n_xy", "dof0")],
+        ("xy_actors", _arr(ctypes.c_int, MAX_XY)),
+        ("xy_dofs", _arr(ctypes.c_int, MAX_XY)),
         *[(n, ctypes.c_float) for n in (
             "gravity_z", "eps_v", "max_depth", "max_root_linvel", "max_root_angvel",
-            "w_dist", "w_ori", "w_block", "w_force", "w_align", "w_vel", "goal_x", "goal_y",
-            "goal_yaw")],
+            "grip_force_gate", "mu_spindle", "w_dist", "w_ori", "w_block", "w_force", "w_align",
+            "w_vel", "goal_x", "goal_y", "goal_yaw", "w_pair", "min_sep", "w_height",
+            "height_floor", "w_base_vel", "w_arm_vel", "w_pose", "w_grip")],
+        ("xy_gx", _arr(ctypes.c_float, MAX_XY)),
+        ("xy_gy", _arr(ctypes.c_float, MAX_XY)),
+        ("pose_c", _arr(ctypes.c_float, N_POSE)),
         *[(n, _arr(ctypes.c_int, MAX_ACTORS)) for n in (
             "actor_body0", "actor_nbody", "actor_dof0", "actor_ndof", "actor_dynamic",
             "actor_gravity", "actor_base", "actor_v0", "actor_nv")],
@@ -79,7 +87,7 @@ class _SceneTablesC(ctypes.Structure):
         ("body_inertia", _arr(ctypes.c_float, MAX_BODIES * 9)),
         ("v_body", _arr(ctypes.c_int, MAX_V)),
         ("v_anc", _arr(ctypes.c_int, MAX_V * MAX_V)),
-        ("dof_mode", _arr(ctypes.c_int, MAX_DOFS)),
+        *[(n, _arr(ctypes.c_int, MAX_DOFS)) for n in ("dof_mode", "dof_motor", "dof_gate_body")],
         *[(n, _arr(ctypes.c_float, MAX_DOFS)) for n in (
             "dof_kp", "dof_kd", "dof_effort", "dof_maxvel", "dof_damping", "dof_friction",
             "dof_armature", "dof_lower", "dof_upper")],
@@ -107,8 +115,8 @@ _TABLE_ARRAYS = (
     "actor_base", "actor_v0", "actor_nv", "actor_invm", "actor_iinv",
     "body_parent", "body_actor", "body_jtype", "body_dof", "body_vmask", "body_psi",
     "body_jpos", "body_jquat", "body_jaxis", "body_mass", "body_com", "body_inertia",
-    "v_body", "dof_mode", "dof_kp", "dof_kd", "dof_effort", "dof_maxvel", "dof_damping",
-    "dof_friction", "dof_armature", "dof_lower", "dof_upper",
+    "v_body", "dof_mode", "dof_motor", "dof_gate_body", "dof_kp", "dof_kd", "dof_effort",
+    "dof_maxvel", "dof_damping", "dof_friction", "dof_armature", "dof_lower", "dof_upper",
     "bin_dof", "bin_src", "bin_lo", "bin_hi", "bin_th", "bin_band", "bin_uhi", "bin_ulo",
     "bin_qopen",
     "geom_body", "geom_type", "geom_pos", "geom_quat", "geom_size",
@@ -144,12 +152,25 @@ def pack_tables(ks: KernelScene, vis_body: int = -1) -> bytes:
                  ("ngeom", ks.ngeom), ("nu", ks.nu), ("nblk", ks.nblk), ("n_fc", ks.n_fc),
                  ("nbin", len(ks.bin_dof)), ("nv", ks.nv), ("vis_body", vis_body),
                  ("gravity_z", ks.gravity_z), ("eps_v", ks.eps_v), ("max_depth", ks.max_depth),
-                 ("max_root_linvel", ks.max_root_linvel), ("max_root_angvel", ks.max_root_angvel)):
+                 ("max_root_linvel", ks.max_root_linvel), ("max_root_angvel", ks.max_root_angvel),
+                 ("grip_force_gate", ks.grip_force_gate), ("mu_spindle", ks.mu_spindle)):
         setattr(t, n, v)
     for n in ("task", "ee_body", "goal_actor", "block_actor", "force_body0", "force_nbody",
               "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof", "w_dist",
-              "w_ori", "w_block", "w_force", "w_align", "w_vel", "goal_x", "goal_y", "goal_yaw"):
+              "w_ori", "w_block", "w_force", "w_align", "w_vel", "goal_x", "goal_y", "goal_yaw",
+              "w_pair", "min_sep", "w_height", "height_floor", "dof0", "w_base_vel", "w_arm_vel",
+              "w_pose", "w_grip"):
         setattr(t, n, getattr(c, n))
+    n_xy = len(c.xy_actors)
+    if n_xy > MAX_XY or len(c.pose) > N_POSE:
+        raise ValueError(f"cost has {n_xy} obstacles or robots and {len(c.pose)} pose "
+                         f"constants; the CUDA kernels take at most {MAX_XY} and {N_POSE}")
+    t.n_xy = n_xy
+    t.xy_actors[:n_xy] = list(c.xy_actors)
+    t.xy_dofs[:n_xy] = list(c.xy_dofs) if c.xy_dofs else [-1] * n_xy
+    t.xy_gx[:len(c.xy_goals)] = [g[0] for g in c.xy_goals]
+    t.xy_gy[:len(c.xy_goals)] = [g[1] for g in c.xy_goals]
+    t.pose_c[:len(c.pose)] = list(c.pose)
     for n in _TABLE_ARRAYS:
         flat = np.asarray(getattr(ks, n)).reshape(-1)
         getattr(t, n)[: len(flat)] = flat.tolist()

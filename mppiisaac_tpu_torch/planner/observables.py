@@ -32,6 +32,14 @@ class SimView:
     def actor_q(self, name: str) -> torch.Tensor:              # (K,ndof of the actor)
         return self.state.q[..., self.scene.actor_dof_slice(name)]
 
+    def actor_qd(self, name: str) -> torch.Tensor:             # (K,ndof of the actor)
+        return self.state.qd[..., self.scene.actor_dof_slice(name)]
+
+    def actor_contact_forces(self, name: str) -> torch.Tensor:  # (K,nbody of the actor,3)
+        ai = self._ai(name)
+        o = self.scene.body_offset[ai]
+        return self.state.net_contact_force[..., o: o + self.scene.actors[ai].nbody, :]
+
     def link_position(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
         return self.state.body_pos[..., self.scene.body_index(link, actor), :]
 

@@ -2,8 +2,10 @@
 distance + upright orientation term.
 
 Run the control loop: ``python -m mppiisaac_tpu_torch.tasks.panda_reach
-[device=cuda|cpu] [mppi.num_samples=500 ...]`` (the card by default;
-``device=cpu`` runs the kernels' plain versions).
+[task=panda|panda_effort] [device=cuda|cpu] [mppi.num_samples=500 ...]`` (the
+card by default; ``device=cpu`` runs the kernels' plain versions).
+panda_effort drives the seven arm joints by effort and reaches with
+`panda_link7`.
 """
 from __future__ import annotations
 
@@ -64,5 +66,5 @@ def run(overrides=None, task="panda", device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"task": "panda", "device": "cuda"})
+    print(run(rest, task=opts["task"], device=opts["device"], verbose=True).summary())

@@ -15,9 +15,13 @@ and the card's name and power limit; writes the Chrome trace to --out.
 
 runs on the CPU instead: how far the kernels' plain versions in float32
 drift from the same in float64, at the task's shipped config, from each
-world state in STATES (the file `chip_smoke.py` writes to
-chiprun_out/boxer_push_states.pt) — K1 with the inputs and the statistics
-chip_smoke.py holds the kernel to, and K2 over 5 world steps by row group.
+world state in STATES (the files `chip_smoke.py` writes to
+chiprun_out/<task>_states.pt, for boxer_push, the point-robot paths
+point_robot, point_robot_obst1 and multi_pointbot, panda_effort,
+panda_stick_push and omni_panda_pick) — K1 with the inputs and the
+statistics chip_smoke.py holds the kernel to (for all but boxer_push its
+hold controls, and for the last three its first PLAIN_K1_SAMPLES samples),
+and K2 over 5 world steps by row group.
 """
 import argparse
 import json
@@ -33,18 +37,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner  # noqa: E402
 from mppiisaac_tpu_torch.runtime.sim import Simulation  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ARM_PATHS, PLAIN_K1_SAMPLES, POINT_PATHS, hold_controls, point_config)
 from mppiisaac_tpu_torch.tasks.mobile_push import EE_LINK, MobilePushObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.mobile_reach import MobileReachObjective  # noqa: E402
+from mppiisaac_tpu_torch.tasks.omni_panda_pick import OmniPandaPickObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective  # noqa: E402
+from mppiisaac_tpu_torch.tasks.panda_stick_push import PandaStickPushObjective  # noqa: E402
 from mppiisaac_tpu_torch.utils.config_store import load_config  # noqa: E402
 
 OBJECTIVES = {
     "panda": PandaReachObjective,
     "panda_pick": PandaPickObjective,
+    "panda_effort": lambda cfg: PandaReachObjective(cfg, "panda_link7"),
+    "panda_stick_push": PandaStickPushObjective,
+    "omni_panda_pick": OmniPandaPickObjective,
     **{f"{r}_push": (lambda cfg, r=r: MobilePushObjective(cfg, r, EE_LINK[r])) for r in EE_LINK},
     **{f"{r}_reach": (lambda cfg, r=r: MobileReachObjective(cfg, r)) for r in EE_LINK},
 }
+
+
+def setup(task):
+    """The conf and objective of a conf task or of a path of chip_smoke.py's
+    phase 9 (point_robot, point_robot_obst1, multi_pointbot)."""
+    if task in POINT_PATHS:
+        return point_config(task)[:2]
+    cfg = load_config(f"tasks/{task}")
+    return cfg, OBJECTIVES[task](cfg)
 
 
 def drift(task, path):
@@ -55,28 +75,40 @@ def drift(task, path):
     from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 
     torch.set_num_threads(os.cpu_count() or 1)
-    cfg = load_config(f"tasks/{task}")
+    cfg, obj = setup(task)
     world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
     b = world.built
     K, H = cfg.mppi.num_samples, cfg.mppi.horizon
-    fr = FusedRollout(b, world.engine, OBJECTIVES[task](cfg).kernel_cost(b), H, K,
-                      vis_body=b.visualize_bodies[0], impulse_sweeps=cfg.mppi.rollout_sweeps)
+    fr = FusedRollout(b, world.engine, obj.kernel_cost(b), H, K,
+                      vis_body=b.visualize_bodies[0] if b.visualize_bodies else None,
+                      impulse_sweeps=cfg.mppi.rollout_sweeps)
     fw = FusedWorldStep(b, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
     ks = fw.ks
     A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
     pm = ModelParams(torch.ones(K, b.scene.nbody), torch.ones(K, b.scene.ngeom))
+    # the inputs of chip_smoke.py's holds (the same generator draws): boxer_push
+    # uniform in ±1 on all samples, the later tasks hold_controls, the arm
+    # tasks' on the first PLAIN_K1_SAMPLES
+    held = task != "boxer_push"
+
+    def controls(g, shape):
+        return hold_controls(task, cfg, g, shape) if held else torch.rand(shape, generator=g) * 2.0 - 1.0
+
     for name, fields in torch.load(path).items():
         s0 = SimState(**fields)
-        # the inputs of chip_smoke.py phase 8 (the same generator draws)
         g = torch.Generator().manual_seed(0)
-        V = torch.rand(K, H, fr.nu, generator=g) * 2.0 - 1.0
+        V = controls(g, (K, H, fr.nu))
         rows, Vb, mass, fric = fr.pack(broadcast_state(s0, K), pm, V)
+        if task in ARM_PATHS:
+            rows, Vb, mass, fric = (x[..., :PLAIN_K1_SAMPLES].contiguous()
+                                    for x in (rows, Vb, mass, fric))
         t0 = time.perf_counter()
         out = {dt: rollout_plain(fr.ks, rows.to(dt), Vb.to(dt), mass.to(dt), fric.to(dt), H,
                                  fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps)[0]
                for dt in (torch.float32, torch.float64)}
         d = (out[torch.float32].double() - out[torch.float64]).abs()
-        print(f"{name}: K1 float32 vs float64 at K={K}, H={H}: max {d.max().item():.3e}, first "
+        print(f"{name}: K1 float32 vs float64 at K={rows.shape[-1]}, H={H}: max "
+              f"{d.max().item():.3e}, first "
               f"step {d[:, 0].max().item():.3e}, median over samples "
               f"{d.max(1).values.median().item():.3e} (costs up to "
               f"{out[torch.float64].abs().max().item():.3f}; {time.perf_counter() - t0:.0f} s)",
@@ -84,7 +116,7 @@ def drift(task, path):
         r = {dt: fw.pack(s0).to(dt) for dt in (torch.float32, torch.float64)}
         ones_b, ones_g = torch.ones(ks.nbody), torch.ones(ks.ngeom)
         for _ in range(5):
-            u = torch.rand(fr.nu, generator=g) * 2.0 - 1.0
+            u = controls(g, (fr.nu,))
             tgt = b.cmd_map.apply(u[None], s0.q[None])[0]
             for dt in r:
                 r[dt] = world_step_plain(ks, r[dt], tgt.to(dt), ones_b.to(dt), ones_g.to(dt),
@@ -95,12 +127,12 @@ def drift(task, path):
         print(f"{name}: K2 float32 vs float64 after 5 world steps: pose "
               f"{max(root[:, :7].max().item(), q):.3e}, vel "
               f"{max(root[:, 7:].max().item(), dd[13 * A + D: NS].max().item()):.3e}, lam "
-              f"{dd[NS:].max().item():.3e}", flush=True)
+              f"{dd[NS:].max().item() if ks.n_fc else 0.0:.3e}", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", choices=sorted(OBJECTIVES), default="panda")
+    ap.add_argument("--task", choices=sorted({*OBJECTIVES, *POINT_PATHS}), default="panda")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="profile_out")
@@ -112,12 +144,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     dev = torch.device("cuda")
-    cfg = load_config(f"tasks/{args.task}")
+    cfg, obj = setup(args.task)
     world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device=dev)
-    gp = world.get_actor_position_by_name("goal")[0].cpu().numpy().astype(np.float64)
-    gp[: len(cfg.goal)] = cfg.goal
-    world.set_actor_position_by_name("goal", gp)
-    planner = MPPIisaacPlanner(cfg, OBJECTIVES[args.task](cfg), device=dev)
+    if getattr(cfg, "goal", None) is not None and "goal" in world.scene.actor_names:
+        gp = world.get_actor_position_by_name("goal")[0].cpu().numpy().astype(np.float64)
+        gp[: len(cfg.goal)] = cfg.goal
+        world.set_actor_position_by_name("goal", gp)
+    planner = MPPIisaacPlanner(cfg, obj, device=dev)
 
     def step():
         action = planner.compute_action_from_state(world.state)

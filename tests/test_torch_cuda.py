@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at the
-shapes of the panda reach, panda pick and boxer_push main paths, and on the
-mini-gripper grasp scene. Marked `cuda`: they skip without an
+shapes of the panda reach, panda pick, boxer_push, point-robot, panda_effort
+and omni_panda_pick main paths, and on the mini-gripper grasp scenes (a ball held
+by fingers with the gripper map or with effort fingers, and velocity fingers
+closing on a post through the finger force gate). Marked `cuda`: they skip without an
 NVIDIA GPU and run on the card (whose machine has no JAX, which
 tests/conftest.py imports) with
 
@@ -278,3 +280,192 @@ def test_boxer_push_world_step_kernel_matches_plain(boxer_push):
     b = chip_smoke.BOXER_BOUNDS["initial"]
     torch.testing.assert_close(rows, rows_p, rtol=0.0, atol=max(b["pose"], b["vel"], b["lam"]))
     assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"
+
+
+def _hold_inputs(task, cfg, fr, K, H, seed):
+    """chip_smoke.py's hold controls for task: K1's V and a K2 target maker."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(seed)
+    V = chip_smoke.hold_controls(task, cfg, g, (K, H, fr.nu)).cuda()
+    return V, lambda: chip_smoke.hold_controls(task, cfg, g, (fr.nu,)).cuda()
+
+
+def _world_steps(fw, built, st, tgt_of, n, device="cuda"):
+    rows = fw.pack(st).contiguous()
+    rows_p = rows.clone()
+    ones_b = torch.ones(built.scene.nbody, device=device)
+    ones_g = torch.ones(built.scene.ngeom, device=device)
+    for _ in range(n):
+        tgt = tgt_of()
+        rows = fw.step_rows(rows, tgt, ones_b, ones_g)
+        rows_p = fw.plain(rows_p, tgt, ones_b, ones_g)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rows, rows_p
+
+
+def _initial_hold(key, cfg, obj, bound, K, seed):
+    """K1 (K samples, the conf's H) and K2 over 5 world steps from the conf's
+    initial state, with chip_smoke.py's hold controls for `key`, against
+    their plain versions within `bound` (K2: the largest of its row
+    groups)."""
+    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cuda")
+    built = world.built
+    H = cfg.mppi.horizon
+    fr = FusedRollout(built, world.engine, obj.kernel_cost(built), H, K,
+                      vis_body=built.visualize_bodies[0] if built.visualize_bodies else None,
+                      impulse_sweeps=cfg.mppi.rollout_sweeps)
+    V, u_of = _hold_inputs(key, cfg, fr, K, H, seed=seed)
+    st = world.state.map(lambda x: x[0])
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(broadcast_state(st, K), pm, V)
+    n0 = FusedRollout.launches
+    costs, vis = fr.run(*inputs)
+    torch.cuda.synchronize()
+    assert FusedRollout.launches == n0 + 1
+    costs_p, vis_p = fr.plain(*inputs)
+    torch.testing.assert_close(costs, costs_p, rtol=0.0, atol=bound["k1_max"])
+    torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+    fw = FusedWorldStep(built, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    rows, rows_p = _world_steps(
+        fw, built, st, lambda: built.cmd_map.apply(u_of()[None], st.q[None])[0].contiguous(), 5)
+    torch.testing.assert_close(rows, rows_p, rtol=0.0,
+                               atol=max(bound["pose"], bound["vel"], bound["lam"]))
+    assert float(rows_p[13 * fw.ks.nactor + fw.ks.ndof: fw.ks.n_state_rows].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("task,K", [("panda_effort", None), ("omni_panda_pick", 128)])
+def test_effort_task_kernels_match_plain(panda, task, K):
+    """K1 and K2 at the effort-driven configs from their initial states:
+    panda_effort (K=500, H=8, 7 effort joints) and omni_panda_pick (H=6, 8
+    sweeps, the base and arm effort-driven, the fingers with the motor
+    curve; K1 at 128 samples to keep the plain version short). Bounds:
+    chip_smoke.py EFFORT_BOUNDS / OMNI_BOUNDS["initial"]."""
+    import chip_smoke
+    from mppiisaac_tpu_torch.tasks.omni_panda_pick import OmniPandaPickObjective
+
+    cfg = load_config(f"tasks/{task}")
+    obj = (PandaReachObjective(cfg, "panda_link7") if task == "panda_effort"
+           else OmniPandaPickObjective(cfg))
+    bound = (chip_smoke.EFFORT_BOUNDS if task == "panda_effort" else chip_smoke.OMNI_BOUNDS)["initial"]
+    _initial_hold(task, cfg, obj, bound, K or cfg.mppi.num_samples, seed=9)
+
+
+@pytest.mark.parametrize("key", ["point_robot", "point_robot_obst1", "multi_pointbot"])
+def test_point_kernels_match_plain(panda, key):
+    """K1 (all samples) and K2 at the point-robot paths' shipped configs from
+    their initial states: the TASK_POINT_ROBOT hook, with the obstacle term
+    for point_robot_obst1, and TASK_MULTI_ROBOT. Bounds: chip_smoke.py
+    POINT_BOUNDS[key]["initial"]."""
+    import chip_smoke
+
+    cfg, obj, _ = chip_smoke.point_config(key)
+    _initial_hold(key, cfg, obj, chip_smoke.POINT_BOUNDS[key]["initial"], cfg.mppi.num_samples,
+                  seed=11)
+
+
+def _gripper_scene(effort, device="cuda"):
+    """The mini-gripper with effort fingers holding a ball (effort=True), or
+    with 1 kg velocity-driven fingers closing on a fixed post (the finger
+    force gate; no shipped conf has velocity fingers)."""
+    from mppiisaac_tpu_torch.physics.model import DRIVE_VELOCITY
+    from mppiisaac_tpu_torch.physics.step import Engine
+    from mppiisaac_tpu_torch.scene.actor import ActorSpec
+    from mppiisaac_tpu_torch.scene.builder import SimConfig, build_scene
+
+    gripper = dict(type="robot", name="mini_gripper", fixed=True, init_pos=[0.0, 0.0, 0.5])
+    if effort:
+        other = ActorSpec(type="sphere", name="ball", size=[0.02], mass=0.005,
+                          init_pos=[0.0, 0.0, 0.53], friction=1.0)
+        gripper["dof_mode"] = "effort"
+    else:
+        other = ActorSpec(type="box", name="post", size=[0.04, 0.04, 0.04], fixed=True,
+                          init_pos=[0.0, 0.0, 0.53])
+    built = build_scene([ActorSpec(**gripper), other], SimConfig(dt=0.05, substeps=2))
+    if not effort:
+        art = built.scene.actors[0]
+        art.drive_mode[:] = DRIVE_VELOCITY
+        art.drive_kp[:] = 0.0
+        art.drive_kd[:] = 600.0
+        art.mass[1:] = 1.0
+    engine = Engine(built.scene)
+    st = built.initial_state(engine, device)
+    st = engine.refresh(st.replace(q=torch.full_like(st.q, 0.025 if effort else 0.03)))
+    return built, engine, st
+
+
+# The effort gripper's K1 hold is a sensitive state, as pick's held grasp:
+# efforts of ±6 N juggle the 5 g ball, and its plain version in float32 and
+# float64 part by up to 0.15 in cost (costs up to 1.4) in about a tenth of
+# the (sample, step) pairs. It is held at the first step and by the median
+# over samples of each sample's largest difference, at 10× that drift or
+# more, which tests/test_torch_effort.py measures on the CPU
+# (test_effort_gripper_bounds_cover_float64_drift).
+GRIPPER_K1_FIRST, GRIPPER_K1_MEDIAN = COST_TOL, 4e-4
+
+
+def effort_gripper_hold(device):
+    """The effort fingers' hold: K2 squeezing the ball with 3 N for 5 world
+    steps from the touching grasp (kernel and plain version; on the CPU both
+    are the plain version), then K1's packed inputs at K=256, H=6 with
+    efforts over ±6 N from the state the kernel reached. → (built, fw, rows,
+    rows_p, fr, K1 inputs)."""
+    from mppiisaac_tpu_torch.ops import fused_physics as tfp
+
+    built, engine, st = _gripper_scene(effort=True, device=device)
+    fw = FusedWorldStep(built, engine)
+    tgt = torch.full((2,), -3.0, device=device)
+    rows, rows_p = _world_steps(fw, built, st, lambda: tgt, 5, device=device)
+    ball = built.scene.actor_index("ball")
+    spec = tfp.CostSpec(task=tfp.TASK_PANDA_PICK, ee_body=built.scene.body_offset[ball] - 1,
+                        goal_actor=0, w_dist=1.0, w_ori=0.5, block_actor=ball,
+                        force_body0=built.scene.body_offset[ball], force_nbody=1, w_block=2.0,
+                        w_force=0.01)
+    K, H = 256, 6
+    fr = FusedRollout(built, engine, spec, H, K, vis_body=built.scene.body_offset[ball])
+    A, D, NS = fw.ks.nactor, fw.ks.ndof, fw.ks.n_state_rows
+    held = st.with_root_state(rows[:13 * A].reshape(A, 13)).replace(
+        q=rows[13 * A:13 * A + D], qd=rows[13 * A + D:13 * A + 2 * D])
+    lam = held.contact_lam.clone()
+    lam[torch.as_tensor(fw.fc_idx, device=device)] = rows[NS:].reshape(-1, 4)
+    held = held.replace(contact_lam=lam)
+    g = torch.Generator().manual_seed(10)
+    V = (torch.rand(K, H, fr.nu, generator=g) * 12 - 6).to(device)
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device=device),
+                     torch.ones(K, built.scene.ngeom, device=device))
+    return built, fw, rows, rows_p, fr, fr.pack(broadcast_state(held, K), pm, V)
+
+
+def test_effort_gripper_kernels_match_plain(panda):
+    """The effort fingers' motor curve and spindle stiction: K2 squeezing the
+    ball with 3 N for 5 steps, then K1 (K=256, H=6) from the held grasp."""
+    built, fw, rows, rows_p, fr, inputs = effort_gripper_hold("cuda")
+    assert fw.ks.dof_motor.tolist() == [1, 1]
+    torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
+    ball = built.scene.actor_index("ball")
+    assert float(rows[13 * ball + 2]) > 0.5, "the ball fell out of the grasp"
+    costs, vis = fr.run(*inputs)
+    torch.cuda.synchronize()
+    costs_p, vis_p = fr.plain(*inputs)
+    d = (costs - costs_p).abs()
+    assert float(d[:, 0].max()) <= GRIPPER_K1_FIRST
+    assert float(d.max(1).values.median()) <= GRIPPER_K1_MEDIAN
+    dv = (vis.float() - vis_p.float()).abs()
+    assert float(dv[0].max()) <= VIS_ATOL and float(dv.amax(dim=(0, 2)).median()) <= VIS_ATOL
+
+
+def test_finger_gate_world_step_kernel_matches_plain(panda):
+    """Velocity fingers closing on a post at -0.2 m/s: a finger's net contact
+    force passes grip_force_gate and the gate zeroes its closing target."""
+    built, engine, st = _gripper_scene(effort=False)
+    fw = FusedWorldStep(built, engine)
+    fingers = [built.scene.body_index("finger1"), built.scene.body_index("finger2")]
+    assert fw.ks.dof_gate_body.tolist() == fingers
+    tgt = torch.full((2,), -0.2, device="cuda")
+    rows, rows_p = _world_steps(fw, built, st, lambda: tgt, 4)
+    torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
+    A, D, NS = fw.ks.nactor, fw.ks.ndof, fw.ks.n_state_rows
+    ncf = rows_p[13 * A + 2 * D: NS].reshape(-1, 3)
+    assert float(ncf[fingers].norm(dim=-1).max()) > built.scene.grip_force_gate

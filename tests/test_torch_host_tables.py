@@ -1,8 +1,10 @@
 """Host-side tables of the PyTorch port equal the JAX package's exactly: the
 conf reader, the scene, the contact tables, the stacked articulation model and
-the pair-block contact plan, for `panda`, `point_robot`, `panda_pick` and the
+the pair-block contact plan, for `panda`, `point_robot`, `panda_pick`, the
 mobile-robot tasks `boxer_reach`, `boxer_push`, `heijn_reach` and
-`heijn_push`."""
+`heijn_push`, and `multi_pointbot`, `panda_stick_push`, `panda_effort` and
+`omni_panda_pick` (the effort drives' rows, `finger_motor` and
+`dof_gate_body` included)."""
 import dataclasses
 import glob
 import os
@@ -36,7 +38,7 @@ CONF_FILES = sorted(
     os.path.relpath(p, CONF_ROOT) for p in glob.glob(os.path.join(CONF_ROOT, "**", "*.yaml"), recursive=True)
 )
 TASKS = ["panda", "point_robot", "panda_pick", "boxer_reach", "boxer_push", "heijn_reach",
-         "heijn_push"]
+         "heijn_push", "multi_pointbot", "panda_stick_push", "panda_effort", "omni_panda_pick"]
 
 
 @pytest.mark.parametrize("rel", CONF_FILES)
@@ -183,16 +185,36 @@ def test_kernel_scene_boxer_push_tables():
     assert np.allclose(ks.cmd_W, tb.cmd_map.W) and ks.nu == 2
 
 
+def test_kernel_scene_effort_tables():
+    """The packed kernel tables of omni_panda_pick and panda_effort: every
+    dof effort-driven with the passive damping 10, the motor flag on the
+    omni's two fingers only, no velocity-driven finger (so no force gate);
+    omni's 42 pair blocks, 144 swept candidates and 12 velocity coordinates
+    fit the kernels' bounds."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import check_bounds
+    from mppiisaac_tpu_torch.physics.model import DRIVE_EFFORT
+
+    *_, tb, _, te = _build("omni_panda_pick")
+    ks = tfp.KernelScene.build(tb, te)
+    assert (ks.dof_mode == DRIVE_EFFORT).all() and np.allclose(ks.dof_kd, 10.0)
+    assert ks.dof_motor.tolist() == [0] * 10 + [1, 1]
+    assert (ks.dof_gate_body < 0).all() and ks.grip_force_gate == 10.0
+    assert (ks.nblk, ks.n_fc, ks.nv, ks.nbody, ks.ndof) == (42, 144, 12, 22, 12)
+    check_bounds(ks)
+    *_, tb, _, te = _build("panda_effort")
+    ks = tfp.KernelScene.build(tb, te)
+    assert (ks.dof_mode == DRIVE_EFFORT).all() and not ks.dof_motor.any()
+
+
 @pytest.mark.parametrize("task,feature", [
-    ("omni_panda_pick", "effort drives"),
     ("albert", "mesh collision fitting"),
-    ("panda_effort", "effort drives"),
+    ("anymal", "mesh collision fitting"),
+    ("multi_jackal", "mesh collision fitting"),
 ])
 def test_kernel_scene_rejects_unported_features(task, feature):
-    """Features outside the ported slice (omni_panda_pick's and
-    panda_effort's effort drives, albert's mesh collision fitting): the scene
-    or the kernel plan names the feature instead of computing something
-    else."""
+    """Features outside the ported slice (albert's, anymal's and
+    multi_jackal's mesh collision fitting): the scene or the kernel plan
+    names the feature instead of computing something else."""
     tc = t_load(f"tasks/{task}")
     with pytest.raises(NotImplementedError, match=feature):
         tb = t_build(t_actors(tc.actors, actors_conf_dir()), tc.isaacgym, tc.initial_actor_positions)

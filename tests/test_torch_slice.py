@@ -1,11 +1,13 @@
-"""The panda reach, panda pick and mobile-robot slices end to end: one
-planner command of the port against the JAX planner from the same world
-state with the same injected noise (panda reach on the XLA rollout; the
-mini-gripper grasp scene on the fused Pallas rollout in interpret mode), the
-pick, mobile reach and mobile push cost hooks against the JAX objectives'
-kernel costs, short control loops of the port on the CPU, the planner and
-world wiring of the rollout and world-step settings, the entry points'
-device defaults, and the port running without JAX or PyYAML installed."""
+"""The panda reach, panda pick, mobile-robot, effort and point-robot slices
+end to end: one planner command of the port against the JAX planner from
+the same world state with the same injected noise (panda reach on the XLA
+rollout; the mini-gripper grasp scene on the fused Pallas rollout in
+interpret mode), the pick, mobile reach and mobile push cost hooks against
+the JAX objectives' kernel costs (the newer hooks are in
+tests/test_torch_costs.py), short control loops of every ported task on the
+CPU, the planner and world wiring of the rollout and world-step settings,
+the refusal of unported cost hooks, the entry points' device defaults, and
+the port running without JAX or PyYAML installed."""
 import inspect
 import os
 import re
@@ -38,7 +40,16 @@ from mppiisaac_tpu_torch.runtime.loop import run_task
 from mppiisaac_tpu_torch.runtime.sim import Simulation as TSim
 from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 from mppiisaac_tpu_torch.scene.actor import ActorSpec as TSpec
-from mppiisaac_tpu_torch.tasks import mobile_push, mobile_reach, panda_pick, panda_reach
+from mppiisaac_tpu_torch.tasks import (
+    mobile_push,
+    mobile_reach,
+    multi_robot,
+    omni_panda_pick,
+    panda_pick,
+    panda_reach,
+    panda_stick_push,
+    point_robot,
+)
 from mppiisaac_tpu_torch.tasks.common import split_cli
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective, success_fn
 from mppiisaac_tpu_torch.utils.config_store import load_config as t_load
@@ -217,7 +228,8 @@ def test_entry_points_default_to_cuda():
     to the card; a task CLI without device= asks for the card too, and on a
     machine without one it fails instead of falling back to the CPU."""
     for fn in (run_task, TSim.__init__, TPlanner.__init__, panda_reach.run, panda_pick.run,
-               mobile_reach.run, mobile_push.run):
+               mobile_reach.run, mobile_push.run, point_robot.run, multi_robot.run,
+               panda_stick_push.run, omni_panda_pick.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     rest, opts = split_cli(["mppi.horizon=2", "robot=heijn"], {"robot": "boxer", "device": "cuda"})
     assert rest == ["mppi.horizon=2"] and opts == {"robot": "heijn", "device": "cuda"}
@@ -262,6 +274,46 @@ def test_run_task_short_pick_cpu_loop():
     assert m.steps == 2 and m.final_state_finite and m.success_step is None
     assert [x[:2] for x in seen] == [(0, (9,)), (1, (9,))]
     assert (FusedRollout.launches, FusedWorldStep.launches) == (n1, n2)
+
+
+# the new slices' loops: each task's own run, and whether its world carries λ rows
+NEW_LOOPS = {
+    "point_robot": (point_robot.run, {}, False),
+    "multi_pointbot": (multi_robot.run, {}, False),
+    "panda_effort": (panda_reach.run, {"task": "panda_effort"}, False),
+    "panda_stick_push": (panda_stick_push.run, {}, True),
+    "omni_panda_pick": (omni_panda_pick.run, {}, True),
+}
+
+
+@pytest.mark.parametrize("task", sorted(NEW_LOOPS))
+def test_run_task_short_cpu_loops_of_the_new_tasks(task):
+    """Three control steps of each task through its own `run` on the CPU at
+    K=16, H=4: the plain versions run the effort drives, the finger motor
+    and the four new cost hooks (no kernel launch is counted), the robot
+    moves, the state stays finite, and where blocks are swept their λ rows
+    reach contact_lam."""
+    run, kw, swept = NEW_LOOPS[task]
+    seen = []
+    n1, n2 = FusedRollout.launches, FusedWorldStep.launches
+    m = run(["mppi.num_samples=16", "mppi.horizon=4"], device="cpu", n_steps=3,
+            observer=lambda step, world, action: seen.append(
+                (world.state.q.clone(), world.state.contact_lam)), **kw)
+    assert m.steps == 3 and m.final_state_finite and len(seen) == 3
+    assert float((seen[-1][0] - seen[0][0]).abs().max()) > 1e-4, "the robot did not move"
+    if swept:
+        assert float(seen[-1][1].abs().max()) > 0.0, "no λ row reached contact_lam"
+    assert (FusedRollout.launches, FusedWorldStep.launches) == (n1, n2)
+
+
+def test_fused_rollout_refuses_unported_cost_hooks():
+    """The kernels have no cost branch for albert and anymal yet: a task id
+    outside TASKS is refused by name instead of computing another cost."""
+    cfg = t_load("tasks/panda", ["mppi.num_samples=8", "mppi.horizon=2"])
+    world = TSim(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
+    spec = tfp.CostSpec(task=max(tfp.TASKS) + 1, ee_body=0, goal_actor=1, w_dist=1.0, w_ori=0.0)
+    with pytest.raises(NotImplementedError, match="no CUDA cost"):
+        FusedRollout(world.built, world.engine, spec, H=2, K=8)
 
 
 def test_planner_passes_rollout_and_world_settings():

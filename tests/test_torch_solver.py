@@ -41,6 +41,8 @@ CASES = [
     ("panda", []),
     ("point_robot", []),
     ("panda", ["mppi.update_lambda=true", "mppi.update_cov=true", "mppi.noise_abs_cost=true"]),
+    ("panda_effort", []),
+    ("omni_panda_pick", []),
 ]
 
 
@@ -115,7 +117,8 @@ def test_prng_matches_jax_random(seed):
 
 
 @pytest.mark.parametrize("task,overrides", [("panda", []), ("boxer_reach", []),
-                                            ("point_robot", ["mppi.sampling_method=random"])])
+                                            ("point_robot", ["mppi.sampling_method=random"]),
+                                            ("panda_effort", []), ("omni_panda_pick", [])])
 def test_commands_match_jax_with_drawn_noise(task, overrides):
     """Three commands from the same seed, each drawing its own noise: the port
     draws what the JAX solver draws, so actions and carries agree."""
