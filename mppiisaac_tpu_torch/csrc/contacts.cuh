@@ -1,11 +1,11 @@
 // Contacts of the fused physics substep, per sample (one thread):
-// broadphase gate, narrowphase of the cp, bp, cb, bbc and cc pair blocks, the
-// side-asymmetric penalty law with the static side's soft report, and the
-// hand-off of the swept blocks' point, normal and depth to the impulse pass.
+// broadphase gate, narrowphase of the cp, bp, cb, bbc, cc, bbA and bbB pair
+// blocks, the side-asymmetric penalty law with the static side's soft
+// report, and the hand-off of the swept blocks' point, normal and depth to
+// the impulse pass.
 //
 // Replaces block_gate, block_geometry and contacts_lanes of
-// mppiisaac_tpu/ops/pallas/fused_physics.py (82-118, 442-486, 498-617); the
-// bbA/bbB box-box kinds are not ported (KernelScene.build refuses them). The
+// mppiisaac_tpu/ops/pallas/fused_physics.py (82-118, 442-486, 498-617). The
 // TPU kernel skipped a block when every lane of its tile was separated; here
 // each sample skips its own separated blocks. Either way a gated-off block
 // contributes exact zeros. The gate is written as !(separated), so a sample
@@ -156,9 +156,12 @@ __device__ void block_sample(const SceneTables& sc, const Kin& k, int bi, int s,
     *depth = d;
     return;
   }
-  // bp / bbc: a box sample of ga
+  // bp / bbc / bbA: a box sample of ga (against the ground, or box gb);
+  // bbB: a box sample of gb against box ga, its normal turned to point from
+  // b to a
+  const int gs = kind == KIND_BBB ? gb : ga, gh = kind == KIND_BBB ? ga : gb;
   float gp[3], gq[4], off[3], w[3], pt[3];
-  geom_pose(sc, k, ga, gp, gq);
+  geom_pose(sc, k, gs, gp, gq);
   const int o = sc.blk_sc[bi], S = sc.blk_S[bi];
   for (int i = 0; i < 3; ++i) off[i] = sc.sconst[o + i * S + s];
   qrot(gq, off, w);
@@ -169,9 +172,11 @@ __device__ void block_sample(const SceneTables& sc, const Kin& k, int bi, int s,
     *depth = -pt[2];
     return;
   }
-  float gpb[3], gqb[4];
-  geom_pose(sc, k, gb, gpb, gqb);
-  point_to_box(pt, gpb, gqb, &sc.geom_size[3 * gb], normal, depth, point);
+  float gph[3], gqh[4];
+  geom_pose(sc, k, gh, gph, gqh);
+  point_to_box(pt, gph, gqh, &sc.geom_size[3 * gh], normal, depth, point);
+  if (kind == KIND_BBB)
+    for (int i = 0; i < 3; ++i) normal[i] = -normal[i];
 }
 
 __device__ __forceinline__ void point_vel(const Kin& k, int b, const float* p, float* v) {

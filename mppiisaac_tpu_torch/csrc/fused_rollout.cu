@@ -10,8 +10,8 @@
 // Both kernels run the same device code, one physics substep:
 //   fk()         forward kinematics from each actor's root rows: revolute,
 //                prismatic and fixed joints (replaces fused_physics.fk_lanes)
-//   contacts()   broadphase gate, narrowphase of the cp, bp, cb, bbc and cc
-//                pair blocks, side-asymmetric penalty law, reported net
+//   contacts()   broadphase gate, narrowphase of the cp, bp, cb, bbc, cc, bbA
+//                and bbB pair blocks, side-asymmetric penalty law, reported net
 //                contact force, swept geometry (contacts.cuh)
 //   dynamics()   velocity solve of every articulation, fixed or floating
 //                base, over its velocity coordinates (spatial and composite
@@ -23,8 +23,8 @@
 //                (impulse.cuh); clamped, deferred integration of dofs and
 //                roots (replaces dynamics_lanes)
 // and the task cost hook task_cost() (replaces the objective kernel_cost
-// functions; panda reach, panda pick, mobile reach, mobile push, point
-// robot, multi robot, stick push and omni pick are ported).
+// functions: panda reach, panda pick, mobile reach, mobile push, point
+// robot, multi robot, stick push, omni pick, albert and anymal).
 //
 // The TPU kernels unrolled each scene into straight-line code with the scene
 // constants baked in. These kernels are TABLE-DRIVEN instead: the scene is one
@@ -36,7 +36,9 @@
 // State is structure-of-arrays: row r of sample k is rows[r * K + k], so
 // neighbouring threads read neighbouring addresses. Rows per sample:
 // 13 per actor (pos, quat xyzw, linvel, angvel), q[D], qd[D], net force[3B],
-// then 4 λ rows [λ_n, λ_t·3] per swept contact candidate.
+// then, at world fidelity, 4 λ rows [λ_n, λ_t·3] per swept contact
+// candidate. A fast-fidelity rollout (K1 only) carries no λ rows: its
+// impulse sweeps start from zero in every substep, with no stiction snap.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -212,12 +214,13 @@ __device__ void integrate_base(const SceneTables& sc, float* r, const float* u, 
 }
 
 // Velocity solves of every dynamic actor, the impulse pass, and the
-// integration (dynamics_lanes at world fidelity). An articulated actor is
+// integration (dynamics_lanes). An articulated actor is
 // solved over its velocity coordinates: a floating base's 6 (unit Plücker
 // subspaces, u from the root body's (ω, v_O), no drive), then its dofs.
 __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const float plk_n[][3],
                          const float plk_f[][3], const float* tgt, const float* mass,
-                         const float* fric, int K, float dt, const Swept& sw, int sweeps, Ctx& c) {
+                         const float* fric, int K, float dt, const Swept& sw, int sweeps,
+                         bool world, Ctx& c) {
   float Ic[MAX_BODIES][36];
   float vb[MAX_BODIES][6], asp[MAX_BODIES][6], fsub[MAX_BODIES][6];
   float rhs[MAX_V];
@@ -376,7 +379,7 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
   bool any_swept = false;
   for (int bi = 0; bi < sc.nblk; ++bi) any_swept |= (sc.blk_flags[bi] & F_SWEPT) != 0;
   if (any_swept && sweeps > 0 && (any_free || any_deferred))
-    impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, c);
+    impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, world, c);
   for (int a = 0; a < sc.nactor; ++a) {
     if (sc.actor_dynamic[a] == ACTOR_ARTICULATED) {
       const int v0 = sc.actor_v0[a], base = sc.actor_base[a];
@@ -398,8 +401,9 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
   for (int d = 0; d < sc.ndof; ++d) { s.q[d] = new_q[d]; s.qd[d] = new_qd[d]; }
 }
 
-// One substep at world fidelity: FK → contacts → velocity solves → impulse
-// pass → integration. The per-substep temporaries live in `w`.
+// One substep: FK → contacts → velocity solves → impulse pass →
+// integration, at world fidelity (world) or fast fidelity. The per-substep
+// temporaries live in `w`.
 struct Work {
   Kin kin;
   Swept sw;
@@ -408,7 +412,8 @@ struct Work {
 };
 
 __device__ void substep(const SceneTables& sc, Sample& s, Work& w, const float* tgt,
-                        const float* mass, const float* fric, int K, float dt, int sweeps) {
+                        const float* mass, const float* fric, int K, float dt, int sweeps,
+                        bool world) {
   // the finger force gate: a velocity-driven finger stops closing once its
   // link's net contact force (the last substep's report, which contacts()
   // overwrites) exceeds grip_force_gate
@@ -420,7 +425,7 @@ __device__ void substep(const SceneTables& sc, Sample& s, Work& w, const float* 
   }
   fk(sc, s, w.kin);
   contacts(sc, w.kin, fric, K, dt, w.plk_n, w.plk_f, s.ncf, w.sw);
-  dynamics(sc, s, w.kin, w.plk_n, w.plk_f, tg, mass, fric, K, dt, w.sw, sweeps, w.ctx);
+  dynamics(sc, s, w.kin, w.plk_n, w.plk_f, tg, mass, fric, K, dt, w.sw, sweeps, world, w.ctx);
 }
 
 // ---------------------------------------------------------------------------
@@ -508,6 +513,8 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
   //   + w_arm_vel·Σ_{3≤i<10} qd_i² + w_pose·Σ_{i<7} (q_{3+i} − pose_i)²
   //   + w_grip·Σ_{i<2} (q_{10+i} − pose_{7+i})² + w_height·max(floor − ee_z, 0),
   //   dof i of the actor whose first dof is dof0
+  // TASK_ALBERT: w_dist·‖ee − goal‖ + w_ori·‖(roll, pitch)‖;
+  // TASK_ANYMAL: w_dist·‖ee − goal‖ + Σ_i ht_w_i·|z(ht_body_i) − ht_z_i|
   const float* q = k.quat[sc.ee_body];
   const float x = q[0], y = q[1], z = q[2], w = q[3];
   const float sp = fminf(fmaxf(2.f * (w * y - z * x), -1.f), 1.f);
@@ -516,10 +523,17 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
   const float ori = sqrtf(yaw * yaw + pitch * pitch + 1e-12f);
   const float* r = k.pos[sc.ee_body];
   const float* goal = s.root[sc.goal_actor];
-  if (sc.task == TASK_PANDA_REACH) {
+  if (sc.task == TASK_PANDA_REACH || sc.task == TASK_ALBERT || sc.task == TASK_ANYMAL) {
     const float dx = r[0] - goal[0], dy = r[1] - goal[1], dz = r[2] - goal[2];
-    const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
-    return sc.w_dist * dist + sc.w_ori * ori;
+    const float cost = sc.w_dist * sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
+    if (sc.task == TASK_PANDA_REACH) return cost + sc.w_ori * ori;
+    if (sc.task == TASK_ALBERT) {
+      const float roll = atan2f(2.f * (w * x + y * z), 1.f - 2.f * (x * x + y * y));
+      return cost + sc.w_ori * sqrtf(roll * roll + pitch * pitch + 1e-12f);
+    }
+    float acc = cost;
+    for (int i = 0; i < sc.n_ht; ++i) acc += sc.ht_w[i] * fabsf(k.pos[sc.ht_body[i]][2] - sc.ht_z[i]);
+    return acc;
   }
   const float* block = s.root[sc.block_actor];
   float d1[3], d2[3];
@@ -549,10 +563,12 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
 }
 
 // ---------------------------------------------------------------------------
-// state rows <-> per-sample state (state rows, then 4 λ rows per candidate)
+// state rows <-> per-sample state (state rows, then at world fidelity 4 λ
+// rows per candidate)
 // ---------------------------------------------------------------------------
 
-__device__ void load_sample(const SceneTables& sc, const float* rows, int K, int k, Sample& s) {
+__device__ void load_sample(const SceneTables& sc, const float* rows, int K, int k, bool world,
+                            Sample& s) {
   int r = 0;
   for (int a = 0; a < sc.nactor; ++a)
     for (int i = 0; i < 13; ++i) s.root[a][i] = rows[(r++) * K + k];
@@ -560,6 +576,7 @@ __device__ void load_sample(const SceneTables& sc, const float* rows, int K, int
   for (int d = 0; d < sc.ndof; ++d) s.qd[d] = rows[(r++) * K + k];
   for (int b = 0; b < sc.nbody; ++b)
     for (int i = 0; i < 3; ++i) s.ncf[b][i] = rows[(r++) * K + k];
+  if (!world) return;
   for (int c = 0; c < sc.n_fc; ++c)
     for (int i = 0; i < 4; ++i) s.lam[c][i] = rows[(r++) * K + k];
 }
@@ -589,7 +606,8 @@ __device__ void load_tables(const SceneTables* src, SceneTables* dst) {
 //
 // Replaces FusedRollout._kernel (ops/pallas/fused_rollout.py:250-342,
 // launched by pallas_call at :367). One thread per sample walks the H steps
-// and the substeps, with the λ rows carried across the whole trajectory;
+// and the substeps, with the λ rows carried across the whole trajectory at
+// world fidelity (world != 0);
 // state and per-substep temporaries live in registers and local memory
 // (tens of KB per thread, cached in L1/L2).
 //
@@ -610,7 +628,8 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
                                      const float* __restrict__ mass,
                                      const float* __restrict__ fric,
                                      float* __restrict__ costs, float* __restrict__ vis,
-                                     int K, int H, int substeps, float dt_sub, int sweeps) {
+                                     int K, int H, int substeps, float dt_sub, int sweeps,
+                                     int world) {
   extern __shared__ int smem[];
   SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
@@ -619,7 +638,7 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
   Sample s;
   Work w;
   float u[MAX_NU], tgt[MAX_DOFS];
-  load_sample(sc, rows, K, k, s);
+  load_sample(sc, rows, K, k, world != 0, s);
   for (int t = 0; t < H; ++t) {
     for (int j = 0; j < sc.nu; ++j) u[j] = __bfloat162float(V[(t * sc.nu + j) * K + k]);
     for (int d = 0; d < sc.ndof; ++d) {
@@ -642,7 +661,7 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
       }
     }
     for (int it = 0; it < substeps; ++it)
-      substep(sc, s, w, tgt, mass + k, fric + k, K, dt_sub, sweeps);
+      substep(sc, s, w, tgt, mass + k, fric + k, K, dt_sub, sweeps, world != 0);
     fk(sc, s, w.kin);
     costs[k * H + t] = task_cost(sc, s, w.kin);
     for (int i = 0; i < 3; ++i) {
@@ -676,9 +695,10 @@ __global__ void fused_world_step_kernel(const SceneTables* __restrict__ tables,
   Sample s;
   Work w;
   float tgt[MAX_DOFS];
-  load_sample(sc, rows_in, 1, 0, s);
+  load_sample(sc, rows_in, 1, 0, true, s);
   for (int d = 0; d < sc.ndof; ++d) tgt[d] = tgt_in[d];
-  for (int it = 0; it < substeps; ++it) substep(sc, s, w, tgt, mass, fric, 1, dt_sub, sweeps);
+  for (int it = 0; it < substeps; ++it)
+    substep(sc, s, w, tgt, mass, fric, 1, dt_sub, sweeps, true);
   store_sample(sc, s, rows_out, 1, 0);
 }
 
@@ -707,7 +727,7 @@ static int set_smem(const void* fn) {
 
 int fused_rollout_launch(const void* tables, const void* rows, const void* V, const void* mass,
                          const void* fric, void* costs, void* vis, int K, int H, int substeps,
-                         float dt_sub, int sweeps, void* stream) {
+                         float dt_sub, int sweeps, int world, void* stream) {
   const int threads = 128;
   const int blocks = (K + threads - 1) / threads;
   int rc = set_smem((const void*)fused_rollout_kernel);
@@ -715,7 +735,7 @@ int fused_rollout_launch(const void* tables, const void* rows, const void* V, co
   fused_rollout_kernel<<<blocks, threads, sizeof(SceneTables), (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const __nv_bfloat16*)V,
       (const float*)mass, (const float*)fric, (float*)costs, (float*)vis, K, H, substeps, dt_sub,
-      sweeps);
+      sweeps, world);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@
 // mass-splitting Jacobi impulse sweeps with their inverse-mass cache, warm
 // start and vector friction cone (1027-1442) — stiction blocks (a floating
 // base's link against a static geom) are friction-only there — and the
-// stiction snap of the couple contacts (1443-1535). The sweeps stay Jacobi:
+// stiction snap of the couple contacts (1443-1535), at world and at fast
+// fidelity. The sweeps stay Jacobi:
 // every block reads one frozen velocity snapshot, and the summed impulses
 // are applied at the end of the sweep. The articulated side is indexed by
 // velocity coordinate (scene_tables.cuh). Plain twin: ops/fused_impulse.py.
@@ -251,10 +252,12 @@ __device__ __forceinline__ void vel_at(const SceneTables& sc, const Sample& s0, 
 }
 
 // The impulse pass of one substep: warm start from the λ rows, `sweeps`
-// Jacobi sweeps, the stiction snap. Updates c.fv, c.u and s.lam.
+// Jacobi sweeps, the stiction snap. Updates c.fv, c.u and s.lam. At fast
+// fidelity (world == false) the sweeps start from zero λ and there is no
+// snap (fused_physics.py:1395-1443).
 __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, const float* mass,
                              const float* fric, int K, float dt, const Swept& sw, int sweeps,
-                             Ctx& c) {
+                             bool world, Ctx& c) {
   const float dcap = sc.max_depth;
   const float tau_c = fmaxf(2.f * dt, 1e-3f);
   float inv_m[MAX_ACTORS], invIw[MAX_ACTORS][9];
@@ -366,7 +369,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
   for (int bi = 0; bi < sc.nblk; ++bi) {
     if (!(sc.blk_flags[bi] & F_SWEPT)) continue;
     const int S = sc.blk_S[bi], c0 = sc.blk_c0[bi];
-    if (!sw.live[bi]) {
+    if (!sw.live[bi] || !world) {
       for (int q = 0; q < S; ++q)
         for (int i = 0; i < 4; ++i) s.lam[c0 + q][i] = 0.f;
       continue;
@@ -379,7 +382,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
     }
     block_contribs(sc, s, sw, bi, imp, m);
   }
-  commit(sc, m, inv_m, invIw, c);
+  if (world) commit(sc, m, inv_m, invIw, c);
 
   float v6[MAX_PSI][6];
   for (int it = 0; it < sweeps; ++it) {
@@ -450,7 +453,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
   // couple sample, clipped to ±SNAP_CLIP
   bool any_couple = false;
   for (int b = 0; b < sc.nbody; ++b) any_couple |= sc.body_psi[b] >= 0;
-  if (!any_couple) return;
+  if (!any_couple || !world) return;
   link_velocities(sc, c, v6);
   float A[MAX_ACTORS][36], bs[MAX_ACTORS][6];
   bool used[MAX_ACTORS];

@@ -14,10 +14,11 @@
 #define MAX_SC 1024    // box-sample constants
 #define MAX_PSI 16     // couple and stiction contact links (operational inverse inertia Ψ)
 #define MAX_BIN 4      // binarized gripper dofs
-#define MAX_S 16       // manifold samples per block
+#define MAX_S 26       // manifold samples per block (the full box–box manifold's 26)
 #define MAX_V 24       // velocity coordinates of all articulated actors (base + dofs)
 #define MAX_XY 4       // obstacles or robots of a cost hook
 #define N_POSE 9       // pose constants of TASK_OMNI_PICK (7 arm + 2 finger)
+#define MAX_HT 8       // height terms of TASK_ANYMAL
 
 #define JOINT_FIXED 0
 #define JOINT_REVOLUTE 1
@@ -40,6 +41,8 @@
 #define TASK_MULTI_ROBOT 6
 #define TASK_STICK_PUSH 7
 #define TASK_OMNI_PICK 8
+#define TASK_ALBERT 9
+#define TASK_ANYMAL 10
 
 // pair-block kinds and flags (ops/fused_contacts.py KIND_*, F_*)
 #define KIND_CP 0
@@ -47,6 +50,8 @@
 #define KIND_CB 2
 #define KIND_BBC 3
 #define KIND_CC 4
+#define KIND_BBA 5     // the full box–box manifold: ga's 26 samples against box gb
+#define KIND_BBB 6     // ... gb's samples against box ga, normal from b to a
 #define F_HAS_B 1
 #define F_EMIT_A 2
 #define F_EMIT_B 4
@@ -69,13 +74,15 @@
 struct SceneTables {
   int nactor, nbody, ndof, ngeom, nu, nblk, n_fc, nbin, nv;
   int task, ee_body, goal_actor, vis_body, block_actor, force_body0, force_nbody;
-  int force2_body0, force2_nbody, force_dims, xy_actor, xy_dof, n_xy, dof0;
+  int force2_body0, force2_nbody, force_dims, xy_actor, xy_dof, n_xy, dof0, n_ht;
   int xy_actors[MAX_XY], xy_dofs[MAX_XY];
   float gravity_z, eps_v, max_depth, max_root_linvel, max_root_angvel, grip_force_gate;
   float mu_spindle;  // effort-finger spindle stiction (physics/stacked.py)
   float w_dist, w_ori, w_block, w_force, w_align, w_vel, goal_x, goal_y, goal_yaw;
   float w_pair, min_sep, w_height, height_floor, w_base_vel, w_arm_vel, w_pose, w_grip;
   float xy_gx[MAX_XY], xy_gy[MAX_XY], pose_c[N_POSE];
+  int ht_body[MAX_HT];
+  float ht_z[MAX_HT], ht_w[MAX_HT];
   int actor_body0[MAX_ACTORS], actor_nbody[MAX_ACTORS];
   int actor_dof0[MAX_ACTORS], actor_ndof[MAX_ACTORS];
   int actor_dynamic[MAX_ACTORS], actor_gravity[MAX_ACTORS];

@@ -11,7 +11,8 @@ Two notes on form:
   (`_command_impl` also takes an injected ε, for tests of the update alone);
 * the rollout is always the fused rollout (`ops/fused_rollout.FusedRollout`,
   the CUDA kernel on CUDA tensors, its plain version on CPU tensors): the
-  port has no per-sample engine step to vmap.
+  port has no per-sample engine step to vmap, so of the two prior forms it
+  takes the tape prior only (see `MPPIPlanner`).
 """
 from __future__ import annotations
 
@@ -38,18 +39,25 @@ class MppiCarry:
 
 class MPPIPlanner:
     """fused: the rollout, `fused.rollout(sim_state_K, params_K, V (K,H,nu))
-    → (costs (K,H), vis (H,K,3))`. device: where the solver's tensors live."""
+    → (costs (K,H), vis (H,K,3))`. device: where the solver's tensors live.
+    tape_prior: optional `(state0, t0) → (H, nu)` control tape, evaluated
+    once per command (with `use_priors`) from the K-wide state0 and the
+    world step clock, outside the rollout: one sample rolls the tape, and
+    with `prior_blend` a > 0 the sampling mean moves to (1 − a)·U + a·tape.
 
-    def __init__(self, cfg: MPPIConfig, nx: int, fused, device="cpu"):
+    `tape_injections` counts the commands into which a tape was injected."""
+
+    tape_injections = 0
+
+    def __init__(self, cfg: MPPIConfig, nx: int, fused, device="cpu", tape_prior=None):
         self.fused = fused
+        self.tape_prior = tape_prior
         self.nx = nx
         self.device = torch.device(device)
         nu = np.asarray(cfg.noise_sigma, dtype=np.float64).shape[0] if cfg.noise_sigma is not None else nx
         self.nu = nu
         self.cfg = cfg.resolved(nu)
         c = self.cfg
-        if c.use_priors:
-            raise NotImplementedError("MPPI priors are not ported")
         K, H = c.num_samples, c.horizon
         dev = self.device
 
@@ -130,6 +138,19 @@ class MPPIPlanner:
         V = torch.clamp(carry.U[None] + eps, u_min, u_max)            # (K,H,nu)
         if c.sample_null_action:
             V[K - 1] = 0.0
+        if self.tape_prior is not None and c.use_priors:
+            # one sample rolls the prior's full tape; eps_eff below uses the
+            # actual controls, so a winning tape drags U toward the tape
+            tape = torch.clamp(self.tape_prior(state0, carry.t0).to(torch.float32), u_min, u_max)
+            if c.prior_blend > 0.0:
+                # biased MPPI: the sampling mean moves toward the tape, while
+                # the importance term still measures deviation from U
+                a = torch.tensor(c.prior_blend, dtype=torch.float32, device=V.device)
+                V = torch.clamp((1 - a) * carry.U[None] + a * tape[None] + eps, u_min, u_max)
+                if c.sample_null_action:
+                    V[K - 1] = 0.0
+            V[K - 2] = tape
+            type(self).tape_injections += 1
         eps_eff = V - carry.U[None]
         eye = torch.eye(nu, dtype=carry.sigma.dtype, device=carry.sigma.device)
         sigma_inv = torch.linalg.inv(carry.sigma + eye * 1e-8)

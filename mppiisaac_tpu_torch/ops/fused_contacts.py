@@ -2,11 +2,13 @@
 csrc/contacts.cuh, batched over a leading sample axis K.
 
 Counterpart of the JAX package's `ops/pallas/fused_physics.py` `block_gate`,
-`block_geometry` and `contacts_lanes`, for the pair-block kinds this port
-has: cp (capsule–plane), bp (box–plane), cb (capsule–box), bbc (box
-corners and face centres against a box) and cc (capsule–capsule; a sphere is
-a capsule of zero length). Every block is read from the flat
-tables of `KernelScene` (the same tables the CUDA kernels read).
+`block_geometry` and `contacts_lanes`, for every pair-block kind: cp
+(capsule–plane), bp (box–plane), cb (capsule–box), bbc (box corners and face
+centres against a box), cc (capsule–capsule; a sphere is a capsule of zero
+length), and the full 26-sample box–box manifold bbA (ga's samples against
+box gb) and bbB (gb's samples against box ga, reported in the a − b normal
+convention). Every block is read from the flat tables of `KernelScene` (the
+same tables the CUDA kernels read).
 
 The TPU kernel gated a block on "any lane of the tile is possibly in
 contact"; here the gate is per sample. A gated-off block contributes exact
@@ -23,8 +25,9 @@ from ..physics.math3d import cross, dot, point_to_box, quat_mul, quat_rotate, qu
 from ..physics.urdf import GEOM_CAPSULE
 
 # pair-block kinds of the kernel tables (csrc/contacts.cuh KIND_*)
-KIND_CP, KIND_BP, KIND_CB, KIND_BBC, KIND_CC = 0, 1, 2, 3, 4
-KIND_NAMES = {"cp": KIND_CP, "bp": KIND_BP, "cb": KIND_CB, "bbc": KIND_BBC, "cc": KIND_CC}
+KIND_CP, KIND_BP, KIND_CB, KIND_BBC, KIND_CC, KIND_BBA, KIND_BBB = 0, 1, 2, 3, 4, 5, 6
+KIND_NAMES = {"cp": KIND_CP, "bp": KIND_BP, "cb": KIND_CB, "bbc": KIND_BBC, "cc": KIND_CC,
+              "bbA": KIND_BBA, "bbB": KIND_BBB}
 
 # per-block flag bits (csrc/contacts.cuh F_*)
 F_HAS_B, F_EMIT_A, F_EMIT_B, F_SWEPT = 1, 2, 4, 8
@@ -120,16 +123,19 @@ def block_geometry(ks, bi: int, pos, quat):
         n_w, depth_c, surf = point_to_box(sp, gp_b[:, None], gq_b[:, None],
                                           [float(v) for v in ks.geom_size[gb]])
         return surf, n_w, depth_c + r
-    if kind == KIND_BBC:
-        gp_a, gq_a = geom_pose(ks, ga, pos, quat)
-        gp_b, gq_b = geom_pose(ks, gb, pos, quat)
+    if kind in (KIND_BBC, KIND_BBA, KIND_BBB):
+        # the box samples of one geom against the other box; bbB samples gb
+        # against ga and turns the normal to point from b to a
+        gs, gh = (gb, ga) if kind == KIND_BBB else (ga, gb)
+        gp_s, gq_s = geom_pose(ks, gs, pos, quat)
+        gp_h, gq_h = geom_pose(ks, gh, pos, quat)
         samp = _block_samples(ks, bi, ref)
         S = samp.shape[0]
-        pt = gp_a[:, None] + quat_rotate(gq_a[:, None].expand(-1, S, -1),
-                                         samp.expand(gp_a.shape[0], -1, -1))
-        n_w, depth_c, surf = point_to_box(pt, gp_b[:, None], gq_b[:, None],
-                                          [float(v) for v in ks.geom_size[gb]])
-        return surf, n_w, depth_c
+        pt = gp_s[:, None] + quat_rotate(gq_s[:, None].expand(-1, S, -1),
+                                         samp.expand(gp_s.shape[0], -1, -1))
+        n_w, depth_c, surf = point_to_box(pt, gp_h[:, None], gq_h[:, None],
+                                          [float(v) for v in ks.geom_size[gh]])
+        return surf, -n_w if kind == KIND_BBB else n_w, depth_c
     if kind == KIND_CC:
         pa0, pa1, ra = geom_segment(ks, ga, pos, quat)
         pb0, pb1, rb = geom_segment(ks, gb, pos, quat)

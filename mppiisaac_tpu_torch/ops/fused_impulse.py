@@ -16,8 +16,9 @@ Counterpart of the second half of the JAX package's
   impulses applied at the END of each sweep from a frozen velocity snapshot,
   the two-way fold-back ΔU = M⁻¹ΦᵀY for the articulated side (stiction
   blocks: friction only, their λ_n carried unchanged), and the
-  world-fidelity stiction snap of the couple contacts (one 6×6 least-squares
-  solve per free body, clipped to ±0.05).
+  world-fidelity stiction snap of the couple contacts (one 6×6
+  least-squares solve per free body, clipped to ±0.05). At fast fidelity
+  the sweeps start from zero and there is no snap.
 
 The articulated side is indexed by velocity coordinate (base, then dofs;
 see ops/fused_physics.py).
@@ -163,7 +164,9 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
     after the velocity solve (updated in place); art_ctx: {actor: ctx} of
     articulated actors with couple or stiction blocks (ctx["u"] updated in
     place);
-    lam (K, n_fc, 4) the warm-start λ rows. → λ rows after the sweeps."""
+    lam (K, n_fc, 4) the warm-start λ rows, or None at fast fidelity: the
+    sweeps start from zero and the stiction snap is left out. → λ rows
+    after the sweeps (None at fast fidelity)."""
     dcap = ks.max_depth
     tau_c = max(2.0 * dt, 1e-3)
     ref = pos[0]
@@ -338,6 +341,10 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
     ubys = {aid: list(ctx["u"]) for aid, ctx in art_ctx.items()}
     lam_n, lam_t, parts = [], [], []
     for si, geo in enumerate(swept):
+        if lam is None:
+            lam_n.append(torch.zeros_like(geo.depth))
+            lam_t.append(torch.zeros_like(geo.point))
+            continue
         c0, S_ = c0s[si], geo.depth.shape[1]
         lnw = lam[:, c0:c0 + S_, 0] * act[si]
         ltw = lam[:, c0:c0 + S_, 1:4] * act[si][..., None]
@@ -345,7 +352,8 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         lam_n.append(block_live_or(geo.live, lnw))
         lam_t.append(block_live_or(geo.live, ltw))
         parts.append(contribs(si, imp))
-    commit(parts, rlv, rav, ubys)
+    if lam is not None:
+        commit(parts, rlv, rav, ubys)
 
     for _ in range(sweeps):
         v6 = v6_of(ubys)
@@ -393,7 +401,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
             parts.append(contribs(si, imp))
         commit(parts, rlv, rav, ubys)
 
-    if body_art:
+    if body_art and lam is not None:
         # stiction snap: one regularised 6×6 least-squares solve per free
         # body matching its rigid motion to the articulated side at every
         # sticking couple sample, clipped to ±SNAP_CLIP
@@ -450,6 +458,8 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         free_vel[a][0], free_vel[a][1] = rlv[a], rav[a]
     for aid, ctx in art_ctx.items():
         ctx["u"] = ubys[aid]
+    if lam is None:
+        return None
     out = lam.clone()
     for si, geo in enumerate(swept):
         c0, S_ = c0s[si], geo.depth.shape[1]

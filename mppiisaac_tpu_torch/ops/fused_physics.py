@@ -14,7 +14,7 @@ Counterpart of the JAX package's `ops/pallas/fused_physics.py`:
   naming it; it never substitutes another computation.
 * `fk`, `dynamics`, `substep`, `task_cost`, `command_targets` — the plain
   twin of the kernels' device code, batched over a leading sample axis K. It
-  mirrors `fk_lanes` and `dynamics_lanes` at world fidelity (RNEA bias, CRBA,
+  mirrors `fk_lanes` and `dynamics_lanes` at world and fast fidelity (RNEA bias, CRBA,
   drives, fixed and floating bases, free single bodies, Cholesky, deferred
   integration); the contacts are in `fused_contacts`, the couple terms,
   impulse sweeps and stiction snap in `fused_impulse`. The CPU path of the
@@ -88,10 +88,14 @@ TASK_POINT_ROBOT = 5
 TASK_MULTI_ROBOT = 6
 TASK_STICK_PUSH = 7
 TASK_OMNI_PICK = 8
+TASK_ALBERT = 9
+TASK_ANYMAL = 10
 TASKS = (TASK_PANDA_REACH, TASK_PANDA_PICK, TASK_MOBILE_REACH, TASK_MOBILE_PUSH,
-         TASK_POINT_ROBOT, TASK_MULTI_ROBOT, TASK_STICK_PUSH, TASK_OMNI_PICK)
+         TASK_POINT_ROBOT, TASK_MULTI_ROBOT, TASK_STICK_PUSH, TASK_OMNI_PICK, TASK_ALBERT,
+         TASK_ANYMAL)
 MAX_XY = 4          # obstacles or robots of a cost (CostSpec.xy_*)
 N_POSE = 9          # pose constants of TASK_OMNI_PICK (7 arm + 2 finger)
+MAX_HT = 8          # height terms of TASK_ANYMAL (CostSpec.ht_*)
 
 
 def _t3(a):
@@ -263,6 +267,10 @@ class CostSpec:
     qd_i² + w_pose·Σ_{i<7} (q_{3+i} − pose[i])² + w_grip·Σ_{i<2} (q_{10+i} −
     pose[7+i])² + w_height·max(height_floor − ee_z, 0), dof i of the actor
     whose first dof is dof0 (3 base, 7 arm, 2 finger dofs).
+    TASK_ALBERT: w_dist·‖ee − goal‖ + w_ori·‖(roll, pitch)‖ (the EE's yaw
+    follows the base, so it is left free).
+    TASK_ANYMAL: w_dist·‖ee − goal‖ + Σ_i ht_w[i]·|z(ht_body[i]) − ht_z[i]|,
+    ee the base body, the sum over up to MAX_HT (body, height, weight) rows.
     The goal of the 3-D costs is the root of goal_actor. F sums |F_i|,
     i < force_dims, of the net contact force F of each force group: bodies
     force_body0 .. force_body0 + force_nbody − 1, and force2_body0 ..
@@ -300,6 +308,9 @@ class CostSpec:
     w_pose: float = 0.0
     w_grip: float = 0.0
     pose: Tuple[float, ...] = ()                # N_POSE
+    ht_body: Tuple[int, ...] = ()               # ≤ MAX_HT
+    ht_z: Tuple[float, ...] = ()
+    ht_w: Tuple[float, ...] = ()
 
 
 # actor kinds of the kernel tables (actor_dynamic)
@@ -425,16 +436,14 @@ class KernelScene:
         return self.n_state_rows + 4 * self.n_fc
 
     @staticmethod
-    def build(built, engine, cost: Optional[CostSpec] = None) -> "KernelScene":
-        """Pack a BuiltScene + Engine; raise NotImplementedError on any feature
-        the ported kernels lack."""
+    def build(built, engine, cost: Optional[CostSpec] = None, tables=None) -> "KernelScene":
+        """Pack a BuiltScene + Engine (and the contact tables: the engine's,
+        unless `tables` gives others, as the rollout's reduced manifold
+        does); raise NotImplementedError on any feature the ported kernels
+        lack."""
         scene = built.scene
-        tables = engine.tables
+        tables = engine.tables if tables is None else tables
         blocks, sconst = pair_blocks(scene, tables)
-        kinds = sorted({b["kind"] for b in blocks if b["kind"] not in KIND_NAMES})
-        if kinds:
-            raise NotImplementedError(
-                f"contact pair blocks of kind {kinds} are not ported (cp, bp, cb, bbc, cc are)")
         A = scene.nactor
         actor_dynamic = np.zeros(A, np.int32)
         actor_gravity = np.zeros(A, np.int32)
@@ -519,8 +528,6 @@ class KernelScene:
 
         c0, n_fc = [], 0
         for b in blocks:
-            if b["ga"] != b["ga_geom"] or (b["has_b"] and b["gb"] != b["gb_geom"]):
-                raise NotImplementedError(f"pair block {b['kind']} samples its b geom")
             c0.append(n_fc if b["swept"] else -1)
             n_fc += b["S"] if b["swept"] else 0
         a_soft = [b["a_free"] or (b["a_static"] and b["b_free"]) for b in blocks]
@@ -784,10 +791,13 @@ def _unit6(k: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
-             tgt, mass_scale, fric, dt, swept: List[SweptGeo] = (), sweeps: int = 2):
+             tgt, mass_scale, fric, dt, swept: List[SweptGeo] = (), sweeps: int = 2,
+             world_fidelity: bool = True):
     """Implicit velocity update of every dynamic actor, the impulse pass, and
-    the integration (dynamics_lanes at world fidelity). tgt (K,D),
-    mass_scale (K,B), fric (K,G). → the new state dict."""
+    the integration (dynamics_lanes). tgt (K,D), mass_scale (K,B), fric
+    (K,G). At world fidelity the impulse pass starts from st["lam"] and
+    returns the λ rows in the new state; at fast fidelity it starts from
+    zero and keeps no λ. → the new state dict."""
     new_q = st["q"].clone()
     new_qd = st["qd"].clone()
     ref = st["root_pos"][:, 0]
@@ -938,8 +948,10 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
 
     out = dict(st)
     if swept and sweeps > 0 and (free_vel or art_ctx):
-        out["lam"] = impulse_pass(ks, list(swept), st, pos, linv, angv, mass_scale, fric, dt,
-                                  sweeps, free_vel, art_ctx, st["lam"])
+        lam = impulse_pass(ks, list(swept), st, pos, linv, angv, mass_scale, fric, dt, sweeps,
+                           free_vel, art_ctx, st["lam"] if world_fidelity else None)
+        if world_fidelity:
+            out["lam"] = lam
     for ai, ctx in art_ctx.items():
         u, base = ctx["u"], ctx["base"]
         if base:
@@ -958,18 +970,20 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
     return out
 
 
-def substep(ks: KernelScene, st, tgt, mass_scale, fric, dt, sweeps: int = 2):
-    """One substep of the twin at world fidelity: FK → contacts →
-    velocity solves → impulse pass → integration. Returns the new state dict
-    with this substep's reported net contact forces (and λ rows when the
-    state carries them)."""
+def substep(ks: KernelScene, st, tgt, mass_scale, fric, dt, sweeps: int = 2,
+            world_fidelity: bool = True):
+    """One substep of the twin: FK → contacts → velocity solves → impulse
+    pass → integration. Returns the new state dict with this substep's
+    reported net contact forces (and, at world fidelity, λ rows). Fast
+    fidelity (world_fidelity False: the rollout's `rollout_fidelity: fast`)
+    leaves out the λ warm start, the λ rows and the stiction snap."""
     pos, quat, linv, angv, axis_w = fk(ks, st)
     plk_n, plk_f, net_cf, swept = contacts(ks, pos, quat, linv, angv, fric, dt)
-    if swept and "lam" not in st:
+    if swept and world_fidelity and "lam" not in st:
         st = dict(st, lam=torch.zeros(pos[0].shape[0], ks.n_fc, 4, dtype=pos[0].dtype,
                                       device=pos[0].device))
     out = dynamics(ks, st, pos, quat, linv, angv, axis_w, plk_n, plk_f, tgt, mass_scale, fric,
-                   dt, swept, sweeps)
+                   dt, swept, sweeps, world_fidelity)
     out["net_cf"] = torch.stack(net_cf, 1)
     return out
 
@@ -1033,13 +1047,20 @@ def task_cost(ks: KernelScene, st, pos, quat) -> torch.Tensor:
                 d = torch.sqrt(dx * dx + dy * dy + 1e-12)
                 cost = cost + c.w_pair * torch.clamp(c.min_sep - d, min=0.0)
         return cost
-    _, p, y = euler_zyx_atan2(quat[c.ee_body])
+    ro, p, y = euler_zyx_atan2(quat[c.ee_body])
     ori = torch.sqrt(y * y + p * p + 1e-12)
     r = pos[c.ee_body]
     goal = st["root_pos"][:, c.goal_actor]
-    if c.task == TASK_PANDA_REACH:
+    if c.task in (TASK_PANDA_REACH, TASK_ALBERT, TASK_ANYMAL):
         d = r - goal
-        return c.w_dist * torch.sqrt((d * d).sum(-1) + 1e-12) + c.w_ori * ori
+        cost = c.w_dist * torch.sqrt((d * d).sum(-1) + 1e-12)
+        if c.task == TASK_PANDA_REACH:
+            return cost + c.w_ori * ori
+        if c.task == TASK_ALBERT:
+            return cost + c.w_ori * torch.sqrt(ro * ro + p * p + 1e-12)
+        for b, z, w in zip(c.ht_body, c.ht_z, c.ht_w):
+            cost = cost + w * (pos[b][:, 2] - z).abs()
+        return cost
     block = st["root_pos"][:, c.block_actor]
     d_rb = torch.sqrt(dot(r - block, r - block) + 1e-12)
     d_bg = torch.sqrt(dot(block - goal, block - goal) + 1e-12)

@@ -25,8 +25,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..physics.contact import build_contact_tables
 from ..physics.types import ModelParams, SimState
 from .fused_physics import (
+    MAX_HT,
     MAX_XY,
     N_POSE,
     TASKS,
@@ -45,7 +47,7 @@ from .fused_physics import (
 # compile-time bounds of csrc/scene_tables.cuh, in the order max_bounds()
 # reports them (checked against the library)
 MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU = 8, 32, 16, 16
-MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S = 64, 48, 160, 1024, 16, 4, 16
+MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S = 64, 48, 160, 1024, 16, 4, 26
 MAX_V = 24      # velocity coordinates (base + dofs) of all articulated actors
 BOUNDS = (MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC,
           MAX_PSI, MAX_BIN, MAX_S, MAX_V)
@@ -61,7 +63,8 @@ class _SceneTablesC(ctypes.Structure):
         *[(n, ctypes.c_int) for n in (
             "nactor", "nbody", "ndof", "ngeom", "nu", "nblk", "n_fc", "nbin", "nv", "task",
             "ee_body", "goal_actor", "vis_body", "block_actor", "force_body0", "force_nbody",
-            "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof", "n_xy", "dof0")],
+            "force2_body0", "force2_nbody", "force_dims", "xy_actor", "xy_dof", "n_xy", "dof0",
+            "n_ht")],
         ("xy_actors", _arr(ctypes.c_int, MAX_XY)),
         ("xy_dofs", _arr(ctypes.c_int, MAX_XY)),
         *[(n, ctypes.c_float) for n in (
@@ -72,6 +75,9 @@ class _SceneTablesC(ctypes.Structure):
         ("xy_gx", _arr(ctypes.c_float, MAX_XY)),
         ("xy_gy", _arr(ctypes.c_float, MAX_XY)),
         ("pose_c", _arr(ctypes.c_float, N_POSE)),
+        ("ht_body", _arr(ctypes.c_int, MAX_HT)),
+        ("ht_z", _arr(ctypes.c_float, MAX_HT)),
+        ("ht_w", _arr(ctypes.c_float, MAX_HT)),
         *[(n, _arr(ctypes.c_int, MAX_ACTORS)) for n in (
             "actor_body0", "actor_nbody", "actor_dof0", "actor_ndof", "actor_dynamic",
             "actor_gravity", "actor_base", "actor_v0", "actor_nv")],
@@ -161,16 +167,21 @@ def pack_tables(ks: KernelScene, vis_body: int = -1) -> bytes:
               "w_pair", "min_sep", "w_height", "height_floor", "dof0", "w_base_vel", "w_arm_vel",
               "w_pose", "w_grip"):
         setattr(t, n, getattr(c, n))
-    n_xy = len(c.xy_actors)
-    if n_xy > MAX_XY or len(c.pose) > N_POSE:
-        raise ValueError(f"cost has {n_xy} obstacles or robots and {len(c.pose)} pose "
-                         f"constants; the CUDA kernels take at most {MAX_XY} and {N_POSE}")
+    n_xy, n_ht = len(c.xy_actors), len(c.ht_body)
+    if n_xy > MAX_XY or len(c.pose) > N_POSE or n_ht > MAX_HT:
+        raise ValueError(f"cost has {n_xy} obstacles or robots, {len(c.pose)} pose constants "
+                         f"and {n_ht} height terms; the CUDA kernels take at most {MAX_XY}, "
+                         f"{N_POSE} and {MAX_HT}")
     t.n_xy = n_xy
     t.xy_actors[:n_xy] = list(c.xy_actors)
     t.xy_dofs[:n_xy] = list(c.xy_dofs) if c.xy_dofs else [-1] * n_xy
     t.xy_gx[:len(c.xy_goals)] = [g[0] for g in c.xy_goals]
     t.xy_gy[:len(c.xy_goals)] = [g[1] for g in c.xy_goals]
     t.pose_c[:len(c.pose)] = list(c.pose)
+    t.n_ht = n_ht
+    t.ht_body[:n_ht] = list(c.ht_body)
+    t.ht_z[:n_ht] = list(c.ht_z)
+    t.ht_w[:n_ht] = list(c.ht_w)
     for n in _TABLE_ARRAYS:
         flat = np.asarray(getattr(ks, n)).reshape(-1)
         getattr(t, n)[: len(flat)] = flat.tolist()
@@ -245,20 +256,21 @@ def _lam_rows(ks: KernelScene, fc_idx, lam: Optional[torch.Tensor], lead, device
 # ---------------------------------------------------------------------------
 
 def rollout_plain(ks: KernelScene, rows, V, mass, fric, H: int, substeps: int,
-                  dt_sub: float, vis_body: int, sweeps: int):
+                  dt_sub: float, vis_body: int, sweeps: int, world_fidelity: bool = True):
     """Plain version of the rollout kernel (K1).
 
     rows (NS + 4·n_fc, K) state and λ rows (λ carried across the whole
-    H × substeps trajectory); V (H,nu,K) controls (already rounded through
-    bf16); mass (B,K), fric (G,K). → costs (K,H), vis (H,K,3) rounded through
-    bf16 (-1 vis_body: zeros)."""
+    H × substeps trajectory), or at fast fidelity (NS, K) state rows alone;
+    V (H,nu,K) controls (already rounded through bf16); mass (B,K), fric
+    (G,K). → costs (K,H), vis (H,K,3) rounded through bf16 (-1 vis_body:
+    zeros)."""
     st = rows_to_state(ks, rows)
     mass_k, fric_k = mass.T, fric.T
     costs, vis = [], []
     for t in range(H):
         tgt = command_targets(ks, V[t].T, st["q"])
         for _ in range(substeps):
-            st = substep(ks, st, tgt, mass_k, fric_k, dt_sub, sweeps)
+            st = substep(ks, st, tgt, mass_k, fric_k, dt_sub, sweeps, world_fidelity)
         pos, quat, _, _, _ = fk(ks, st)
         costs.append(task_cost(ks, st, pos, quat))
         if vis_body >= 0:
@@ -272,20 +284,29 @@ def world_step_plain(ks: KernelScene, rows, tgt, mass, fric, substeps: int, dt_s
                      sweeps: int):
     """Plain version of the world-step kernel (K2): rows (NS + 4·n_fc,) state
     and λ rows of one env, tgt (D,), mass (B,), fric (G,) → rows one control
-    dt later."""
-    st = rows_to_state(ks, rows[:, None])
+    dt later. Envs side by side (rows (NS + 4·n_fc, N), tgt (N, D), mass
+    (N, B), fric (N, G)) step together, each on its own."""
+    one = rows.dim() == 1
+    if one:
+        rows, tgt, mass, fric = rows[:, None], tgt[None], mass[None], fric[None]
+    st = rows_to_state(ks, rows)
     for _ in range(substeps):
-        st = substep(ks, st, tgt[None], mass[None], fric[None], dt_sub, sweeps)
-    return state_dict_to_rows(st)[:, 0]
+        st = substep(ks, st, tgt, mass, fric, dt_sub, sweeps)
+    out = state_dict_to_rows(st)
+    return out[:, 0] if one else out
 
 
 class FusedRollout:
     """K1: the whole K-sample, H-step MPPI rollout in one kernel launch.
 
     Per step: dof targets = W @ u with the gripper binarize, `substeps`
-    physics substeps at world fidelity (λ carried across the trajectory,
-    seeded from the world's contact_lam), then FK and the task cost on the
-    post-step state, plus the position of one body for visualization."""
+    physics substeps, then FK and the task cost on the post-step state, plus
+    the position of one body for visualization. At world fidelity the λ rows
+    are carried across the trajectory, seeded from the world's contact_lam;
+    at fast fidelity (`world_fidelity=False`) each substep's impulse sweeps
+    start from zero, with no stiction snap and no λ rows, and
+    `manifold="reduced"` gives the rollout contact tables of its own with 8
+    corner samples per box–box direction."""
 
     launches = 0
 
@@ -294,14 +315,19 @@ class FusedRollout:
                  impulse_sweeps: int = 2, world_fidelity: bool = True, manifold: str = "full"):
         if cost is None or cost.task not in TASKS:
             raise NotImplementedError(f"no CUDA cost for task spec {cost}")
-        if not world_fidelity:
-            raise NotImplementedError(
-                "fast-fidelity rollouts (rollout_fidelity: fast, no λ carry or snap, and "
-                "its reduced manifold) are not ported")
-        # `manifold` changes nothing at world fidelity (the rollout shares the
-        # world's λ rows, indexed by the world tables), as in the JAX package
-        self.ks = KernelScene.build(built, engine, cost)
-        self.fc_idx = free_cand_indices(built.scene, engine.tables)
+        if manifold not in ("full", "reduced"):
+            raise ValueError(f"rollout manifold {manifold!r}: 'full' or 'reduced'")
+        # the reduced manifold only serves fast fidelity: at world fidelity the
+        # rollout shares the world's λ rows, indexed by the world's tables
+        tables = engine.tables
+        if manifold == "reduced" and not world_fidelity:
+            tables = build_contact_tables(built.scene, bbc_samples=8)
+        self.world_fidelity = bool(world_fidelity)
+        self.manifold = manifold
+        self.tables = tables
+        self.ks = KernelScene.build(built, engine, cost, tables=tables)
+        self.fc_idx = free_cand_indices(built.scene, tables)
+        self.n_rows = self.ks.n_rows if self.world_fidelity else self.ks.n_state_rows
         self.H, self.K = int(H), int(K)
         self.nu = self.ks.nu
         self.vis_body = -1 if vis_body is None else int(vis_body)
@@ -311,11 +337,11 @@ class FusedRollout:
         self._tables = _Tables(self.ks, self.vis_body)
 
     def pack(self, sim_state_K: SimState, params_K: ModelParams, V_khn: torch.Tensor):
-        """→ the kernel inputs: rows (NS + 4·n_fc, K) f32, V (H,nu,K) bf16 (the
-        rounding the TPU kernel applies to its controls), mass (B,K), fric
-        (G,K)."""
+        """→ the kernel inputs: rows (NS + 4·n_fc, K) f32 (fast fidelity: NS),
+        V (H,nu,K) bf16 (the rounding the TPU kernel applies to its
+        controls), mass (B,K), fric (G,K)."""
         lam = _lam_rows(self.ks, self.fc_idx, sim_state_K.contact_lam, (self.K,),
-                        sim_state_K.q.device)
+                        sim_state_K.q.device) if self.world_fidelity else None
         rows = state_to_rows(self.ks, sim_state_K.root_state, sim_state_K.q, sim_state_K.qd, lam)
         V = V_khn.to(torch.bfloat16).permute(1, 2, 0).contiguous()
         mass = params_K.body_mass_scale.to(torch.float32).T.contiguous()
@@ -329,7 +355,7 @@ class FusedRollout:
 
     def _check_inputs(self, rows, V, mass, fric):
         ks, K, dev = self.ks, self.K, rows.device
-        _check("rows", rows, (ks.n_rows, K), torch.float32, dev)
+        _check("rows", rows, (self.n_rows, K), torch.float32, dev)
         _check("V", V, (self.H, self.nu, K), torch.bfloat16, dev)
         _check("mass", mass, (ks.nbody, K), torch.float32, dev)
         _check("fric", fric, (ks.ngeom, K), torch.float32, dev)
@@ -338,7 +364,8 @@ class FusedRollout:
         """The kernel's plain PyTorch version, on any device."""
         self._check_inputs(rows, V, mass, fric)
         return rollout_plain(self.ks, rows, V.to(torch.float32), mass, fric, self.H,
-                             self.substeps, self.dt_sub, self.vis_body, self.impulse_sweeps)
+                             self.substeps, self.dt_sub, self.vis_body, self.impulse_sweeps,
+                             self.world_fidelity)
 
     def run(self, rows, V, mass, fric):
         """Packed inputs → (costs (K,H), vis (H,K,3)): the CUDA kernel on CUDA
@@ -355,7 +382,7 @@ class FusedRollout:
                 self._tables.on(rows.device).data_ptr(), rows.data_ptr(), V.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), costs.data_ptr(), vis.data_ptr(),
                 self.K, self.H, self.substeps, self.dt_sub, self.impulse_sweeps,
-                torch.cuda.current_stream(rows.device).cuda_stream,
+                int(self.world_fidelity), torch.cuda.current_stream(rows.device).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"fused_rollout_kernel launch failed: cudaError {rc}")

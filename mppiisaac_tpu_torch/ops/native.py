@@ -78,7 +78,7 @@ def load_library() -> ctypes.CDLL:
     lib.scene_tables_size.restype = I
     lib.max_bounds.argtypes = [P]
     lib.max_bounds.restype = I
-    lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, P]
+    lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, P]
     lib.fused_rollout_launch.restype = I
     lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, F, I, P]
     lib.fused_world_step_launch.restype = I

@@ -319,3 +319,30 @@ def _articulated_body_mask(scene: SceneModel) -> np.ndarray:
             o = scene.body_offset[ai]
             mask[o : o + a.nbody] = 1.0
     return mask
+
+
+def full_box_manifold(tables):
+    """Tables of a scene with one box–box pair, moved from its two reduced
+    (bbc) directions to the full 2×26-sample manifold (bb_a / bb_b), which
+    `build_contact_tables` declares but never emits.
+
+    The bb rows take the bbc section's place at the end of the candidate
+    order, A-in-B then B-in-A, each emitted as the pair (a, b) with 4 points
+    as the first bbc row is, so they carry that row's per-candidate
+    constants. Returns a new tables object of the same class (the JAX
+    package's ContactTables has the same fields), so that both packages can
+    be given the same full-manifold scene."""
+    import dataclasses
+
+    if len(tables.bbc_a) != 2 or len(tables.bb_a) != 0:
+        raise ValueError("full_box_manifold takes tables with exactly one box pair, in bbc form")
+    o = tables.n_con - 2 * tables.bbc_samples                 # the bbc section's start
+    a, b = int(tables.bbc_a[0]), int(tables.bbc_b[0])
+    rows = np.r_[np.arange(o), np.full(2 * N_BOX_SAMPLES, o)]
+    per = ("con_geom_a", "con_geom_b", "kn_base", "n_pts", "mu_base", "kn_base_soft", "a_free",
+           "b_free", "a_art", "b_art", "a_sta", "b_sta")
+    return dataclasses.replace(
+        tables, bb_a=np.array([a], np.int32), bb_b=np.array([b], np.int32),
+        bbc_a=np.zeros(0, np.int32), bbc_b=np.zeros(0, np.int32), n_con=len(rows),
+        acc_a=tables.acc_a[:, rows], acc_b=tables.acc_b[:, rows],
+        **{f: np.asarray(getattr(tables, f))[rows] for f in per})

@@ -13,16 +13,28 @@ import torch
 from ..mppi.solver import MPPIPlanner
 from ..ops.fused_rollout import FusedRollout
 from ..runtime.sim import Simulation, broadcast_state, sample_model_params
+from .observables import SimView
 from ..utils.config_store import ExampleConfig
 
 
 class MPPIisaacPlanner:
-    def __init__(self, cfg: ExampleConfig, objective, randomize: bool = True, device="cuda"):
+    """prior: optional tape prior (`.tape(view, t0) → (H, nu)`, e.g.
+    planner/priors.QuadrupedGaitPrior), evaluated once per command on the
+    world state when `mppi.use_priors` is set."""
+
+    def __init__(self, cfg: ExampleConfig, objective, prior=None, randomize: bool = True,
+                 device="cuda"):
         if not hasattr(objective, "kernel_cost"):
             raise NotImplementedError(
                 f"{type(objective).__name__} has no CUDA cost (kernel_cost)")
+        if prior is not None and not hasattr(prior, "tape"):
+            raise NotImplementedError(
+                f"{type(prior).__name__} is a closed-loop prior (compute_command per rollout "
+                f"step), which runs only inside the JAX package's XLA rollout; the fused "
+                f"kernels take tape priors (.tape) only")
         self.cfg = cfg
         self.objective = objective
+        self._prior = prior
         self._randomize = randomize
         self.device = torch.device(device)
         self.sim = Simulation(
@@ -52,7 +64,15 @@ class MPPIisaacPlanner:
             world_fidelity=cfg.mppi.rollout_fidelity != "fast",
             manifold=cfg.mppi.rollout_manifold,
         )
-        self.mppi = MPPIPlanner(cfg.mppi, cfg.nx, fused=fused, device=self.device)
+        tape_fn = None
+        if self._prior is not None:
+            prior = self._prior
+
+            def tape_fn(state0, t0):
+                return prior.tape(SimView(built, state0[0].map(lambda x: x[0])), t0)
+
+        self.mppi = MPPIPlanner(cfg.mppi, cfg.nx, fused=fused, device=self.device,
+                                tape_prior=tape_fn)
         self._last_vis = None
 
     def _full(self, carry, world_state, eps=None):

@@ -49,6 +49,7 @@ def _sync(device: torch.device):
 def run_task(
     cfg: ExampleConfig,
     objective,
+    prior=None,
     n_steps: Optional[int] = None,
     success_fn: Optional[Callable] = None,
     observer: Optional[Callable] = None,
@@ -56,9 +57,9 @@ def run_task(
     randomize: bool = True,
     device="cuda",
 ) -> LoopMetrics:
-    """success_fn(world: Simulation) -> bool; observer(step, world, action).
-    device: "cuda" (the kernels; the default) or "cpu" (their plain
-    versions)."""
+    """success_fn(world: Simulation) -> bool; observer(step, world, action);
+    prior: a tape prior for the planner (MPPIisaacPlanner). device: "cuda"
+    (the kernels; the default) or "cpu" (their plain versions)."""
     device = torch.device(device)
     world = Simulation(
         cfg=cfg.isaacgym,
@@ -74,7 +75,7 @@ def run_task(
         g = np.asarray(cfg.goal, dtype=np.float64).reshape(-1)
         gp[: len(g)] = g[:3]
         world.set_actor_position_by_name("goal", gp)
-    planner = MPPIisaacPlanner(cfg, objective, randomize=randomize, device=device)
+    planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device)
     metrics = LoopMetrics()
     n = n_steps if n_steps is not None else cfg.n_steps
     dt = cfg.isaacgym.dt

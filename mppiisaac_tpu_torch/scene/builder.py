@@ -24,6 +24,7 @@ from ..physics.scene_model import SceneModel
 from ..physics.types import SimState
 from ..physics.urdf import GEOM_BOX, GEOM_SPHERE, parse_urdf
 from .actor import ActorSpec
+from .assets import mesh_fit
 from .robots import robot_urdf
 
 
@@ -121,19 +122,13 @@ def resolve_urdf_path(name: str) -> Optional[str]:
     return None
 
 
-def _mesh_fit_not_ported(path, scale, origin_pos, origin_quat):
-    raise NotImplementedError(
-        f"mesh collision fitting (the JAX package's scene/assets.py + "
-        f"csrc/meshfit.cpp) is not ported: {path}"
-    )
-
-
 def _actor_to_articulation(spec: ActorSpec, rng: Optional[np.random.RandomState]) -> Articulation:
     if spec.type == "robot":
         name = spec.urdf_file or spec.name
         path = resolve_urdf_path(name)
         if path is not None:
-            rspec = parse_urdf(path, mesh_fit=_mesh_fit_not_ported)
+            # on-disk URDF: mesh collision elements fit to primitives
+            rspec = parse_urdf(path, mesh_fit=mesh_fit)
         else:
             rspec = parse_urdf(robot_urdf(name))
         art = build_articulation(

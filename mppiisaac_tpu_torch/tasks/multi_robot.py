@@ -6,8 +6,9 @@ term.
 Run the control loop: ``python -m mppiisaac_tpu_torch.tasks.multi_robot
 [task=multi_pointbot] [device=cuda|cpu] [mppi.num_samples=200 ...]`` (the
 card by default; ``device=cpu`` runs the kernels' plain versions).
-multi_jackal's scene needs mesh collision fitting, which the port's scene
-builder does not have yet: it raises naming it.
+``task=multi_jackal`` runs two floating-base jackals whose URDF gives every
+collision element as an OBJ mesh, fit to spheres, capsules and boxes
+(scene/assets.py).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Where a control step of the PyTorch port goes on the GPU.
 
-    python scripts/profile_torch_step.py [--task panda|panda_pick|boxer_push|...]
+    python scripts/profile_torch_step.py [--task panda|panda_pick|boxer_push|albert|...]
                                          [--warmup 5] [--steps 20] [--out profile_out]
 
 Runs the per-step loop of `run_task` (plan → command map → world step) on
@@ -10,6 +10,9 @@ host-timed steps with a synchronize between the phases, then a
 torch.profiler window over the same steps. Prints the median phase times,
 the device time by kernel, the device's busy and idle share of the window,
 and the card's name and power limit; writes the Chrome trace to --out.
+`--task anymal` plans with its gait tape prior (the conf turns priors on);
+`--task panda_pick_fast` is panda_pick with K1 at fast fidelity and the
+reduced manifold (`mppi.rollout_fidelity=fast mppi.rollout_manifold=reduced`).
 
     python scripts/profile_torch_step.py --task boxer_push --drift STATES
 
@@ -18,10 +21,12 @@ drift from the same in float64, at the task's shipped config, from each
 world state in STATES (the files `chip_smoke.py` writes to
 chiprun_out/<task>_states.pt, for boxer_push, the point-robot paths
 point_robot, point_robot_obst1 and multi_pointbot, panda_effort,
-panda_stick_push and omni_panda_pick) — K1 with the inputs and the
-statistics chip_smoke.py holds the kernel to (for all but boxer_push its
-hold controls, and for the last three its first PLAIN_K1_SAMPLES samples),
-and K2 over 5 world steps by row group.
+panda_stick_push, omni_panda_pick, multi_jackal, albert, anymal,
+panda_pick_fast and box_pair, the full box–box manifold scene of phase
+17) — K1 with the inputs and the statistics chip_smoke.py holds the kernel
+to (for all but boxer_push its hold controls, and for the paths of phases
+10-16 its first PLAIN_K1_SAMPLES samples), and K2 over 5 world steps by row
+group (not for panda_pick_fast, whose world step is panda_pick's).
 """
 import argparse
 import json
@@ -38,7 +43,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner  # noqa: E402
 from mppiisaac_tpu_torch.runtime.sim import Simulation  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    ARM_PATHS, PLAIN_K1_SAMPLES, POINT_PATHS, hold_controls, point_config)
+    ARM_PATHS, FAST_OVERRIDES, MESH_LOOPS, PLAIN_K1_SAMPLES, POINT_PATHS, box_pair_scene,
+    hold_controls, point_config, rollout_for)
+from mppiisaac_tpu_torch.tasks.albert import AlbertObjective  # noqa: E402
+from mppiisaac_tpu_torch.tasks.anymal import AnymalObjective, gait_prior  # noqa: E402
+from mppiisaac_tpu_torch.tasks.multi_robot import MultiJackalObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.mobile_push import EE_LINK, MobilePushObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.mobile_reach import MobileReachObjective  # noqa: E402
 from mppiisaac_tpu_torch.tasks.omni_panda_pick import OmniPandaPickObjective  # noqa: E402
@@ -53,36 +62,49 @@ OBJECTIVES = {
     "panda_effort": lambda cfg: PandaReachObjective(cfg, "panda_link7"),
     "panda_stick_push": PandaStickPushObjective,
     "omni_panda_pick": OmniPandaPickObjective,
+    "albert": AlbertObjective,
+    "anymal": AnymalObjective,
+    "multi_jackal": MultiJackalObjective,
+    "panda_pick_fast": PandaPickObjective,
     **{f"{r}_push": (lambda cfg, r=r: MobilePushObjective(cfg, r, EE_LINK[r])) for r in EE_LINK},
     **{f"{r}_reach": (lambda cfg, r=r: MobileReachObjective(cfg, r)) for r in EE_LINK},
 }
 
 
+# the paths whose plain K1 chip_smoke.py runs on its first PLAIN_K1_SAMPLES samples
+SAMPLED = {*ARM_PATHS, *MESH_LOOPS, "anymal", "panda_pick_fast"}
+
+
 def setup(task):
     """The conf and objective of a conf task or of a path of chip_smoke.py's
-    phase 9 (point_robot, point_robot_obst1, multi_pointbot)."""
+    phase 9 (point_robot, point_robot_obst1, multi_pointbot) or 16
+    (panda_pick_fast)."""
     if task in POINT_PATHS:
         return point_config(task)[:2]
-    cfg = load_config(f"tasks/{task}")
+    if task == "panda_pick_fast":
+        cfg = load_config("tasks/panda_pick", FAST_OVERRIDES)
+    else:
+        cfg = load_config(f"tasks/{task}")
     return cfg, OBJECTIVES[task](cfg)
 
 
 def drift(task, path):
     """float32 against float64 of the plain K1 and K2 from the saved states."""
     from mppiisaac_tpu_torch.ops.fused_rollout import (
-        FusedRollout, FusedWorldStep, rollout_plain, world_step_plain)
+        FusedWorldStep, rollout_plain, world_step_plain)
     from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
     from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 
     torch.set_num_threads(os.cpu_count() or 1)
-    cfg, obj = setup(task)
-    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
-    b = world.built
+    if task == "box_pair":
+        cfg, obj, b, engine, _ = box_pair_scene("cpu")
+    else:
+        cfg, obj = setup(task)
+        world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
+        b, engine = world.built, world.engine
     K, H = cfg.mppi.num_samples, cfg.mppi.horizon
-    fr = FusedRollout(b, world.engine, obj.kernel_cost(b), H, K,
-                      vis_body=b.visualize_bodies[0] if b.visualize_bodies else None,
-                      impulse_sweeps=cfg.mppi.rollout_sweeps)
-    fw = FusedWorldStep(b, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    fr = rollout_for(cfg, obj, b, engine)
+    fw = FusedWorldStep(b, engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
     ks = fw.ks
     A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
     pm = ModelParams(torch.ones(K, b.scene.nbody), torch.ones(K, b.scene.ngeom))
@@ -99,12 +121,13 @@ def drift(task, path):
         g = torch.Generator().manual_seed(0)
         V = controls(g, (K, H, fr.nu))
         rows, Vb, mass, fric = fr.pack(broadcast_state(s0, K), pm, V)
-        if task in ARM_PATHS:
+        if task in SAMPLED:
             rows, Vb, mass, fric = (x[..., :PLAIN_K1_SAMPLES].contiguous()
                                     for x in (rows, Vb, mass, fric))
         t0 = time.perf_counter()
         out = {dt: rollout_plain(fr.ks, rows.to(dt), Vb.to(dt), mass.to(dt), fric.to(dt), H,
-                                 fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps)[0]
+                                 fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps,
+                                 fr.world_fidelity)[0]
                for dt in (torch.float32, torch.float64)}
         d = (out[torch.float32].double() - out[torch.float64]).abs()
         print(f"{name}: K1 float32 vs float64 at K={rows.shape[-1]}, H={H}: max "
@@ -113,6 +136,8 @@ def drift(task, path):
               f"{d.max(1).values.median().item():.3e} (costs up to "
               f"{out[torch.float64].abs().max().item():.3f}; {time.perf_counter() - t0:.0f} s)",
               flush=True)
+        if task == "panda_pick_fast":
+            continue
         r = {dt: fw.pack(s0).to(dt) for dt in (torch.float32, torch.float64)}
         ones_b, ones_g = torch.ones(ks.nbody), torch.ones(ks.ngeom)
         for _ in range(5):
@@ -132,7 +157,8 @@ def drift(task, path):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", choices=sorted({*OBJECTIVES, *POINT_PATHS}), default="panda")
+    ap.add_argument("--task", choices=sorted({*OBJECTIVES, *POINT_PATHS, "box_pair"}),
+                    default="panda")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="profile_out")
@@ -143,6 +169,8 @@ def main():
         return
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
+    if args.task == "box_pair":
+        raise SystemExit("box_pair has no conf loop to profile (--drift only)")
     dev = torch.device("cuda")
     cfg, obj = setup(args.task)
     world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device=dev)
@@ -150,7 +178,8 @@ def main():
         gp = world.get_actor_position_by_name("goal")[0].cpu().numpy().astype(np.float64)
         gp[: len(cfg.goal)] = cfg.goal
         world.set_actor_position_by_name("goal", gp)
-    planner = MPPIisaacPlanner(cfg, obj, device=dev)
+    planner = MPPIisaacPlanner(cfg, obj, gait_prior(cfg) if args.task == "anymal" else None,
+                               device=dev)
 
     def step():
         action = planner.compute_action_from_state(world.state)

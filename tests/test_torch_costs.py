@@ -199,3 +199,38 @@ def test_arm_cost_matches_jax_kernel_cost(task):
     got = _hold(tw, jw.built.scene, ks, st, jobj, atol=ATOL + ks.cost.w_ori * YAW_POLY_ERR)
     np.testing.assert_allclose(_objective_cost(tw, s0, st, tobj).numpy(), got.numpy(),
                                rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("task", ["albert", "anymal"])
+def test_mesh_robot_cost_matches_jax_kernel_cost(task):
+    """TASK_ALBERT and TASK_ANYMAL: random joint poses and velocities, base
+    poses moved in xy with random yaws (albert's EE roll and pitch from
+    its arm; anymal's base, face and knee heights from its legs, a quarter
+    of the samples with the base lowered from its 1.2 m drop start by 0.9 m
+    so that knees and body cross their target heights), the goal moved in
+    xy."""
+    from mppiisaac_tpu_torch.tasks import albert, anymal
+
+    if task == "albert":
+        from mppiisaac_tpu.tasks.albert import AlbertObjective as JObj
+
+        tcls = albert.AlbertObjective
+    else:
+        from mppiisaac_tpu.tasks.anymal import AnymalObjective as JObj
+
+        tcls = anymal.AnymalObjective
+    jc, tc, jw, tw = _worlds(task)
+    jobj, tobj = JObj(jc), tcls(tc)
+    ks = tfp.KernelScene.build(tw.built, tw.engine, tobj.kernel_cost(tw.built))
+    rng = np.random.RandomState(7)
+    s0, st = _random_states(tw, ks, rng, dq=0.8, dxy=1.0)
+    if task == "anymal":
+        assert len(ks.cost.ht_body) == 7 and ks.cost.ht_w == (5.0,) * 7
+        st["root_pos"][: K // 4, tw.scene.actor_index("anymal"), 2] -= 0.9
+        pos, _, _, _, _ = tfp.fk(ks, st)
+        z = torch.stack([pos[b][:, 2] for b in ks.cost.ht_body], 1)
+        below = z < torch.as_tensor(ks.cost.ht_z)
+        assert 0 < int(below.sum()) < below.numel(), "no height term crosses its target"
+    got = _hold(tw, jw.built.scene, ks, st, jobj, atol=ATOL + ks.cost.w_ori * YAW_POLY_ERR)
+    np.testing.assert_allclose(_objective_cost(tw, s0, st, tobj).numpy(), got.numpy(),
+                               rtol=RTOL, atol=1e-4)

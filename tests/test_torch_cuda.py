@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at the
-shapes of the panda reach, panda pick, boxer_push, point-robot, panda_effort
-and omni_panda_pick main paths, and on the mini-gripper grasp scenes (a ball held
+shapes of the panda reach, panda pick (also at fast fidelity with the
+reduced manifold), boxer_push, point-robot, panda_effort, omni_panda_pick,
+multi_jackal, albert and anymal main paths, on the box pair of the full
+box–box manifold (bbA/bbB), and on the mini-gripper grasp scenes (a ball held
 by fingers with the gripper map or with effort fingers, and velocity fingers
 closing on a post through the finger force gate). Marked `cuda`: they skip without an
 NVIDIA GPU and run on the card (whose machine has no JAX, which
@@ -305,19 +307,26 @@ def _world_steps(fw, built, st, tgt_of, n, device="cuda"):
     return rows, rows_p
 
 
-def _initial_hold(key, cfg, obj, bound, K, seed):
-    """K1 (K samples, the conf's H) and K2 over 5 world steps from the conf's
-    initial state, with chip_smoke.py's hold controls for `key`, against
-    their plain versions within `bound` (K2: the largest of its row
-    groups)."""
+def _initial_hold(key, cfg, obj, bound, K, seed, settle=0):
+    """K1 (K samples, the conf's H and rollout settings) and K2 over 5 world
+    steps from the conf's initial state (after `settle` world steps with
+    zero dof targets, when given), with chip_smoke.py's hold controls for
+    `key`, against their plain versions within `bound` (K2: the largest of
+    its row groups)."""
+    import chip_smoke
+
     world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cuda")
     built = world.built
     H = cfg.mppi.horizon
-    fr = FusedRollout(built, world.engine, obj.kernel_cost(built), H, K,
-                      vis_body=built.visualize_bodies[0] if built.visualize_bodies else None,
-                      impulse_sweeps=cfg.mppi.rollout_sweeps)
+    fr = chip_smoke.rollout_for(cfg, obj, built, world.engine, K)
     V, u_of = _hold_inputs(key, cfg, fr, K, H, seed=seed)
     st = world.state.map(lambda x: x[0])
+    if settle:
+        fw = FusedWorldStep(built, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+        params = ModelParams(torch.ones(built.scene.nbody, device="cuda"),
+                             torch.ones(built.scene.ngeom, device="cuda"))
+        for _ in range(settle):
+            st = fw.step(st.replace(dof_target=torch.zeros_like(st.q)), params)
     pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
                      torch.ones(K, built.scene.ngeom, device="cuda"))
     inputs = fr.pack(broadcast_state(st, K), pm, V)
@@ -326,8 +335,16 @@ def _initial_hold(key, cfg, obj, bound, K, seed):
     torch.cuda.synchronize()
     assert FusedRollout.launches == n0 + 1
     costs_p, vis_p = fr.plain(*inputs)
-    torch.testing.assert_close(costs, costs_p, rtol=0.0, atol=bound["k1_max"])
-    torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+    if "k1_first" in bound:
+        # a sensitive state (chip_smoke.py hold_k1s): held at the first step
+        # and by the median over samples of each sample's largest difference
+        d, dv = (costs - costs_p).abs(), (vis - vis_p).abs()
+        assert float(d[:, 0].max()) <= bound["k1_first"]
+        assert float(d.max(1).values.median()) <= bound["k1_median"]
+        assert max(float(dv[0].max()), float(dv.amax(dim=(0, 2)).median())) <= VIS_ATOL
+    else:
+        torch.testing.assert_close(costs, costs_p, rtol=0.0, atol=bound["k1_max"])
+        torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
     fw = FusedWorldStep(built, world.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
     rows, rows_p = _world_steps(
         fw, built, st, lambda: built.cmd_map.apply(u_of()[None], st.q[None])[0].contiguous(), 5)
@@ -364,6 +381,82 @@ def test_point_kernels_match_plain(panda, key):
     cfg, obj, _ = chip_smoke.point_config(key)
     _initial_hold(key, cfg, obj, chip_smoke.POINT_BOUNDS[key]["initial"], cfg.mppi.num_samples,
                   seed=11)
+
+
+@pytest.mark.parametrize("task", ["multi_jackal", "albert", "anymal"])
+def test_mesh_robot_kernels_match_plain(panda, task):
+    """K1 (128 samples) and K2 at the mesh-fitted robots' shipped configs:
+    multi_jackal and albert from their initial states (resting on the
+    wheels: the mesh-fitted stiction blocks), anymal after LANDED_STEP world
+    steps from its drop start with zero velocity targets (TASK_ANYMAL's
+    height terms live). Bounds: chip_smoke.py MESH_BOUNDS[task]["initial"],
+    ANYMAL_BOUNDS["landed"]."""
+    import chip_smoke
+    from mppiisaac_tpu_torch.tasks import albert, anymal, multi_robot
+
+    cfg = load_config(f"tasks/{task}")
+    obj = {"multi_jackal": multi_robot.MultiJackalObjective, "albert": albert.AlbertObjective,
+           "anymal": anymal.AnymalObjective}[task](cfg)
+    if task == "anymal":
+        _initial_hold(task, cfg, obj, chip_smoke.ANYMAL_BOUNDS["landed"], 128, seed=13,
+                      settle=chip_smoke.LANDED_STEP)
+    else:
+        _initial_hold(task, cfg, obj, chip_smoke.MESH_BOUNDS[task]["initial"], 128, seed=13)
+
+
+def test_pick_fast_rollout_kernel_matches_plain(pick):
+    """K1 at fast fidelity with the reduced manifold (no λ rows, 8-sample
+    box–box tables) at the pick config from the settled block. Bound:
+    chip_smoke.py FAST_PICK_BOUNDS["settled block"]."""
+    import chip_smoke
+
+    _, world, _, st = pick
+    cfg = load_config("tasks/panda_pick", chip_smoke.FAST_OVERRIDES)
+    built = world.built
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = chip_smoke.rollout_for(cfg, PandaPickObjective(cfg), built, world.engine)
+    assert not fr.world_fidelity and fr.tables.bbc_samples == 8
+    V, _ = _hold_inputs("panda_pick_fast", cfg, fr, K, H, seed=14)
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(broadcast_state(st, K), pm, V)
+    assert inputs[0].shape[0] == fr.ks.n_state_rows
+    n0 = FusedRollout.launches
+    costs, vis = fr.run(*inputs)
+    torch.cuda.synchronize()
+    assert FusedRollout.launches == n0 + 1
+    costs_p, vis_p = fr.plain(*inputs)
+    bound = chip_smoke.FAST_PICK_BOUNDS["settled block"]["k1_max"]
+    torch.testing.assert_close(costs, costs_p, rtol=0.0, atol=bound)
+    torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+
+
+def test_box_pair_full_manifold_kernels_match_plain(panda):
+    """K1 (K=256, H=12, world fidelity, the λ rows of 52 bbA/bbB candidates)
+    and K2 over 5 world steps on chip_smoke.py's box pair from the sliding
+    state. Bounds: chip_smoke.py BOX_BOUNDS["sliding"]."""
+    import chip_smoke
+
+    cfg, obj, built, engine, st = chip_smoke.box_pair_scene("cuda")
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = chip_smoke.rollout_for(cfg, obj, built, engine)
+    assert fr.ks.n_fc == 16 + 52
+    V, u_of = _hold_inputs("box_pair", cfg, fr, K, H, seed=15)
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(broadcast_state(st, K), pm, V)
+    costs, vis = fr.run(*inputs)
+    torch.cuda.synchronize()
+    costs_p, vis_p = fr.plain(*inputs)
+    bound = chip_smoke.BOX_BOUNDS["sliding"]
+    torch.testing.assert_close(costs, costs_p, rtol=0.0, atol=bound["k1_max"])
+    torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+    fw = FusedWorldStep(built, engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    rows, rows_p = _world_steps(
+        fw, built, st, lambda: built.cmd_map.apply(u_of()[None], st.q[None])[0].contiguous(), 5)
+    torch.testing.assert_close(rows, rows_p, rtol=0.0,
+                               atol=max(bound["pose"], bound["vel"], bound["lam"]))
+    assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"
 
 
 def _gripper_scene(effort, device="cuda"):

@@ -2,9 +2,11 @@
 conf reader, the scene, the contact tables, the stacked articulation model and
 the pair-block contact plan, for `panda`, `point_robot`, `panda_pick`, the
 mobile-robot tasks `boxer_reach`, `boxer_push`, `heijn_reach` and
-`heijn_push`, and `multi_pointbot`, `panda_stick_push`, `panda_effort` and
+`heijn_push`, `multi_pointbot`, `panda_stick_push`, `panda_effort` and
 `omni_panda_pick` (the effort drives' rows, `finger_motor` and
-`dof_gate_body` included)."""
+`dof_gate_body` included), and the mesh-fitted robots of `albert`, `anymal`
+and `multi_jackal` (every collision element an OBJ mesh fit to a sphere,
+capsule or box)."""
 import dataclasses
 import glob
 import os
@@ -38,7 +40,8 @@ CONF_FILES = sorted(
     os.path.relpath(p, CONF_ROOT) for p in glob.glob(os.path.join(CONF_ROOT, "**", "*.yaml"), recursive=True)
 )
 TASKS = ["panda", "point_robot", "panda_pick", "boxer_reach", "boxer_push", "heijn_reach",
-         "heijn_push", "multi_pointbot", "panda_stick_push", "panda_effort", "omni_panda_pick"]
+         "heijn_push", "multi_pointbot", "panda_stick_push", "panda_effort", "omni_panda_pick",
+         "albert", "anymal", "multi_jackal"]
 
 
 @pytest.mark.parametrize("rel", CONF_FILES)
@@ -204,18 +207,3 @@ def test_kernel_scene_effort_tables():
     *_, tb, _, te = _build("panda_effort")
     ks = tfp.KernelScene.build(tb, te)
     assert (ks.dof_mode == DRIVE_EFFORT).all() and not ks.dof_motor.any()
-
-
-@pytest.mark.parametrize("task,feature", [
-    ("albert", "mesh collision fitting"),
-    ("anymal", "mesh collision fitting"),
-    ("multi_jackal", "mesh collision fitting"),
-])
-def test_kernel_scene_rejects_unported_features(task, feature):
-    """Features outside the ported slice (albert's, anymal's and
-    multi_jackal's mesh collision fitting): the scene or the kernel plan
-    names the feature instead of computing something else."""
-    tc = t_load(f"tasks/{task}")
-    with pytest.raises(NotImplementedError, match=feature):
-        tb = t_build(t_actors(tc.actors, actors_conf_dir()), tc.isaacgym, tc.initial_actor_positions)
-        tfp.KernelScene.build(tb, TEngine(tb.scene))

@@ -41,6 +41,8 @@ from mppiisaac_tpu_torch.runtime.sim import Simulation as TSim
 from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 from mppiisaac_tpu_torch.scene.actor import ActorSpec as TSpec
 from mppiisaac_tpu_torch.tasks import (
+    albert,
+    anymal,
     mobile_push,
     mobile_reach,
     multi_robot,
@@ -276,8 +278,12 @@ def test_run_task_short_pick_cpu_loop():
     assert (FusedRollout.launches, FusedWorldStep.launches) == (n1, n2)
 
 
-# the new slices' loops: each task's own run, and whether its world carries λ rows
+# the new slices' loops: each task's own run, and whether its world carries λ
+# rows within three steps (anymal drops from 1.2 m and lands later)
 NEW_LOOPS = {
+    "albert": (albert.run, {}, True),
+    "anymal": (anymal.run, {}, False),
+    "multi_jackal": (multi_robot.run, {"task": "multi_jackal"}, True),
     "point_robot": (point_robot.run, {}, False),
     "multi_pointbot": (multi_robot.run, {}, False),
     "panda_effort": (panda_reach.run, {"task": "panda_effort"}, False),
@@ -289,10 +295,10 @@ NEW_LOOPS = {
 @pytest.mark.parametrize("task", sorted(NEW_LOOPS))
 def test_run_task_short_cpu_loops_of_the_new_tasks(task):
     """Three control steps of each task through its own `run` on the CPU at
-    K=16, H=4: the plain versions run the effort drives, the finger motor
-    and the four new cost hooks (no kernel launch is counted), the robot
-    moves, the state stays finite, and where blocks are swept their λ rows
-    reach contact_lam."""
+    K=16, H=4: the plain versions run the effort drives, the finger motor,
+    the mesh-fitted robots, anymal's tape prior and the new cost hooks (no
+    kernel launch is counted), the robot moves, the state stays finite, and
+    where blocks are swept their λ rows reach contact_lam."""
     run, kw, swept = NEW_LOOPS[task]
     seen = []
     n1, n2 = FusedRollout.launches, FusedWorldStep.launches
@@ -307,8 +313,8 @@ def test_run_task_short_cpu_loops_of_the_new_tasks(task):
 
 
 def test_fused_rollout_refuses_unported_cost_hooks():
-    """The kernels have no cost branch for albert and anymal yet: a task id
-    outside TASKS is refused by name instead of computing another cost."""
+    """A task id outside TASKS (the kernels' cost branches) is refused by
+    name instead of computing another cost."""
     cfg = t_load("tasks/panda", ["mppi.num_samples=8", "mppi.horizon=2"])
     world = TSim(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
     spec = tfp.CostSpec(task=max(tfp.TASKS) + 1, ee_body=0, goal_actor=1, w_dist=1.0, w_ori=0.0)
@@ -317,17 +323,22 @@ def test_fused_rollout_refuses_unported_cost_hooks():
 
 
 def test_planner_passes_rollout_and_world_settings():
-    """The planner hands rollout_sweeps to K1 and refuses fast fidelity by
-    name; the world hands fused_world_sweeps to K2."""
+    """The planner hands rollout_sweeps, the rollout fidelity and the
+    rollout manifold to K1 (fast fidelity with the reduced manifold: no λ
+    rows, the rollout's own 8-sample tables); the world hands
+    fused_world_sweeps to K2."""
     cfg = t_load("tasks/panda", ["mppi.num_samples=8", "mppi.horizon=2", "mppi.rollout_sweeps=3"])
     planner = TPlanner(cfg, PandaReachObjective(cfg), device="cpu")
     assert planner.mppi.fused.impulse_sweeps == 3
     cfg.isaacgym.fused_world_sweeps = 5
     world = TSim(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
     assert world._world_step.impulse_sweeps == 5
-    cfg = t_load("tasks/panda", ["mppi.num_samples=8", "mppi.horizon=2", "mppi.rollout_fidelity=fast"])
-    with pytest.raises(NotImplementedError, match="fast"):
-        TPlanner(cfg, PandaReachObjective(cfg), device="cpu")
+    assert planner.mppi.fused.world_fidelity and planner.mppi.fused.manifold == "full"
+    cfg = t_load("tasks/panda_pick", ["mppi.num_samples=8", "mppi.horizon=2",
+                                      "mppi.rollout_fidelity=fast", "mppi.rollout_manifold=reduced"])
+    fused = TPlanner(cfg, panda_pick.PandaPickObjective(cfg), device="cpu").mppi.fused
+    assert not fused.world_fidelity and fused.manifold == "reduced"
+    assert fused.tables.bbc_samples == 8 and fused.n_rows == fused.ks.n_state_rows
 
 
 def _jax_pick_form(c):

@@ -43,6 +43,9 @@ CASES = [
     ("panda", ["mppi.update_lambda=true", "mppi.update_cov=true", "mppi.noise_abs_cost=true"]),
     ("panda_effort", []),
     ("omni_panda_pick", []),
+    ("multi_jackal", []),
+    ("albert", []),
+    ("anymal", []),
 ]
 
 
@@ -118,7 +121,8 @@ def test_prng_matches_jax_random(seed):
 
 @pytest.mark.parametrize("task,overrides", [("panda", []), ("boxer_reach", []),
                                             ("point_robot", ["mppi.sampling_method=random"]),
-                                            ("panda_effort", []), ("omni_panda_pick", [])])
+                                            ("panda_effort", []), ("omni_panda_pick", []),
+                                            ("multi_jackal", []), ("albert", []), ("anymal", [])])
 def test_commands_match_jax_with_drawn_noise(task, overrides):
     """Three commands from the same seed, each drawing its own noise: the port
     draws what the JAX solver draws, so actions and carries agree."""
