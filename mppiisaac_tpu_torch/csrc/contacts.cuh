@@ -1,4 +1,4 @@
-// Contacts of the fused physics substep, per sample (one thread):
+// Contacts of the fused physics substep, per sample (one warp):
 // broadphase gate, narrowphase of the cp, bp, cb, bbc, cc, bbA and bbB pair
 // blocks, the side-asymmetric penalty law with the static side's soft
 // report, and the hand-off of the swept blocks' point, normal and depth to
@@ -198,65 +198,92 @@ __device__ __forceinline__ void penalty(float kn_base, float tau_c, float mu, fl
   for (int i = 0; i < 3; ++i) f[i] = normal[i] * fn + vt[i] * ft;
 }
 
-// fric: this sample's geom friction scales, stride K
+// One sample's contacts by its warp. fric: this sample's geom friction
+// scales, stride K. Lanes run over the blocks for the gates, then over the
+// contact chunks (32 lanes of whole emitting or swept blocks), one candidate
+// each; each block's force and torque sums on its two sides are segmented
+// scans over its lanes (bsum: 12 per block), added to the bodies by lanes
+// over the bodies, each over its own blocks in block order (cb_start).
 __device__ void contacts(const SceneTables& sc, const Kin& k, const float* fric, int K, float dt_sub,
-                         float plk_n[][3], float plk_f[][3], float ncf[][3], Swept& sw) {
-  for (int b = 0; b < sc.nbody; ++b)
-    for (int i = 0; i < 3; ++i) { plk_n[b][i] = 0.f; plk_f[b][i] = 0.f; ncf[b][i] = 0.f; }
+                         float plk_n[][3], float plk_f[][3], float ncf[][3], Swept& sw,
+                         float (*bsum)[12], int lane) {
   const float tau_c = fmaxf(2.f * dt_sub, 1e-3f);
-  for (int bi = 0; bi < sc.nblk; ++bi) {
+  for (int b = lane; b < sc.nbody; b += 32)
+    for (int i = 0; i < 3; ++i) { plk_n[b][i] = 0.f; plk_f[b][i] = 0.f; ncf[b][i] = 0.f; }
+  for (int bi = lane; bi < sc.nblk; bi += 32) {
     const int fl = sc.blk_flags[bi];
-    const bool emit_a = fl & F_EMIT_A, emit_b = fl & F_EMIT_B, swept = fl & F_SWEPT;
-    if (!(emit_a || emit_b || swept)) continue;
-    const int ba = sc.blk_ba[bi], bb = sc.blk_bb[bi], S = sc.blk_S[bi], c0 = sc.blk_c0[bi];
-    const bool live = block_gate(sc, k, bi);
-    if (swept) {
-      sw.live[bi] = live;
-      const bool static_n = sc.blk_kind[bi] == KIND_CP || sc.blk_kind[bi] == KIND_BP;
-      for (int s = 0; s < S; ++s)
+    sw.live[bi] = (fl & (F_EMIT_A | F_EMIT_B | F_SWEPT)) ? (int)block_gate(sc, k, bi) : 0;
+  }
+  __syncwarp();
+  for (int ch = 0; ch < sc.n_ck; ++ch) {
+    const int bi = sc.ck_blk[ch * 32 + lane];
+    float v[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) v[i] = 0.f;
+    int seg0 = lane, s = -1;
+    if (bi != 255) {
+      seg0 = sc.blk_lane0[bi];
+      s = lane - seg0;
+      const int fl = sc.blk_flags[bi];
+      const bool emit_a = fl & F_EMIT_A, emit_b = fl & F_EMIT_B, swept = fl & F_SWEPT;
+      const int ba = sc.blk_ba[bi], bb = sc.blk_bb[bi], c = sc.blk_c0[bi] + s;
+      const bool live = sw.live[bi];
+      if (swept && !live) {
+        const bool static_n = sc.blk_kind[bi] == KIND_CP || sc.blk_kind[bi] == KIND_BP;
         for (int i = 0; i < 3; ++i) {
-          sw.pt[c0 + s][i] = 0.f;
-          sw.nrm[c0 + s][i] = static_n && i == 2 ? 1.f : 0.f;
-          sw.depth[c0 + s] = 0.f;
+          sw.pt[c][i] = 0.f;
+          sw.nrm[c][i] = static_n && i == 2 ? 1.f : 0.f;
         }
+        sw.depth[c] = 0.f;
+      }
+      if (live) {
+        const float fa = fric[sc.blk_ga[bi] * K];
+        const float fb = (fl & F_HAS_B) ? fric[sc.blk_gb[bi] * K] : fa;
+        const float mu = sc.blk_mu0[bi] * 0.5f * (fa + fb);
+        const float kn_a = sc.blk_kn_a[bi], kn_b = sc.blk_kn_b[bi];
+        float point[3], normal[3], depth;
+        block_sample(sc, k, bi, s, point, normal, &depth);
+        if (swept) {
+          for (int i = 0; i < 3; ++i) { sw.pt[c][i] = point[i]; sw.nrm[c][i] = normal[i]; }
+          sw.depth[c] = depth;
+        }
+        if (emit_a || emit_b) {
+          float v_rel[3], vb[3], vt[3], f[3], tq[3];
+          point_vel(k, ba, point, v_rel);
+          if (fl & F_HAS_B) {
+            point_vel(k, bb, point, vb);
+            for (int i = 0; i < 3; ++i) v_rel[i] -= vb[i];
+          }
+          const float vn = dot3(v_rel, normal);
+          for (int i = 0; i < 3; ++i) vt[i] = v_rel[i] - normal[i] * vn;
+          penalty(kn_a, tau_c, mu, depth, sc.max_depth, vn, vt, sc.eps_v, normal, f);
+          if (emit_a) {
+            cross3(point, f, tq);
+            for (int i = 0; i < 3; ++i) { v[i] = f[i]; v[3 + i] = tq[i]; }
+          }
+          if (emit_b) {
+            if (kn_b != kn_a) penalty(kn_b, tau_c, mu, depth, sc.max_depth, vn, vt, sc.eps_v, normal, f);
+            cross3(point, f, tq);
+            for (int i = 0; i < 3; ++i) { v[6 + i] = f[i]; v[9 + i] = tq[i]; }
+          }
+        }
+      }
     }
-    if (!live) continue;
-    const float fa = fric[sc.blk_ga[bi] * K];
-    const float fb = (fl & F_HAS_B) ? fric[sc.blk_gb[bi] * K] : fa;
-    const float mu = sc.blk_mu0[bi] * 0.5f * (fa + fb);
-    const float kn_a = sc.blk_kn_a[bi], kn_b = sc.blk_kn_b[bi];
-    float fA[3] = {0.f, 0.f, 0.f}, nA[3] = {0.f, 0.f, 0.f};
-    float fB[3] = {0.f, 0.f, 0.f}, nB[3] = {0.f, 0.f, 0.f};
-    for (int s = 0; s < S; ++s) {
-      float point[3], normal[3], depth;
-      block_sample(sc, k, bi, s, point, normal, &depth);
-      if (swept) {
-        for (int i = 0; i < 3; ++i) { sw.pt[c0 + s][i] = point[i]; sw.nrm[c0 + s][i] = normal[i]; }
-        sw.depth[c0 + s] = depth;
-      }
-      if (!(emit_a || emit_b)) continue;
-      float v_rel[3], vb[3], vt[3], f[3], tq[3];
-      point_vel(k, ba, point, v_rel);
-      if (fl & F_HAS_B) {
-        point_vel(k, bb, point, vb);
-        for (int i = 0; i < 3; ++i) v_rel[i] -= vb[i];
-      }
-      const float vn = dot3(v_rel, normal);
-      for (int i = 0; i < 3; ++i) vt[i] = v_rel[i] - normal[i] * vn;
-      penalty(kn_a, tau_c, mu, depth, sc.max_depth, vn, vt, sc.eps_v, normal, f);
-      if (emit_a) {
-        cross3(point, f, tq);
-        for (int i = 0; i < 3; ++i) { fA[i] += f[i]; nA[i] += tq[i]; }
-      }
-      if (emit_b) {
-        if (kn_b != kn_a) penalty(kn_b, tau_c, mu, depth, sc.max_depth, vn, vt, sc.eps_v, normal, f);
-        cross3(point, f, tq);
-        for (int i = 0; i < 3; ++i) { fB[i] += f[i]; nB[i] += tq[i]; }
-      }
-    }
-    for (int i = 0; i < 3; ++i) {
-      if (emit_a) { plk_n[ba][i] += nA[i]; plk_f[ba][i] += fA[i]; ncf[ba][i] += fA[i]; }
-      if (emit_b) { plk_n[bb][i] -= nB[i]; plk_f[bb][i] -= fB[i]; ncf[bb][i] -= fB[i]; }
+    seg_scan<12>(v, lane, seg0);
+    if (bi != 255 && s == sc.blk_S[bi] - 1)
+      for (int i = 0; i < 12; ++i) bsum[bi][i] = v[i];
+  }
+  __syncwarp();
+  for (int b = lane; b < sc.nbody; b += 32) {
+    for (int e = sc.cb_start[b]; e < sc.cb_start[b + 1]; ++e) {
+      const int bi = sc.cb_ent[e] >> 1;
+      if (!sw.live[bi]) continue;
+      const float* t = bsum[bi];
+      if (!(sc.cb_ent[e] & 1))
+        for (int i = 0; i < 3; ++i) { plk_n[b][i] += t[3 + i]; plk_f[b][i] += t[i]; ncf[b][i] += t[i]; }
+      else
+        for (int i = 0; i < 3; ++i) { plk_n[b][i] -= t[9 + i]; plk_f[b][i] -= t[6 + i]; ncf[b][i] -= t[6 + i]; }
     }
   }
+  __syncwarp();
 }

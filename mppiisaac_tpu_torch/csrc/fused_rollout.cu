@@ -5,14 +5,20 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_rollout.so fused_rollout.cu
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
-// stream and returns cudaGetLastError().
+// stream and returns cudaGetLastError(). With -DFUSED_EMU the C interface is
+// left out and g++ compiles the device code against the CPU emulation in
+// emu/ (tests/test_torch_device_emu.py).
 //
-// Both kernels run the same device code, one physics substep:
-//   fk()         forward kinematics from each actor's root rows: revolute,
-//                prismatic and fixed joints (replaces fused_physics.fk_lanes)
+// Both kernels run the same device code, one physics substep, by ONE WARP
+// PER SAMPLE:
+//   fk()         forward kinematics from each actor's root rows, level by
+//                level of the body trees, lanes over a level's bodies:
+//                revolute, prismatic and fixed joints (replaces
+//                fused_physics.fk_lanes)
 //   contacts()   broadphase gate, narrowphase of the cp, bp, cb, bbc, cc, bbA
 //                and bbB pair blocks, side-asymmetric penalty law, reported net
-//                contact force, swept geometry (contacts.cuh)
+//                contact force, swept geometry, lanes over the candidates
+//                (contacts.cuh)
 //   dynamics()   velocity solve of every articulation, fixed or floating
 //                base, over its velocity coordinates (spatial and composite
 //                inertias, RNEA bias, CRBA, force-limited implicit drives,
@@ -29,16 +35,19 @@
 // The TPU kernels unrolled each scene into straight-line code with the scene
 // constants baked in. These kernels are TABLE-DRIVEN instead: the scene is one
 // SceneTables struct (ops/fused_rollout.py packs it, field for field, from
-// ops/fused_physics.KernelScene), copied into dynamic shared memory by every
-// block. One build serves every scene within the MAX_* bounds of
-// scene_tables.cuh; the wrapper checks the bounds before it launches.
+// ops/fused_physics.KernelScene, with the lane orders and the per-warp
+// layout), copied into dynamic shared memory by every block. One build serves
+// every scene within the MAX_* bounds of scene_tables.cuh; the wrapper checks
+// the bounds before it launches.
 //
-// State is structure-of-arrays: row r of sample k is rows[r * K + k], so
-// neighbouring threads read neighbouring addresses. Rows per sample:
-// 13 per actor (pos, quat xyzw, linvel, angvel), q[D], qd[D], net force[3B],
-// then, at world fidelity, 4 λ rows [λ_n, λ_t·3] per swept contact
-// candidate. A fast-fidelity rollout (K1 only) carries no λ rows: its
-// impulse sweeps start from zero in every substep, with no stiction snap.
+// State in device memory is structure-of-arrays: row r of sample k is
+// rows[r * K + k]. Rows per sample: 13 per actor (pos, quat xyzw, linvel,
+// angvel), q[D], qd[D], net force[3B], then, at world fidelity, 4 λ rows
+// [λ_n, λ_t·3] per swept contact candidate. A fast-fidelity rollout (K1
+// only) carries no λ rows: its impulse sweeps start from zero in every
+// substep, with no stiction snap. Inside a kernel each sample's rows, and
+// every per-sample temporary, live in its warp's region of dynamic shared
+// memory, laid out to the scene's own counts (SceneTables.lay).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,66 +57,72 @@
 #include "impulse.cuh"
 
 // ---------------------------------------------------------------------------
-// forward kinematics (fk_lanes)
+// forward kinematics (fk_lanes), level by level, lanes over a level's bodies
 // ---------------------------------------------------------------------------
 
-__device__ void fk(const SceneTables& sc, const Sample& s, Kin& k) {
-  for (int g = 0; g < sc.nbody; ++g) {
-    const int p = sc.body_parent[g];
-    if (p < 0) {
-      const float* r = s.root[sc.body_actor[g]];
-      for (int i = 0; i < 3; ++i) {
-        k.pos[g][i] = r[i]; k.linv[g][i] = r[7 + i]; k.angv[g][i] = r[10 + i];
-      }
-      for (int i = 0; i < 4; ++i) k.quat[g][i] = r[3 + i];
-      k.axw[g][0] = 1.f; k.axw[g][1] = 0.f; k.axw[g][2] = 0.f;
-      continue;
+__device__ void fk_body(const SceneTables& sc, const Sample& s, const Kin& k, int g) {
+  const int p = sc.body_parent[g];
+  if (p < 0) {
+    const float* r = s.root[sc.body_actor[g]];
+    for (int i = 0; i < 3; ++i) {
+      k.pos[g][i] = r[i]; k.linv[g][i] = r[7 + i]; k.angv[g][i] = r[10 + i];
     }
-    const float* ax = &sc.body_jaxis[3 * g];
-    float fpos[3], fq[4], vf[3], d[3], c[3];
-    qrot(k.quat[p], &sc.body_jpos[3 * g], fpos);
-    for (int i = 0; i < 3; ++i) fpos[i] += k.pos[p][i];
-    qmul(k.quat[p], &sc.body_jquat[4 * g], fq);
-    for (int i = 0; i < 3; ++i) d[i] = fpos[i] - k.pos[p][i];
-    cross3(k.angv[p], d, c);
-    for (int i = 0; i < 3; ++i) vf[i] = k.linv[p][i] + c[i];
-    const int jt = sc.body_jtype[g];
-    const int dof = sc.body_dof[g];
-    if (jt == JOINT_REVOLUTE) {
-      float half = s.q[dof] * 0.5f;
-      float sn = sinf(half), cs = cosf(half);
-      float rotq[4] = {ax[0] * sn, ax[1] * sn, ax[2] * sn, cs};
-      float aw[3];
-      qrot(fq, ax, aw);
-      qmul(fq, rotq, k.quat[g]);
-      for (int i = 0; i < 3; ++i) {
-        k.pos[g][i] = fpos[i];
-        k.angv[g][i] = k.angv[p][i] + aw[i] * s.qd[dof];
-        k.linv[g][i] = vf[i];
-        k.axw[g][i] = aw[i];
-      }
-    } else if (jt == JOINT_PRISMATIC) {
-      float aw[3], bp[3], e[3];
-      qrot(fq, ax, aw);
-      for (int i = 0; i < 3; ++i) bp[i] = fpos[i] + aw[i] * s.q[dof];
-      for (int i = 0; i < 3; ++i) d[i] = bp[i] - fpos[i];
-      cross3(k.angv[p], d, e);
-      for (int i = 0; i < 4; ++i) k.quat[g][i] = fq[i];
-      for (int i = 0; i < 3; ++i) {
-        k.pos[g][i] = bp[i];
-        k.angv[g][i] = k.angv[p][i];
-        k.linv[g][i] = vf[i] + e[i] + aw[i] * s.qd[dof];
-        k.axw[g][i] = aw[i];
-      }
-    } else {
-      for (int i = 0; i < 4; ++i) k.quat[g][i] = fq[i];
-      for (int i = 0; i < 3; ++i) {
-        k.pos[g][i] = fpos[i];
-        k.angv[g][i] = k.angv[p][i];
-        k.linv[g][i] = vf[i];
-      }
-      k.axw[g][0] = 1.f; k.axw[g][1] = 0.f; k.axw[g][2] = 0.f;
+    for (int i = 0; i < 4; ++i) k.quat[g][i] = r[3 + i];
+    k.axw[g][0] = 1.f; k.axw[g][1] = 0.f; k.axw[g][2] = 0.f;
+    return;
+  }
+  const float* ax = &sc.body_jaxis[3 * g];
+  float fpos[3], fq[4], vf[3], d[3], c[3];
+  qrot(k.quat[p], &sc.body_jpos[3 * g], fpos);
+  for (int i = 0; i < 3; ++i) fpos[i] += k.pos[p][i];
+  qmul(k.quat[p], &sc.body_jquat[4 * g], fq);
+  for (int i = 0; i < 3; ++i) d[i] = fpos[i] - k.pos[p][i];
+  cross3(k.angv[p], d, c);
+  for (int i = 0; i < 3; ++i) vf[i] = k.linv[p][i] + c[i];
+  const int jt = sc.body_jtype[g];
+  const int dof = sc.body_dof[g];
+  if (jt == JOINT_REVOLUTE) {
+    float half = s.q[dof] * 0.5f;
+    float sn = sinf(half), cs = cosf(half);
+    float rotq[4] = {ax[0] * sn, ax[1] * sn, ax[2] * sn, cs};
+    float aw[3];
+    qrot(fq, ax, aw);
+    qmul(fq, rotq, k.quat[g]);
+    for (int i = 0; i < 3; ++i) {
+      k.pos[g][i] = fpos[i];
+      k.angv[g][i] = k.angv[p][i] + aw[i] * s.qd[dof];
+      k.linv[g][i] = vf[i];
+      k.axw[g][i] = aw[i];
     }
+  } else if (jt == JOINT_PRISMATIC) {
+    float aw[3], bp[3], e[3];
+    qrot(fq, ax, aw);
+    for (int i = 0; i < 3; ++i) bp[i] = fpos[i] + aw[i] * s.q[dof];
+    for (int i = 0; i < 3; ++i) d[i] = bp[i] - fpos[i];
+    cross3(k.angv[p], d, e);
+    for (int i = 0; i < 4; ++i) k.quat[g][i] = fq[i];
+    for (int i = 0; i < 3; ++i) {
+      k.pos[g][i] = bp[i];
+      k.angv[g][i] = k.angv[p][i];
+      k.linv[g][i] = vf[i] + e[i] + aw[i] * s.qd[dof];
+      k.axw[g][i] = aw[i];
+    }
+  } else {
+    for (int i = 0; i < 4; ++i) k.quat[g][i] = fq[i];
+    for (int i = 0; i < 3; ++i) {
+      k.pos[g][i] = fpos[i];
+      k.angv[g][i] = k.angv[p][i];
+      k.linv[g][i] = vf[i];
+    }
+    k.axw[g][0] = 1.f; k.axw[g][1] = 0.f; k.axw[g][2] = 0.f;
+  }
+}
+
+__device__ void fk(const SceneTables& sc, const Sample& s, const Kin& k, int lane) {
+  for (int lv = 0; lv < sc.n_lvl; ++lv) {
+    for (int i = sc.lvl_start[lv] + lane; i < sc.lvl_start[lv + 1]; i += 32)
+      fk_body(sc, s, k, sc.lvl_body[i]);
+    __syncwarp();
   }
 }
 
@@ -144,12 +159,14 @@ __device__ void spatial_inertia(const SceneTables& sc, int g, const float* pos, 
 }
 
 // free single body: the 6-dof velocity solve of dynamics_lanes (base = 6,
-// nv = 6) → c.fv[a] = (clamped root linvel, angvel)
+// nv = 6) → c.fv[a] = (clamped root linvel, angvel); scratch: 72 words
 __device__ void free_velocity(const SceneTables& sc, const Sample& s, const Kin& k, int a,
-                              const float plk_n[][3], const float plk_f[][3], const float* mass,
-                              int K, float dt, Ctx& c) {
+                              const float (*plk_n)[3], const float (*plk_f)[3], const float* mass,
+                              int K, float dt, Ctx& c, float* scratch) {
   const int g = sc.actor_body0[a];
-  float I6[36], vb[6], Ia[6], Iv[6], cf[6], f[6], Mm[36], Lm[36], rhs[6], u[6], cr[3];
+  float* I6 = scratch;
+  float* Mm = scratch + 36;
+  float vb[6], Ia[6], Iv[6], cf[6], f[6], rhs[6], u[6], cr[3];
   spatial_inertia(sc, g, k.pos[g], k.quat[g], mass[g * K], I6);
   cross3(k.angv[g], k.pos[g], cr);
   for (int r = 0; r < 3; ++r) { vb[r] = k.angv[g][r]; vb[3 + r] = k.linv[g][r] - cr[r]; }
@@ -169,8 +186,8 @@ __device__ void free_velocity(const SceneTables& sc, const Sample& s, const Kin&
     rhs[i] = acc + dt * (0.f - f[i]);
   }
   for (int i = 0; i < 6; ++i) Mm[i * 6 + i] += 1e-8f;
-  chol_factor(Mm, Lm, 0, 6, 6);
-  chol_solve(Lm, 0, 6, 6, rhs, u);
+  chol_factor(Mm, Mm, 0, 6, 6);
+  chol_solve(Mm, 0, 6, 6, rhs, u);
   const float* pr = s.root[a];
   cross3(u, pr, cr);
   const float wcap = sc.max_root_angvel, vcap = sc.max_root_linvel;
@@ -213,48 +230,64 @@ __device__ void integrate_base(const SceneTables& sc, float* r, const float* u, 
   for (int i = 0; i < 4; ++i) r[3 + i] = nq[i];
 }
 
+// The velocity solves' per-actor arrays (DYN_* of the warp's region).
+struct Dyn {
+  float (*Ic)[36], (*vb)[6], (*asp)[6], (*fsub)[6];
+  float *rhs, *C, *dimp, *uu, *coef, *col;
+};
+
 // Velocity solves of every dynamic actor, the impulse pass, and the
-// integration (dynamics_lanes). An articulated actor is
-// solved over its velocity coordinates: a floating base's 6 (unit Plücker
-// subspaces, u from the root body's (ω, v_O), no drive), then its dofs.
-__device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const float plk_n[][3],
-                         const float plk_f[][3], const float* tgt, const float* mass,
+// integration (dynamics_lanes). An articulated actor is solved over its
+// velocity coordinates: a floating base's 6 (unit Plücker subspaces, u from
+// the root body's (ω, v_O), no drive), then its dofs. Lanes run over the
+// free actors, over an articulation's bodies (inertias, bias forces), over
+// the rows of each composite-inertia sum, over its coordinate pairs (CRBA),
+// its coordinates (drives), the rows of each Cholesky column and the
+// (link, column) pairs of Ψ; each entry keeps the serial order of its sums.
+__device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const float (*plk_n)[3],
+                         const float (*plk_f)[3], const float* tgt, const float* mass,
                          const float* fric, int K, float dt, const Swept& sw, int sweeps,
-                         bool world, Ctx& c) {
-  float Ic[MAX_BODIES][36];
-  float vb[MAX_BODIES][6], asp[MAX_BODIES][6], fsub[MAX_BODIES][6];
-  float rhs[MAX_V];
-  float new_q[MAX_DOFS], new_qd[MAX_DOFS];
-  for (int d = 0; d < sc.ndof; ++d) { new_q[d] = s.q[d]; new_qd[d] = s.qd[d]; }
+                         bool world, Ctx& c, const Warp& W) {
+  const int lane = W.lane, ld = sc.nv;
+  SEC_BEGIN;
+  float* new_q = W.f(sc, L_NEWQ);
+  float* new_qd = W.f(sc, L_NEWQD);
+  Dyn d{rows_of<36>(W.f(sc, L_IC)), rows_of<6>(W.f(sc, L_VB)), rows_of<6>(W.f(sc, L_ASP)),
+        rows_of<6>(W.f(sc, L_FSUB)), W.f(sc, L_RHS), W.f(sc, L_C), W.f(sc, L_DIMP),
+        W.f(sc, L_UU), W.f(sc, L_COEF), W.f(sc, L_COL)};
+  for (int i = lane; i < sc.ndof; i += 32) { new_q[i] = s.q[i]; new_qd[i] = s.qd[i]; }
   bool any_free = false, any_deferred = false;
+  for (int a = 0; a < sc.nactor; ++a) any_free |= sc.actor_dynamic[a] == ACTOR_FREE;
+  if (lane < sc.nactor) {
+    c.deferred[lane] = 0;
+    if (sc.actor_dynamic[lane] == ACTOR_FREE)
+      free_velocity(sc, s, k, lane, plk_n, plk_f, mass, K, dt, c, W.f(sc, L_FVS) + 72 * lane);
+  }
+  __syncwarp();
+  SEC_MARK(c.kid, SEC_SOLVES);
 
   for (int a = 0; a < sc.nactor; ++a) {
-    c.deferred[a] = false;
-    if (sc.actor_dynamic[a] == ACTOR_FREE) {
-      free_velocity(sc, s, k, a, plk_n, plk_f, mass, K, dt, c);
-      any_free = true;
-      continue;
-    }
     if (sc.actor_dynamic[a] != ACTOR_ARTICULATED) continue;
     const int bo = sc.actor_body0[a], nb = sc.actor_nbody[a];
-    const int dof0 = sc.actor_dof0[a], nd = sc.actor_ndof[a];
+    const int dof0 = sc.actor_dof0[a];
     const int v0 = sc.actor_v0[a], nv = sc.actor_nv[a], base = sc.actor_base[a];
-    for (int i = 0; i < nb; ++i) {
+    for (int i = lane; i < nb; i += 32) {
       const int g = bo + i;
-      spatial_inertia(sc, g, k.pos[g], k.quat[g], mass[g * K], Ic[i]);
+      spatial_inertia(sc, g, k.pos[g], k.quat[g], mass[g * K], d.Ic[i]);
       float cr[3];
       cross3(k.angv[g], k.pos[g], cr);
-      for (int r = 0; r < 3; ++r) { vb[i][r] = k.angv[g][r]; vb[i][3 + r] = k.linv[g][r] - cr[r]; }
+      for (int r = 0; r < 3; ++r) { d.vb[i][r] = k.angv[g][r]; d.vb[i][3 + r] = k.linv[g][r] - cr[r]; }
     }
-    float u[MAX_V];
-    for (int j = 0; j < base; ++j) {
-      for (int r = 0; r < 6; ++r) c.S[v0 + j][r] = r == j ? 1.f : 0.f;
-      u[j] = vb[0][j];
-    }
-    for (int j = 0; j < nd; ++j) {
-      const int g = sc.v_body[v0 + base + j];
+    __syncwarp();
+    for (int j = lane; j < nv; j += 32) {
+      float* Sj = c.S[v0 + j];
+      if (j < base) {
+        for (int r = 0; r < 6; ++r) Sj[r] = r == j ? 1.f : 0.f;
+        d.uu[j] = d.vb[0][j];
+        continue;
+      }
+      const int g = sc.v_body[v0 + j];
       const float* aw = k.axw[g];
-      float* Sj = c.S[v0 + base + j];
       if (sc.body_jtype[g] == JOINT_REVOLUTE) {
         float cr[3];
         cross3(k.pos[g], aw, cr);
@@ -262,67 +295,84 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
       } else {
         for (int r = 0; r < 3; ++r) { Sj[r] = 0.f; Sj[3 + r] = aw[r]; }
       }
-      u[base + j] = s.qd[dof0 + j];
+      d.uu[j] = s.qd[dof0 + j - base];
     }
-    // bias forces: RNEA with qdd = 0, gravity as a base acceleration
-    const float gz = sc.actor_gravity[a] ? sc.gravity_z : 0.f;
-    for (int r = 0; r < 6; ++r) asp[0][r] = 0.f;
-    asp[0][5] = gz;
-    for (int i = 1; i < nb; ++i) {
-      const int p = sc.body_parent[bo + i] - bo;
-      for (int r = 0; r < 6; ++r) asp[i][r] = asp[p][r];
-      const int dg = sc.body_dof[bo + i];
-      if (dg >= 0) {
-        float sq[6], c6[6];
-        for (int r = 0; r < 6; ++r) sq[r] = c.S[v0 + base + dg - dof0][r] * s.qd[dg];
-        crm6(vb[i], sq, c6);
-        for (int r = 0; r < 6; ++r) asp[i][r] += c6[r];
+    __syncwarp();
+    // bias forces: RNEA with qdd = 0, gravity as a base acceleration; level
+    // by level, lanes over the actor's bodies of a level
+    if (lane == 0) {
+      const float gz = sc.actor_gravity[a] ? sc.gravity_z : 0.f;
+      for (int r = 0; r < 6; ++r) d.asp[0][r] = 0.f;
+      d.asp[0][5] = gz;
+    }
+    __syncwarp();
+    for (int lv = 1; lv < sc.n_lvl; ++lv) {
+      for (int li = sc.lvl_start[lv] + lane; li < sc.lvl_start[lv + 1]; li += 32) {
+        const int g = sc.lvl_body[li];
+        if (sc.body_actor[g] != a) continue;
+        const int i = g - bo, p = sc.body_parent[g] - bo;
+        for (int r = 0; r < 6; ++r) d.asp[i][r] = d.asp[p][r];
+        const int dg = sc.body_dof[g];
+        if (dg >= 0) {
+          float sq[6], c6[6];
+          for (int r = 0; r < 6; ++r) sq[r] = c.S[v0 + base + dg - dof0][r] * s.qd[dg];
+          crm6(d.vb[i], sq, c6);
+          for (int r = 0; r < 6; ++r) d.asp[i][r] += c6[r];
+        }
       }
+      __syncwarp();
     }
-    for (int i = 0; i < nb; ++i) {
+    for (int i = lane; i < nb; i += 32) {
       const int g = bo + i;
       float Ia[6], Iv[6], cf[6];
-      mat6vec(Ic[i], asp[i], Ia);
-      mat6vec(Ic[i], vb[i], Iv);
-      crf6(vb[i], Iv, cf);
+      mat6vec(d.Ic[i], d.asp[i], Ia);
+      mat6vec(d.Ic[i], d.vb[i], Iv);
+      crf6(d.vb[i], Iv, cf);
       for (int r = 0; r < 3; ++r) {
-        fsub[i][r] = Ia[r] + cf[r] - plk_n[g][r];
-        fsub[i][3 + r] = Ia[3 + r] + cf[3 + r] - plk_f[g][r];
+        d.fsub[i][r] = Ia[r] + cf[r] - plk_n[g][r];
+        d.fsub[i][3 + r] = Ia[3 + r] + cf[3 + r] - plk_f[g][r];
       }
     }
-    // composite inertias and subtree forces (children follow parents)
+    __syncwarp();
+    // composite inertias and subtree forces (children follow parents):
+    // bodies in reverse order, lanes over the 42 entries
     for (int i = nb - 1; i > 0; --i) {
       const int p = sc.body_parent[bo + i] - bo;
-      for (int r = 0; r < 36; ++r) Ic[p][r] += Ic[i][r];
-      for (int r = 0; r < 6; ++r) fsub[p][r] += fsub[i][r];
+      for (int r = lane; r < 42; r += 32) {
+        if (r < 36) d.Ic[p][r] += d.Ic[i][r];
+        else d.fsub[p][r - 36] += d.fsub[i][r - 36];
+      }
+      __syncwarp();
     }
-    float C[MAX_V];
-    for (int j = 0; j < nv; ++j) {
+    for (int j = lane; j < nv; j += 32) {
       const int bj = sc.v_body[v0 + j] - bo;
       float v = 0.f;
-      for (int r = 0; r < 6; ++r) v += c.S[v0 + j][r] * fsub[bj][r];
-      C[j] = v;
+      for (int r = 0; r < 6; ++r) v += c.S[v0 + j][r] * d.fsub[bj][r];
+      d.C[j] = v;
     }
-    // CRBA on ancestor pairs, into the actor's block of c.L
+    SEC_MARK(c.kid, SEC_TREE);
+    // CRBA on ancestor pairs, into the actor's block of c.L: M_xy = S_x·Ic_y S_y
+    // with y the descendant (the serial loop's last write to the pair)
     float* M = c.L;
-    for (int i = 0; i < nv; ++i)
-      for (int j = 0; j < nv; ++j) M[(v0 + i) * MAX_V + v0 + j] = 0.f;
-    for (int j = 0; j < nv; ++j) {
-      const int bj = sc.v_body[v0 + j] - bo;
-      float F[6];
-      mat6vec(Ic[bj], c.S[v0 + j], F);
-      for (int i = 0; i < nv; ++i) {
-        if (!sc.v_anc[(v0 + i) * MAX_V + v0 + j]) continue;
-        float v = 0.f;
+    for (int e = lane; e < nv * nv; e += 32) {
+      const int x = e / nv, y = e % nv;
+      if (y < x) continue;
+      int i = -1, j = -1;
+      if (sc.v_anc[(v0 + x) * MAX_V + v0 + y]) { i = x; j = y; }
+      else if (sc.v_anc[(v0 + y) * MAX_V + v0 + x]) { i = y; j = x; }
+      float v = 0.f;
+      if (i >= 0) {
+        float F[6];
+        mat6vec(d.Ic[sc.v_body[v0 + j] - bo], c.S[v0 + j], F);
         for (int r = 0; r < 6; ++r) v += c.S[v0 + i][r] * F[r];
-        M[(v0 + i) * MAX_V + v0 + j] = v;
-        M[(v0 + j) * MAX_V + v0 + i] = v;
       }
+      M[(v0 + x) * ld + v0 + y] = v;
+      M[(v0 + y) * ld + v0 + x] = v;
     }
+    __syncwarp();
     // drives: rhs = M u + dt (tau − C), M_solve = M + diag(dt d_imp + 1e-8);
     // nothing drives the base coordinates
-    float dimp[MAX_V];
-    for (int i = 0; i < nv; ++i) {
+    for (int i = lane; i < nv; i += 32) {
       float tk = 0.f, dk = 0.f;
       if (i >= base) {
         const int dg = dof0 + i - base;
@@ -354,11 +404,14 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
         dk = dk + sc.dof_armature[dg];
       }
       float acc = 0.f;
-      for (int j = 0; j < nv; ++j) acc += M[(v0 + i) * MAX_V + v0 + j] * u[j];
-      rhs[i] = acc + dt * (tk - C[i]);
-      dimp[i] = dk;
+      for (int j = 0; j < nv; ++j) acc += M[(v0 + i) * ld + v0 + j] * d.uu[j];
+      d.rhs[i] = acc + dt * (tk - d.C[i]);
+      d.dimp[i] = dk;
     }
-    for (int i = 0; i < nv; ++i) M[(v0 + i) * MAX_V + v0 + i] += dimp[i] * dt + 1e-8f;
+    __syncwarp();
+    for (int i = lane; i < nv; i += 32) M[(v0 + i) * ld + v0 + i] += d.dimp[i] * dt + 1e-8f;
+    __syncwarp();
+    SEC_MARK(c.kid, SEC_CRBA);
     // couple and stiction contacts keep the factor, the subspaces and Ψ live
     // for the impulse sweeps (the couple contacts also enter the solve
     // implicitly), and the integration waits until after them
@@ -366,21 +419,37 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
     for (int bi = 0; bi < sc.nblk; ++bi)
       couple |= is_couple(sc, bi) && sc.body_actor[art_body_of(sc, bi)] == a;
     for (int b = bo; b < bo + nb; ++b) deferred |= sc.body_psi[b] >= 0;
-    if (couple) couple_terms(sc, k, sw, a, mass, K, dt, c, rhs);
-    chol_factor(c.L, c.L, v0, nv, MAX_V);
-    chol_solve(c.L, v0, nv, MAX_V, rhs, &c.u[v0]);
+    if (couple) couple_terms(sc, k, sw, a, mass, K, dt, c, d.rhs, d.col, d.coef, lane);
+    SEC_MARK(c.kid, SEC_COUPLE);
+    chol_factor_warp(c.L, v0, nv, ld, lane);
+    const float ui = chol_solve_warp(c.L, v0, nv, ld, lane < nv ? d.rhs[lane] : 0.f, lane);
+    if (lane < nv) c.u[v0 + lane] = ui;
+    __syncwarp();
+    SEC_MARK(c.kid, SEC_CHOL);
     if (deferred) {
-      psi_blocks(sc, a, c);
-      c.deferred[a] = true;
+      psi_blocks(sc, a, c, d.col, lane);
+      if (lane == 0) c.deferred[a] = 1;
       any_deferred = true;
     }
+    SEC_MARK(c.kid, SEC_PSI);
   }
+  __syncwarp();
+  SEC_MARK(c.kid, SEC_SOLVES);
 
   bool any_swept = false;
   for (int bi = 0; bi < sc.nblk; ++bi) any_swept |= (sc.blk_flags[bi] & F_SWEPT) != 0;
-  if (any_swept && sweeps > 0 && (any_free || any_deferred))
-    impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, world, c);
-  for (int a = 0; a < sc.nactor; ++a) {
+  if (any_swept && sweeps > 0 && (any_free || any_deferred)) {
+    Imp m{W.f(sc, L_INVM), rows_of<9>(W.f(sc, L_INVIW)), W.f(sc, L_CNTB), W.f(sc, L_CNTA),
+          W.f(sc, L_ACT), W.f(sc, L_MUB), rows_of<6>(W.f(sc, L_KC)), W.f(sc, L_KNC),
+          W.f(sc, L_FLOOR), W.f(sc, L_NEFF), rows_of<3>(W.f(sc, L_DP)), rows_of<3>(W.f(sc, L_DT)),
+          rows_of<6>(W.f(sc, L_Y)), rows_of<6>(W.f(sc, L_V6)),
+          rows_of<36>(W.f(sc, L_SA)), rows_of<6>(W.f(sc, L_SB)), W.i(sc, L_USED),
+          rows_of<12>(W.f(sc, L_BSUM)), rows_of<27>(W.f(sc, L_SSUM))};
+    impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, world, c, m, lane);
+  }
+  SEC_RESET;
+  if (lane < sc.nactor) {
+    const int a = lane;
     if (sc.actor_dynamic[a] == ACTOR_ARTICULATED) {
       const int v0 = sc.actor_v0[a], base = sc.actor_base[a];
       if (base) integrate_base(sc, s.root[a], &c.u[v0], dt);
@@ -398,38 +467,41 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
       for (int i = 0; i < 4; ++i) r[3 + i] = nq[i];
     }
   }
-  for (int d = 0; d < sc.ndof; ++d) { s.q[d] = new_q[d]; s.qd[d] = new_qd[d]; }
+  __syncwarp();
+  for (int i = lane; i < sc.ndof; i += 32) { s.q[i] = new_q[i]; s.qd[i] = new_qd[i]; }
+  __syncwarp();
+  SEC_MARK(c.kid, SEC_SOLVES);
 }
 
 // One substep: FK → contacts → velocity solves → impulse pass →
-// integration, at world fidelity (world) or fast fidelity. The per-substep
-// temporaries live in `w`.
-struct Work {
-  Kin kin;
-  Swept sw;
-  Ctx ctx;
-  float plk_n[MAX_BODIES][3], plk_f[MAX_BODIES][3];
-};
-
-__device__ void substep(const SceneTables& sc, Sample& s, Work& w, const float* tgt,
-                        const float* mass, const float* fric, int K, float dt, int sweeps,
-                        bool world) {
+// integration, at world fidelity (world) or fast fidelity.
+__device__ void substep(const SceneTables& sc, Sample& s, const Kin& k, Swept& sw, Ctx& c,
+                        const Warp& W, const float* tgt, const float* mass, const float* fric, int K,
+                        float dt, int sweeps, bool world) {
   // the finger force gate: a velocity-driven finger stops closing once its
   // link's net contact force (the last substep's report, which contacts()
   // overwrites) exceeds grip_force_gate
-  float tg[MAX_DOFS];
-  for (int d = 0; d < sc.ndof; ++d) {
-    tg[d] = tgt[d];
+  const int lane = W.lane;
+  float* tg = W.f(sc, L_TG);
+  for (int d = lane; d < sc.ndof; d += 32) {
+    float t = tgt[d];
     const int b = sc.dof_gate_body[d];
-    if (b >= 0 && tg[d] < 0.f && sqrtf(dot3(s.ncf[b], s.ncf[b])) > sc.grip_force_gate) tg[d] = 0.f;
+    if (b >= 0 && t < 0.f && sqrtf(dot3(s.ncf[b], s.ncf[b])) > sc.grip_force_gate) t = 0.f;
+    tg[d] = t;
   }
-  fk(sc, s, w.kin);
-  contacts(sc, w.kin, fric, K, dt, w.plk_n, w.plk_f, s.ncf, w.sw);
-  dynamics(sc, s, w.kin, w.plk_n, w.plk_f, tg, mass, fric, K, dt, w.sw, sweeps, world, w.ctx);
+  SEC_BEGIN;
+  fk(sc, s, k, lane);
+  SEC_MARK(c.kid, SEC_FK);
+  float (*plk_n)[3] = rows_of<3>(W.f(sc, L_PLKN));
+  float (*plk_f)[3] = rows_of<3>(W.f(sc, L_PLKF));
+  contacts(sc, k, fric, K, dt, plk_n, plk_f, s.ncf, sw, rows_of<12>(W.f(sc, L_BSUM)), lane);
+  SEC_MARK(c.kid, SEC_CONTACTS);
+  dynamics(sc, s, k, plk_n, plk_f, tg, mass, fric, K, dt, sw, sweeps, world, c, W);
 }
 
 // ---------------------------------------------------------------------------
 // task cost hook (objective kernel_cost), on the post-step kinematics
+// (lane 0 of the sample's warp)
 // ---------------------------------------------------------------------------
 
 // Σ over the force groups of |F_i|, i < force_dims, F the group's summed
@@ -563,35 +635,8 @@ __device__ float task_cost(const SceneTables& sc, const Sample& s, const Kin& k)
 }
 
 // ---------------------------------------------------------------------------
-// state rows <-> per-sample state (state rows, then at world fidelity 4 λ
-// rows per candidate)
+// the kernels
 // ---------------------------------------------------------------------------
-
-__device__ void load_sample(const SceneTables& sc, const float* rows, int K, int k, bool world,
-                            Sample& s) {
-  int r = 0;
-  for (int a = 0; a < sc.nactor; ++a)
-    for (int i = 0; i < 13; ++i) s.root[a][i] = rows[(r++) * K + k];
-  for (int d = 0; d < sc.ndof; ++d) s.q[d] = rows[(r++) * K + k];
-  for (int d = 0; d < sc.ndof; ++d) s.qd[d] = rows[(r++) * K + k];
-  for (int b = 0; b < sc.nbody; ++b)
-    for (int i = 0; i < 3; ++i) s.ncf[b][i] = rows[(r++) * K + k];
-  if (!world) return;
-  for (int c = 0; c < sc.n_fc; ++c)
-    for (int i = 0; i < 4; ++i) s.lam[c][i] = rows[(r++) * K + k];
-}
-
-__device__ void store_sample(const SceneTables& sc, const Sample& s, float* rows, int K, int k) {
-  int r = 0;
-  for (int a = 0; a < sc.nactor; ++a)
-    for (int i = 0; i < 13; ++i) rows[(r++) * K + k] = s.root[a][i];
-  for (int d = 0; d < sc.ndof; ++d) rows[(r++) * K + k] = s.q[d];
-  for (int d = 0; d < sc.ndof; ++d) rows[(r++) * K + k] = s.qd[d];
-  for (int b = 0; b < sc.nbody; ++b)
-    for (int i = 0; i < 3; ++i) rows[(r++) * K + k] = s.ncf[b][i];
-  for (int c = 0; c < sc.n_fc; ++c)
-    for (int i = 0; i < 4; ++i) rows[(r++) * K + k] = s.lam[c][i];
-}
 
 __device__ void load_tables(const SceneTables* src, SceneTables* dst) {
   const int* s = reinterpret_cast<const int*>(src);
@@ -601,47 +646,63 @@ __device__ void load_tables(const SceneTables* src, SceneTables* dst) {
   __syncthreads();
 }
 
+// state rows of one sample: 13 per actor, q, qd, 3 per body
+__device__ __forceinline__ int state_rows(const SceneTables& sc) {
+  return 13 * sc.nactor + 2 * sc.ndof + 3 * sc.nbody;
+}
+
 // ---------------------------------------------------------------------------
 // K1: the whole K-sample, H-step rollout in one launch.
 //
 // Replaces FusedRollout._kernel (ops/pallas/fused_rollout.py:250-342,
-// launched by pallas_call at :367). One thread per sample walks the H steps
-// and the substeps, with the λ rows carried across the whole trajectory at
-// world fidelity (world != 0);
-// state and per-substep temporaries live in registers and local memory
-// (tens of KB per thread, cached in L1/L2).
+// launched by pallas_call at :367). One warp per sample, W warps per block
+// (W ≤ 8, as many as fit beside the tables in 227 KB of shared memory), so
+// K=1000 fills ~125 of the 132 SMs; the warp walks the H steps and the
+// substeps, with the λ rows carried across the whole trajectory at world
+// fidelity (world != 0). Each sample's state and temporaries sit in its
+// warp's region of shared memory, sized to the scene (SceneTables.lay), and
+// every loop over bodies, blocks, candidates, coordinates or matrix entries
+// runs across the warp's lanes; sums stay in a fixed order (segmented scans,
+// butterflies, serial sums per entry), so a run repeats itself bit for bit.
 //
-// What bounds it on the H100: latency of one thread's long serial chain of
-// dependent FLOPs and local-memory accesses (contacts, articulated solve,
-// couple terms, impulse sweeps per substep), not bytes — a command reads
-// ~(NS + 4·n_fc)·K·4 bytes of state and writes K·H costs. At the pick config
-// (K=1000) the mapping fills 8 blocks of 128 threads on 132 SMs, so most of
-// the card idles; spreading one sample over a warp (blocks and candidates
-// across lanes) is the later fix. The scene tables sit in shared memory (all
-// threads read the same entries: broadcasts), and every global access is
-// coalesced.
+// What bounds it on the H100: the latency of one sample's chain of small
+// dependent float32 operations on 3-vectors, 6×6 and ≤24×24 matrices
+// (contacts, articulated solve, couple terms, impulse sweeps per substep),
+// not bytes: a command reads ~(NS + 4·n_fc)·K·4 bytes of state and writes
+// K·H costs. Tensor cores (wgmma), TMA and clusters have nothing to work on
+// here; the levers are the chain length per sample (lanes) and the SMs in
+// use (a warp per sample).
 // ---------------------------------------------------------------------------
 
-__global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
-                                     const float* __restrict__ rows,
-                                     const __nv_bfloat16* __restrict__ V,
-                                     const float* __restrict__ mass,
-                                     const float* __restrict__ fric,
-                                     float* __restrict__ costs, float* __restrict__ vis,
-                                     int K, int H, int substeps, float dt_sub, int sweeps,
-                                     int world) {
+__global__ void __launch_bounds__(256, 1)
+fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __restrict__ rows,
+                     const __nv_bfloat16* __restrict__ V, const float* __restrict__ mass,
+                     const float* __restrict__ fric, float* __restrict__ costs,
+                     float* __restrict__ vis, int K, int H, int substeps, float dt_sub, int sweeps,
+                     int world) {
   extern __shared__ int smem[];
   SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int k = blockIdx.x * (blockDim.x >> 5) + wi;
+  if (k >= K) return;  // the whole warp
+  const Warp W{reinterpret_cast<float*>(smem) + sizeof(SceneTables) / 4 + wi * sc.warp_words, lane};
   Sample s;
-  Work w;
-  float u[MAX_NU], tgt[MAX_DOFS];
-  load_sample(sc, rows, K, k, world != 0, s);
+  Kin kin;
+  Swept sw;
+  Ctx c;
+  bind(sc, W, s, kin, sw, c);
+  c.kid = 0;
+  const int n_rows = state_rows(sc) + (world ? 4 * sc.n_fc : 0);
+  for (int r = lane; r < n_rows; r += 32) W.w[r] = rows[r * K + k];
+  float* u = W.f(sc, L_UCMD);
+  float* tgt = W.f(sc, L_TGT);
+  __syncwarp();
   for (int t = 0; t < H; ++t) {
-    for (int j = 0; j < sc.nu; ++j) u[j] = __bfloat162float(V[(t * sc.nu + j) * K + k]);
-    for (int d = 0; d < sc.ndof; ++d) {
+    SEC_BEGIN;
+    for (int j = lane; j < sc.nu; j += 32) u[j] = __bfloat162float(V[(t * sc.nu + j) * K + k]);
+    __syncwarp();
+    for (int d = lane; d < sc.ndof; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < sc.nu; ++j) {
         const float wj = sc.cmd_W[d * MAX_NU + j];
@@ -649,8 +710,9 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
       }
       tgt[d] = acc;
     }
+    __syncwarp();
     // gripper binarize, latching from the current finger q (CommandMap.apply)
-    for (int i = 0; i < sc.nbin; ++i) {
+    for (int i = lane; i < sc.nbin; i += 32) {
       const int dof = sc.bin_dof[i];
       const float uc = u[sc.bin_src[i]], lo = sc.bin_lo[i], hi = sc.bin_hi[i];
       if (sc.bin_band[i] > 0.f) {
@@ -660,14 +722,21 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
         tgt[dof] = uc > sc.bin_th[i] ? hi : lo;
       }
     }
+    __syncwarp();
+    SEC_MARK(0, SEC_COST);
     for (int it = 0; it < substeps; ++it)
-      substep(sc, s, w, tgt, mass + k, fric + k, K, dt_sub, sweeps, world != 0);
-    fk(sc, s, w.kin);
-    costs[k * H + t] = task_cost(sc, s, w.kin);
-    for (int i = 0; i < 3; ++i) {
-      const float v = sc.vis_body >= 0 ? w.kin.pos[sc.vis_body][i] : 0.f;
-      vis[(t * K + k) * 3 + i] = __bfloat162float(__float2bfloat16(v));
+      substep(sc, s, kin, sw, c, W, tgt, mass + k, fric + k, K, dt_sub, sweeps, world != 0);
+    SEC_RESET;
+    fk(sc, s, kin, lane);
+    if (lane == 0) {
+      costs[k * H + t] = task_cost(sc, s, kin);
+      for (int i = 0; i < 3; ++i) {
+        const float v = sc.vis_body >= 0 ? kin.pos[sc.vis_body][i] : 0.f;
+        vis[(t * K + k) * 3 + i] = __bfloat162float(__float2bfloat16(v));
+      }
     }
+    __syncwarp();
+    SEC_MARK(0, SEC_COST);
   }
 }
 
@@ -675,64 +744,93 @@ __global__ void fused_rollout_kernel(const SceneTables* __restrict__ tables,
 // K2: one env advanced one control dt (all substeps at world fidelity).
 //
 // Replaces FusedWorldStep._kernel (ops/pallas/fused_rollout.py:483-516,
-// launched by pallas_call at :533). The same device code on one sample, run by
-// thread 0 of a single block (the block's other threads only help load the
-// tables), with `sweeps` (16) impulse sweeps per substep and the λ rows in
-// and out. Bound by launch and serial latency of one thread.
+// launched by pallas_call at :533). K1's device code at K = 1: one block of
+// one warp runs the world's one sample, with `sweeps` (16) impulse sweeps
+// per substep and the λ rows in and out. The stride of mass and fric (1) and
+// the world flag (1) come as arguments, as in K1, so that the compiler
+// builds the same code for both. Bound, like K1, by the latency of one
+// sample's chain; the warp's lanes shorten it.
 // ---------------------------------------------------------------------------
 
-__global__ void fused_world_step_kernel(const SceneTables* __restrict__ tables,
-                                        const float* __restrict__ rows_in,
-                                        const float* __restrict__ tgt_in,
-                                        const float* __restrict__ mass,
-                                        const float* __restrict__ fric,
-                                        float* __restrict__ rows_out, int substeps, float dt_sub,
-                                        int sweeps) {
+__global__ void __launch_bounds__(32, 1)
+fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __restrict__ rows_in,
+                        const float* __restrict__ tgt_in, const float* __restrict__ mass,
+                        const float* __restrict__ fric, float* __restrict__ rows_out,
+                        int substeps, float dt_sub, int sweeps, int stride, int world) {
   extern __shared__ int smem[];
   SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
-  if (threadIdx.x != 0) return;
+  const int lane = threadIdx.x & 31;
+  const Warp W{reinterpret_cast<float*>(smem) + sizeof(SceneTables) / 4, lane};
   Sample s;
-  Work w;
-  float tgt[MAX_DOFS];
-  load_sample(sc, rows_in, 1, 0, true, s);
-  for (int d = 0; d < sc.ndof; ++d) tgt[d] = tgt_in[d];
+  Kin kin;
+  Swept sw;
+  Ctx c;
+  bind(sc, W, s, kin, sw, c);
+  c.kid = 1;
+  const int n_rows = state_rows(sc) + 4 * sc.n_fc;
+  for (int r = lane; r < n_rows; r += 32) W.w[r] = rows_in[r];
+  float* tgt = W.f(sc, L_TGT);
+  for (int d = lane; d < sc.ndof; d += 32) tgt[d] = tgt_in[d];
+  __syncwarp();
   for (int it = 0; it < substeps; ++it)
-    substep(sc, s, w, tgt, mass, fric, 1, dt_sub, sweeps, true);
-  store_sample(sc, s, rows_out, 1, 0);
+    substep(sc, s, kin, sw, c, W, tgt, mass, fric, stride, dt_sub, sweeps, world != 0);
+  for (int r = lane; r < n_rows; r += 32) rows_out[r] = W.w[r];
 }
 
 // ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 
+#ifndef FUSED_EMU
 extern "C" {
 
 int scene_tables_size() { return (int)sizeof(SceneTables); }
 
 int max_bounds(int* out) {
-  const int b[12] = {MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK,
-                     MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S, MAX_V};
-  for (int i = 0; i < 12; ++i) out[i] = b[i];
+  const int b[14] = {MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK,
+                     MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S, MAX_V, MAX_CHUNKS, N_LAY};
+  for (int i = 0; i < 14; ++i) out[i] = b[i];
   return 0;
 }
 
-// the tables ride in dynamic shared memory (they outgrew the 16 KB a static
-// array was held to); above 48 KB a kernel has to opt in
-static int set_smem(const void* fn) {
-  const int bytes = (int)sizeof(SceneTables);
+// the tables and the warps' regions ride in dynamic shared memory; above
+// 48 KB a kernel has to opt in
+static int set_smem(const void* fn, int bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+#ifdef SECTION_CLOCKS
+static int rollout_threads = 0;
+
+// the control: K1 at another block size (threads, a multiple of 32; 0: the
+// wrapper's)
+int set_rollout_threads(int n) { rollout_threads = n; return 0; }
+
+// the section counters (N_SEC per kernel) since the last call, then zeroed
+int read_sections(unsigned long long* out) {
+  cudaDeviceSynchronize();
+  int rc = (int)cudaMemcpyFromSymbol(out, g_sections, sizeof(g_sections));
+  if (rc) return rc;
+  unsigned long long zero[2 * N_SEC] = {};
+  return (int)cudaMemcpyToSymbol(g_sections, zero, sizeof(zero));
+}
+#endif
+
+// warps: samples per block; warp_bytes: one sample's region
 int fused_rollout_launch(const void* tables, const void* rows, const void* V, const void* mass,
                          const void* fric, void* costs, void* vis, int K, int H, int substeps,
-                         float dt_sub, int sweeps, int world, void* stream) {
-  const int threads = 128;
-  const int blocks = (K + threads - 1) / threads;
-  int rc = set_smem((const void*)fused_rollout_kernel);
+                         float dt_sub, int sweeps, int world, int warps, int warp_bytes,
+                         void* stream) {
+#ifdef SECTION_CLOCKS
+  if (rollout_threads > 0 && rollout_threads / 32 < warps) warps = rollout_threads / 32;
+#endif
+  const int blocks = (K + warps - 1) / warps;
+  const int smem = (int)sizeof(SceneTables) + warps * warp_bytes;
+  int rc = set_smem((const void*)fused_rollout_kernel, smem);
   if (rc != 0) return rc;
-  fused_rollout_kernel<<<blocks, threads, sizeof(SceneTables), (cudaStream_t)stream>>>(
+  fused_rollout_kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const __nv_bfloat16*)V,
       (const float*)mass, (const float*)fric, (float*)costs, (float*)vis, K, H, substeps, dt_sub,
       sweeps, world);
@@ -741,13 +839,15 @@ int fused_rollout_launch(const void* tables, const void* rows, const void* V, co
 
 int fused_world_step_launch(const void* tables, const void* rows, const void* tgt,
                             const void* mass, const void* fric, void* out, int substeps,
-                            float dt_sub, int sweeps, void* stream) {
-  int rc = set_smem((const void*)fused_world_step_kernel);
+                            float dt_sub, int sweeps, int warp_bytes, void* stream) {
+  const int smem = (int)sizeof(SceneTables) + warp_bytes;
+  int rc = set_smem((const void*)fused_world_step_kernel, smem);
   if (rc != 0) return rc;
-  fused_world_step_kernel<<<1, 32, sizeof(SceneTables), (cudaStream_t)stream>>>(
+  fused_world_step_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const float*)tgt, (const float*)mass,
-      (const float*)fric, (float*)out, substeps, dt_sub, sweeps);
+      (const float*)fric, (float*)out, substeps, dt_sub, sweeps, 1, 1);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+#endif  // FUSED_EMU

@@ -1,5 +1,6 @@
-// Scene tables, per-sample state and small vector math shared by the fused
-// kernels (fused_rollout.cu, contacts.cuh, impulse.cuh).
+// Scene tables, the per-sample state in a warp's region of shared memory, the
+// warp collectives and small vector math shared by the fused kernels
+// (fused_rollout.cu, contacts.cuh, impulse.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +18,7 @@
 #define MAX_S 26       // manifold samples per block (the full box–box manifold's 26)
 #define MAX_V 24       // velocity coordinates of all articulated actors (base + dofs)
 #define MAX_XY 4       // obstacles or robots of a cost hook
+#define MAX_CHUNKS 48  // 32-lane chunks of whole pair blocks (a block never spans two)
 #define N_POSE 9       // pose constants of TASK_OMNI_PICK (7 arm + 2 finger)
 #define MAX_HT 8       // height terms of TASK_ANYMAL
 
@@ -64,9 +66,30 @@
 #define F_A_STA 512    // side a: a floating-base articulation's link against a static geom
 #define F_B_STA 1024
 
+
+// Per-warp layout: offsets (in 4-byte words) of the arrays of one sample's
+// region of dynamic shared memory, in this order (ops/fused_rollout.py
+// LAYOUT). ops/fused_rollout.pack_tables sizes each to the scene's own
+// counts. The first five are the state rows in row order, so a sample's
+// rows load and store as one contiguous copy. The DYN_* arrays (the
+// velocity solves) and the IMP_* arrays (the impulse pass) share one area.
+enum Layout {
+  L_ROOT, L_Q, L_QD, L_NCF, L_LAM,                       // state rows
+  L_POS, L_QUAT, L_LINV, L_ANGV, L_AXW,                  // Kin
+  L_PLKN, L_PLKF,                                        // Plücker contact loads
+  L_PT, L_NRM, L_DEPTH, L_LIVE,                          // Swept (L_LIVE: int per block)
+  L_S, L_L, L_U, L_PSI, L_FV, L_DEF,                     // Ctx (L_DEF: int per actor)
+  L_TGT, L_TG, L_UCMD, L_NEWQ, L_NEWQD, L_BSUM, L_FVS,   // per-step and per-substep
+  L_IC, L_VB, L_ASP, L_FSUB, L_RHS, L_C, L_DIMP, L_UU, L_COEF, L_COL,        // DYN_*
+  L_INVM, L_INVIW, L_CNTB, L_CNTA, L_ACT, L_MUB, L_KC, L_KNC, L_FLOOR, L_NEFF,  // IMP_*
+  L_DP, L_DT, L_Y, L_V6, L_SA, L_SB, L_USED, L_SSUM,
+  N_LAY
+};
+
 // Field order and types must match _SceneTablesC in ops/fused_rollout.py;
 // scene_tables_size() lets the wrapper check the size at load. Every field
-// is 4 bytes wide, so the struct has no padding.
+// is 4 bytes wide (the byte tables come in multiples of 4), so the struct
+// has no padding.
 // Articulated actors are solved by velocity coordinate: an actor's actor_nv
 // coordinates start at actor_v0 and are its actor_base (6 for a floating
 // base, its root body's Plücker velocity (ω, v_O)) base coordinates, then one
@@ -110,37 +133,162 @@ struct SceneTables {
   float blk_thr[MAX_BLK], blk_kn[MAX_BLK], blk_kn_a[MAX_BLK], blk_kn_b[MAX_BLK];
   float blk_mu0[MAX_BLK], blk_m_oth[MAX_BLK], blk_npts[MAX_BLK];
   float sconst[MAX_SC];
+  // lane orders (pack_tables): bodies by tree level; the contact chunks
+  // (emitting or swept blocks) and the swept chunks, each 32 lanes of whole
+  // blocks, as the block of every lane (255: idle) and each block's first
+  // lane; the block of every swept candidate; the body of every Ψ slot
+  int n_lvl, n_ck, n_sw, n_psi;
+  int lvl_start[MAX_BODIES + 1], lvl_body[MAX_BODIES];
+  unsigned char ck_blk[MAX_CHUNKS * 32], sw_blk[MAX_CHUNKS * 32];
+  int blk_lane0[MAX_BLK], blk_swlane0[MAX_BLK];
+  int cand_blk[MAX_CAND], psi_body[MAX_PSI];
+  // the sides of blocks that act on each body (emitting sides: contacts),
+  // free actor (swept free sides) and Ψ slot (swept articulated sides), in
+  // block order, as lists of 2·block + side (side 1: b) from *_start
+  int cb_start[MAX_BODIES + 1], cb_ent[2 * MAX_BLK];
+  int ab_start[MAX_ACTORS + 1], ab_ent[2 * MAX_BLK];
+  int pb_start[MAX_PSI + 1], pb_ent[MAX_BLK];
+  // the per-warp region: offsets and its size in words
+  int lay[N_LAY];
+  int warp_words;
 };
 
 static_assert(sizeof(SceneTables) % 4 == 0, "SceneTables is copied as 32-bit words");
 static_assert(sizeof(SceneTables) <= 48 * 1024, "SceneTables must fit one block's shared memory");
 
-// Per-sample integrated state (registers / local memory): roots, dofs, the
-// last substep's reported net contact force, and the λ rows.
+// Per-section cycle counters (scripts/profile_torch_step.py --sections builds
+// with -DSECTION_CLOCKS into its own library): cycles of lane 0 of each
+// sample's warp, summed over the samples of every launch, per kernel (0: K1,
+// 1: K2) and section.
+#define SEC_FK 0
+#define SEC_CONTACTS 1
+#define SEC_SOLVES 2      // velocity solves: free bodies and integration
+#define SEC_INVMASS 3     // impulse pass: counts, friction, per-candidate inverse masses
+#define SEC_WARM 4
+#define SEC_SWEEPS 5
+#define SEC_SNAP 6
+#define SEC_COST 7        // command map, binarize, post-step FK, cost, vis
+#define SEC_TREE 8        // velocity solves: inertias, subspaces, RNEA bias, composite sums
+#define SEC_CRBA 9        // velocity solves: CRBA and drives
+#define SEC_COUPLE 10     // velocity solves: couple terms
+#define SEC_CHOL 11       // velocity solves: Cholesky factor and solve
+#define SEC_PSI 12        // velocity solves: Ψ
+#define N_SEC 13
+#ifdef SECTION_CLOCKS
+__device__ unsigned long long g_sections[2 * N_SEC];
+#define SEC_BEGIN long long _sec_t = clock64()
+#define SEC_RESET _sec_t = clock64()
+#define SEC_MARK(kid, id)                                                                \
+  do {                                                                                   \
+    const long long _sec_n = clock64();                                                  \
+    if ((threadIdx.x & 31) == 0)                                                         \
+      atomicAdd(&g_sections[(kid) * N_SEC + (id)], (unsigned long long)(_sec_n - _sec_t)); \
+    _sec_t = _sec_n;                                                                     \
+  } while (0)
+#else
+#define SEC_BEGIN do {} while (0)
+#define SEC_RESET do {} while (0)
+#define SEC_MARK(kid, id) do {} while (0)
+#endif
+
+// ---------------------------------------------------------------------------
+// one sample's state and temporaries: views into its warp's region
+// ---------------------------------------------------------------------------
+
+// integrated state: roots, dofs, the last substep's reported net contact
+// force, and the λ rows
 struct Sample {
-  float root[MAX_ACTORS][13];
-  float q[MAX_DOFS], qd[MAX_DOFS];
-  float ncf[MAX_BODIES][3];
-  float lam[MAX_CAND][4];
+  float (*root)[13];
+  float *q, *qd;
+  float (*ncf)[3];
+  float (*lam)[4];
 };
 
-// Per-body kinematics of one substep.
+// per-body kinematics of one substep
 struct Kin {
-  float pos[MAX_BODIES][3], quat[MAX_BODIES][4];
-  float linv[MAX_BODIES][3], angv[MAX_BODIES][3], axw[MAX_BODIES][3];
+  float (*pos)[3], (*quat)[4], (*linv)[3], (*angv)[3], (*axw)[3];
 };
 
-// Swept blocks' contact geometry of one substep, by candidate (zero where
-// the block's gate is off), and each block's gate.
+// swept blocks' contact geometry of one substep, by candidate (zero where
+// the block's gate is off), and every block's gate
 struct Swept {
-  float pt[MAX_CAND][3], nrm[MAX_CAND][3], depth[MAX_CAND];
-  bool live[MAX_BLK];
+  float (*pt)[3], (*nrm)[3], *depth;
+  int* live;
 };
+
+// solve context of one substep, by velocity coordinate / Ψ slot / actor
+struct Ctx {
+  float (*S)[6];      // world motion subspace of every coordinate
+  float* L;           // velocity-solve matrices (actor blocks, row stride nv), factored in place
+  float* u;           // articulated actors' generalized velocity
+  float (*psi)[36];   // Ψ per couple or stiction contact link
+  float (*fv)[6];     // free bodies: linvel, angvel
+  int* deferred;      // articulated actor in the impulse pass
+  int kid;            // kernel id of the section counters
+};
+
+struct Warp {
+  float* w;           // the region
+  int lane;
+  __device__ __forceinline__ float* f(const SceneTables& sc, int id) const { return w + sc.lay[id]; }
+  __device__ __forceinline__ int* i(const SceneTables& sc, int id) const {
+    return reinterpret_cast<int*>(w + sc.lay[id]);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ float (*rows_of(float* p))[N] {
+  return reinterpret_cast<float(*)[N]>(p);
+}
+
+__device__ __forceinline__ void bind(const SceneTables& sc, const Warp& W, Sample& s, Kin& k,
+                                     Swept& sw, Ctx& c) {
+  s.root = rows_of<13>(W.f(sc, L_ROOT));
+  s.q = W.f(sc, L_Q);
+  s.qd = W.f(sc, L_QD);
+  s.ncf = rows_of<3>(W.f(sc, L_NCF));
+  s.lam = rows_of<4>(W.f(sc, L_LAM));
+  k.pos = rows_of<3>(W.f(sc, L_POS));
+  k.quat = rows_of<4>(W.f(sc, L_QUAT));
+  k.linv = rows_of<3>(W.f(sc, L_LINV));
+  k.angv = rows_of<3>(W.f(sc, L_ANGV));
+  k.axw = rows_of<3>(W.f(sc, L_AXW));
+  sw.pt = rows_of<3>(W.f(sc, L_PT));
+  sw.nrm = rows_of<3>(W.f(sc, L_NRM));
+  sw.depth = W.f(sc, L_DEPTH);
+  sw.live = W.i(sc, L_LIVE);
+  c.S = rows_of<6>(W.f(sc, L_S));
+  c.L = W.f(sc, L_L);
+  c.u = W.f(sc, L_U);
+  c.psi = rows_of<36>(W.f(sc, L_PSI));
+  c.fv = rows_of<6>(W.f(sc, L_FV));
+  c.deferred = W.i(sc, L_DEF);
+}
+
+// ---------------------------------------------------------------------------
+// warp collectives (every lane of the warp reaches each call)
+// ---------------------------------------------------------------------------
+
+#define FULL_MASK 0xffffffffu
+
+// inclusive segmented scan over the lanes: lane l ends with the sum of the
+// values of lanes seg0..l, seg0 the first lane of its segment; a fixed tree,
+// so the result repeats bit for bit
+template <int N>
+__device__ __forceinline__ void seg_scan(float* v, int lane, int seg0) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const bool take = lane - d >= seg0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float t = __shfl_up_sync(FULL_MASK, v[i], d);
+      if (take) v[i] += t;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // small vector math (quaternions xyzw)
 // ---------------------------------------------------------------------------
-
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
@@ -244,17 +392,60 @@ __device__ void chol_factor(const float* M, float* L, int o, int n, int ld) {
   }
 }
 
-// forward + back substitution with the factor block at (o, o); x may alias b
+// forward + back substitution with the factor block at (o, o), in x (which
+// may alias b): each y_i and x_i overwrites b_i once it is no longer read
 __device__ void chol_solve(const float* L, int o, int n, int ld, const float* b, float* x) {
-  float y[MAX_V];
   for (int i = 0; i < n; ++i) {
     float v = b[i];
-    for (int q = 0; q < i; ++q) v -= L[(o + i) * ld + o + q] * y[q];
-    y[i] = v / L[(o + i) * ld + o + i];
+    for (int q = 0; q < i; ++q) v -= L[(o + i) * ld + o + q] * x[q];
+    x[i] = v / L[(o + i) * ld + o + i];
   }
   for (int i = n - 1; i >= 0; --i) {
-    float v = y[i];
+    float v = x[i];
     for (int q = i + 1; q < n; ++q) v -= L[(o + q) * ld + o + i] * x[q];
     x[i] = v / L[(o + i) * ld + o + i];
   }
+}
+
+// The same factor by the warp: column by column, lanes over the rows below
+// the diagonal, each entry's dot product in the serial order (n ≤ 32).
+__device__ void chol_factor_warp(float* L, int o, int n, int ld, int lane) {
+  for (int j = 0; j < n; ++j) {
+    float d = L[(o + j) * ld + o + j];
+    for (int q = 0; q < j; ++q) d -= L[(o + j) * ld + o + q] * L[(o + j) * ld + o + q];
+    const float ljj = sqrtf(fmaxf(d, 1e-9f));
+    const float inv = 1.f / ljj;
+    float v = 0.f;
+    const int i = lane;
+    if (i > j && i < n) {
+      v = L[(o + i) * ld + o + j];
+      for (int q = 0; q < j; ++q) v -= L[(o + i) * ld + o + q] * L[(o + j) * ld + o + q];
+    }
+    __syncwarp();
+    if (i == j) L[(o + j) * ld + o + j] = ljj;
+    if (i > j && i < n) L[(o + i) * ld + o + j] = v * inv;
+    __syncwarp();
+  }
+}
+
+// forward + back substitution by the warp with the factor block at (o, o):
+// lane i holds b_i and ends with x_i (n ≤ 32); the operations of
+// chol_solve, the forward pass in its order and the back pass's sums in the
+// reverse order
+__device__ float chol_solve_warp(const float* L, int o, int n, int ld, float b, int lane) {
+  const bool mine = lane < n;
+  float v = b;
+  for (int q = 0; q < n; ++q) {
+    float yq = mine && lane == q ? v / L[(o + q) * ld + o + q] : 0.f;
+    yq = __shfl_sync(FULL_MASK, yq, q);
+    if (lane == q) v = yq;
+    else if (mine && lane > q) v -= L[(o + lane) * ld + o + q] * yq;
+  }
+  for (int q = n - 1; q >= 0; --q) {
+    float xq = mine && lane == q ? v / L[(o + q) * ld + o + q] : 0.f;
+    xq = __shfl_sync(FULL_MASK, xq, q);
+    if (lane == q) v = xq;
+    else if (mine && lane < q) v -= L[(o + q) * ld + o + lane] * xq;
+  }
+  return v;
 }

@@ -16,6 +16,14 @@ from and scattered back to `SimState.contact_lam`.
 
 Each wrapper class keeps a plain integer `launches`, raised by one where it
 launches its kernel and nowhere else.
+
+The kernels run one warp per sample (K2: one warp for the world's sample).
+`pack_tables` appends to the scene tables the lane orders the warp needs
+(bodies by tree level, 32-lane chunks of whole pair blocks, the block of each
+swept candidate, the body of each Ψ slot) and the layout of one sample's
+region of shared memory, sized to the scene's own counts; `warps_per_block`
+picks, once per device, the warps per block (at most 8) that spread K samples
+over the card's SMs and fit beside the tables in 227 KB.
 """
 from __future__ import annotations
 
@@ -27,7 +35,10 @@ import torch
 
 from ..physics.contact import build_contact_tables
 from ..physics.types import ModelParams, SimState
+from .fused_contacts import (F_A_ART, F_A_FREE, F_A_STA, F_B_ART, F_B_FREE, F_B_STA, F_EMIT_A,
+                             F_EMIT_B, F_SWEPT)
 from .fused_physics import (
+    ACTOR_ARTICULATED,
     MAX_HT,
     MAX_XY,
     N_POSE,
@@ -49,8 +60,24 @@ from .fused_physics import (
 MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU = 8, 32, 16, 16
 MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC, MAX_PSI, MAX_BIN, MAX_S = 64, 48, 160, 1024, 16, 4, 26
 MAX_V = 24      # velocity coordinates (base + dofs) of all articulated actors
+MAX_CHUNKS = 48  # 32-lane chunks of whole pair blocks
+
+# the per-warp layout (enum Layout of csrc/scene_tables.cuh, in its order):
+# name → words, from the scene's counts. The first five are the state rows in
+# row order; DYN_* and IMP_* share one area.
+LAYOUT = (
+    "ROOT", "Q", "QD", "NCF", "LAM", "POS", "QUAT", "LINV", "ANGV", "AXW", "PLKN", "PLKF",
+    "PT", "NRM", "DEPTH", "LIVE", "S", "L", "U", "PSI", "FV", "DEF",
+    "TGT", "TG", "UCMD", "NEWQ", "NEWQD", "BSUM", "FVS",
+    "IC", "VB", "ASP", "FSUB", "RHS", "C", "DIMP", "UU", "COEF", "COL",
+    "INVM", "INVIW", "CNTB", "CNTA", "ACT", "MUB", "KC", "KNC", "FLOOR", "NEFF",
+    "DP", "DT", "Y", "V6", "SA", "SB", "USED", "SSUM",
+)
+_DYN0, _IMP0 = LAYOUT.index("IC"), LAYOUT.index("INVM")
 BOUNDS = (MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK, MAX_CAND, MAX_SC,
-          MAX_PSI, MAX_BIN, MAX_S, MAX_V)
+          MAX_PSI, MAX_BIN, MAX_S, MAX_V, MAX_CHUNKS, len(LAYOUT))
+SMEM_BYTES = 227 * 1024    # shared memory a block can use on the H100
+MAX_WARPS = 8
 
 
 def _arr(ctype, n):
@@ -113,6 +140,23 @@ class _SceneTablesC(ctypes.Structure):
         *[(n, _arr(ctypes.c_float, MAX_BLK)) for n in (
             "blk_thr", "blk_kn", "blk_kn_a", "blk_kn_b", "blk_mu0", "blk_m_oth", "blk_npts")],
         ("sconst", _arr(ctypes.c_float, MAX_SC)),
+        *[(n, ctypes.c_int) for n in ("n_lvl", "n_ck", "n_sw", "n_psi")],
+        ("lvl_start", _arr(ctypes.c_int, MAX_BODIES + 1)),
+        ("lvl_body", _arr(ctypes.c_int, MAX_BODIES)),
+        ("ck_blk", _arr(ctypes.c_ubyte, MAX_CHUNKS * 32)),
+        ("sw_blk", _arr(ctypes.c_ubyte, MAX_CHUNKS * 32)),
+        ("blk_lane0", _arr(ctypes.c_int, MAX_BLK)),
+        ("blk_swlane0", _arr(ctypes.c_int, MAX_BLK)),
+        ("cand_blk", _arr(ctypes.c_int, MAX_CAND)),
+        ("psi_body", _arr(ctypes.c_int, MAX_PSI)),
+        ("cb_start", _arr(ctypes.c_int, MAX_BODIES + 1)),
+        ("cb_ent", _arr(ctypes.c_int, 2 * MAX_BLK)),
+        ("ab_start", _arr(ctypes.c_int, MAX_ACTORS + 1)),
+        ("ab_ent", _arr(ctypes.c_int, 2 * MAX_BLK)),
+        ("pb_start", _arr(ctypes.c_int, MAX_PSI + 1)),
+        ("pb_ent", _arr(ctypes.c_int, MAX_BLK)),
+        ("lay", _arr(ctypes.c_int, len(LAYOUT))),
+        ("warp_words", ctypes.c_int),
     ]
 
 
@@ -147,6 +191,77 @@ def check_bounds(ks: KernelScene) -> None:
                          ("samples per block", S, MAX_S)):
         if n > cap:
             raise ValueError(f"scene has {n} {what}; the CUDA kernels take at most {cap}")
+
+
+def _chunks(ks: KernelScene, blocks):
+    """Pack whole blocks, in order, into 32-lane chunks. → (block of every
+    lane, 255 idle; first lane of each block), MAX_CHUNKS × 32 and MAX_BLK."""
+    lanes = np.full((MAX_CHUNKS, 32), 255, np.uint8)
+    lane0 = np.zeros(MAX_BLK, np.int32)
+    ch, cur = 0, 0
+    for bi in blocks:
+        S = int(ks.blk_S[bi])
+        if cur + S > 32:
+            ch, cur = ch + 1, 0
+        lanes[ch, cur:cur + S] = bi
+        lane0[bi] = cur
+        cur += S
+    return lanes, lane0, (ch + 1 if len(blocks) else 0)
+
+
+def layout(ks: KernelScene):
+    """The per-warp region: (offsets in words by LAYOUT, words per sample)."""
+    A, B, D, nv, F, nb = ks.nactor, ks.nbody, ks.ndof, ks.nv, ks.n_fc, ks.nblk
+    npsi = int(ks.body_psi.max()) + 1 if (ks.body_psi >= 0).any() else 0
+    art = [int(ks.actor_nbody[a]) for a in range(A) if ks.actor_dynamic[a] == ACTOR_ARTICULATED]
+    anb = max(art or [0])
+    size = dict(
+        ROOT=13 * A, Q=D, QD=D, NCF=3 * B, LAM=4 * F, POS=3 * B, QUAT=4 * B, LINV=3 * B,
+        ANGV=3 * B, AXW=3 * B, PLKN=3 * B, PLKF=3 * B, PT=3 * F, NRM=3 * F, DEPTH=F, LIVE=nb,
+        S=6 * nv, L=nv * nv, U=nv, PSI=36 * npsi, FV=6 * A, DEF=A, TGT=D, TG=D, UCMD=ks.nu,
+        NEWQ=D, NEWQD=D, BSUM=12 * nb, FVS=72 * A,
+        IC=36 * anb, VB=6 * anb, ASP=6 * anb, FSUB=6 * anb, RHS=nv, C=nv, DIMP=nv, UU=nv,
+        COEF=64, COL=32 * nv,
+        INVM=A, INVIW=9 * A, CNTB=A, CNTA=A, ACT=F, MUB=nb, KC=6 * F, KNC=F, FLOOR=nb, NEFF=nb,
+        DP=3 * A, DT=3 * A, Y=6 * npsi, V6=6 * npsi, SA=36 * A, SB=6 * A, USED=A,
+        SSUM=27 * nb)
+    off, at = [0] * len(LAYOUT), 0
+    for i, name in enumerate(LAYOUT[:_DYN0]):
+        off[i], at = at, at + size[name]
+    ends = []
+    for lo, hi in ((_DYN0, _IMP0), (_IMP0, len(LAYOUT))):
+        a2 = at
+        for i in range(lo, hi):
+            off[i], a2 = a2, a2 + size[LAYOUT[i]]
+        ends.append(a2)
+    return off, max(ends)
+
+
+def region_bytes(ks: KernelScene) -> int:
+    """Bytes of one sample's region of shared memory; raises where one
+    region does not fit beside the tables in SMEM_BYTES."""
+    nbytes = 4 * layout(ks)[1]
+    room = SMEM_BYTES - ctypes.sizeof(_SceneTablesC)
+    if nbytes > room:
+        raise ValueError(f"one sample's state and temporaries take {nbytes} B of shared "
+                         f"memory; beside the {ctypes.sizeof(_SceneTablesC)} B of tables a "
+                         f"block has {room} B")
+    return nbytes
+
+
+def warps_per_block(nbytes: int, K: int, n_sm: int) -> int:
+    """Enough warps that K samples spread over the n_sm SMs one block each,
+    at most MAX_WARPS and as many regions of nbytes as fit beside the
+    tables in SMEM_BYTES."""
+    fit = (SMEM_BYTES - ctypes.sizeof(_SceneTablesC)) // nbytes
+    return min(MAX_WARPS, fit, max(1, -(-int(K) // n_sm)))
+
+
+def launch_geometry(ks: KernelScene, K: int, n_sm: int):
+    """→ (warps per block, bytes of one sample's region) of K1 at K samples
+    on a card of n_sm SMs."""
+    nbytes = region_bytes(ks)
+    return warps_per_block(nbytes, K, n_sm), nbytes
 
 
 def pack_tables(ks: KernelScene, vis_body: int = -1) -> bytes:
@@ -192,6 +307,56 @@ def pack_tables(ks: KernelScene, vis_body: int = -1) -> bytes:
     W = np.zeros((MAX_DOFS, MAX_NU), np.float32)
     W[: ks.ndof, : ks.nu] = ks.cmd_W
     t.cmd_W[:] = W.reshape(-1).tolist()
+    # lane orders: bodies by tree level, then the chunks
+    level = np.zeros(ks.nbody, np.int32)
+    for g in range(ks.nbody):
+        p = int(ks.body_parent[g])
+        level[g] = 0 if p < 0 else level[p] + 1
+    order = np.argsort(level, kind="stable")
+    t.n_lvl = int(level.max()) + 1 if ks.nbody else 0
+    t.lvl_body[: ks.nbody] = order.tolist()
+    t.lvl_start[: t.n_lvl + 1] = np.searchsorted(level[order], np.arange(t.n_lvl + 1)).tolist()
+    flags = ks.blk_flags.astype(np.int64)
+    contact = [bi for bi in range(ks.nblk) if flags[bi] & (F_EMIT_A | F_EMIT_B | F_SWEPT)]
+    swept = [bi for bi in range(ks.nblk) if flags[bi] & F_SWEPT]
+    # contact chunks hold blocks of one kind together (lanes of one chunk take
+    # one narrowphase branch); swept chunks stay in block order (the couple
+    # terms sum blocks in that order)
+    by_kind = sorted(contact, key=lambda bi: (int(ks.blk_kind[bi]), bi))
+    for lanes_name, lane0_name, count, blocks in (("ck_blk", "blk_lane0", "n_ck", by_kind),
+                                                   ("sw_blk", "blk_swlane0", "n_sw", swept)):
+        lanes, lane0, n = _chunks(ks, blocks)
+        if n > MAX_CHUNKS:
+            raise ValueError(f"scene needs {n} chunks of 32 lanes; the CUDA kernels take at "
+                             f"most {MAX_CHUNKS}")
+        getattr(t, lanes_name)[:] = lanes.reshape(-1).tolist()
+        getattr(t, lane0_name)[:] = lane0.tolist()
+        setattr(t, count, n)
+    for bi in swept:
+        c0 = int(ks.blk_c0[bi])
+        t.cand_blk[c0:c0 + int(ks.blk_S[bi])] = [bi] * int(ks.blk_S[bi])
+    # the sides of blocks acting on each body, free actor and Ψ slot
+    actor = ks.body_actor
+    art_a = flags & (F_A_ART | F_A_STA) != 0
+    lists = (
+        ("cb", ks.nbody, [(int(ks.blk_ba[bi]), 2 * bi) for bi in range(ks.nblk) if flags[bi] & F_EMIT_A]
+         + [(int(ks.blk_bb[bi]), 2 * bi + 1) for bi in range(ks.nblk) if flags[bi] & F_EMIT_B]),
+        ("ab", ks.nactor, [(int(actor[ks.blk_ba[bi]]), 2 * bi) for bi in swept if flags[bi] & F_A_FREE]
+         + [(int(actor[ks.blk_bb[bi]]), 2 * bi + 1) for bi in swept if flags[bi] & F_B_FREE]),
+        ("pb", MAX_PSI, [(int(ks.body_psi[ks.blk_ba[bi] if art_a[bi] else ks.blk_bb[bi]]),
+                          2 * bi + (0 if art_a[bi] else 1)) for bi in swept
+                         if flags[bi] & (F_A_ART | F_B_ART | F_A_STA | F_B_STA)]))
+    for name, n, pairs in lists:
+        pairs = sorted(pairs)                     # by owner, then block
+        owners = np.array([o for o, _ in pairs], np.int64)
+        getattr(t, f"{name}_start")[: n + 1] = np.searchsorted(owners, np.arange(n + 1)).tolist()
+        getattr(t, f"{name}_ent")[: len(pairs)] = [e for _, e in pairs]
+    psi = [(int(ks.body_psi[b]), b) for b in range(ks.nbody) if ks.body_psi[b] >= 0]
+    t.n_psi = max(sl for sl, _ in psi) + 1 if psi else 0
+    for sl, b in psi:
+        t.psi_body[sl] = b
+    off, t.warp_words = layout(ks)
+    t.lay[:] = off
     return bytes(t)
 
 
@@ -335,6 +500,16 @@ class FusedRollout:
         self.dt_sub = engine.scene.dt / self.substeps
         self.impulse_sweeps = int(impulse_sweeps)
         self._tables = _Tables(self.ks, self.vis_body)
+        self.warp_bytes = region_bytes(self.ks)
+        self._warps: Dict[int, int] = {}  # device index → warps per block
+
+    def warps(self, device: torch.device) -> int:
+        """Warps (samples) per block of the launches on a CUDA device."""
+        W = self._warps.get(device.index)
+        if W is None:
+            n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+            W = self._warps[device.index] = warps_per_block(self.warp_bytes, self.K, n_sm)
+        return W
 
     def pack(self, sim_state_K: SimState, params_K: ModelParams, V_khn: torch.Tensor):
         """→ the kernel inputs: rows (NS + 4·n_fc, K) f32 (fast fidelity: NS),
@@ -382,7 +557,8 @@ class FusedRollout:
                 self._tables.on(rows.device).data_ptr(), rows.data_ptr(), V.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), costs.data_ptr(), vis.data_ptr(),
                 self.K, self.H, self.substeps, self.dt_sub, self.impulse_sweeps,
-                int(self.world_fidelity), torch.cuda.current_stream(rows.device).cuda_stream,
+                int(self.world_fidelity), self.warps(rows.device), self.warp_bytes,
+                torch.cuda.current_stream(rows.device).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"fused_rollout_kernel launch failed: cudaError {rc}")
@@ -406,6 +582,7 @@ class FusedWorldStep:
         self.dt_sub = engine.dt_sub
         self.impulse_sweeps = int(impulse_sweeps)
         self._tables = _Tables(self.ks, -1)
+        self.warp_bytes = region_bytes(self.ks)
 
     def _check_inputs(self, rows, tgt, mass, fric):
         ks, dev = self.ks, rows.device
@@ -432,7 +609,8 @@ class FusedWorldStep:
             rc = lib.fused_world_step_launch(
                 self._tables.on(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), out.data_ptr(), self.substeps, self.dt_sub,
-                self.impulse_sweeps, torch.cuda.current_stream(rows.device).cuda_stream,
+                self.impulse_sweeps, self.warp_bytes,
+                torch.cuda.current_stream(rows.device).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"fused_world_step_kernel launch failed: cudaError {rc}")

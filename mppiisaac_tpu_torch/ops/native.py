@@ -4,6 +4,11 @@
 `sm_90a` into a shared library under `_build/`, named by a hash of the
 sources and the flags, at the first call on a machine with the CUDA toolkit. The library is loaded with ctypes;
 its functions take raw device pointers and the stream as `c_void_p`.
+
+`VARIANT = "sections"` (set before the first load, by
+scripts/profile_torch_step.py --sections) builds the same sources with
+`-DSECTION_CLOCKS` into `_build/sections/`: the kernels then count clock64()
+cycles per section, read back by `read_sections`.
 """
 from __future__ import annotations
 
@@ -34,14 +39,22 @@ def _nvcc() -> str:
     return path
 
 
+VARIANT = None          # None: the main build; "sections": the section counters
+_DEFINES = {None: [], "sections": ["-DSECTION_CLOCKS"]}
+
+
+def _flags():
+    return NVCC_FLAGS + _DEFINES[VARIANT]
+
+
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(name.encode() + f.read())
     digest = h.hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libfused_rollout_{digest}.so")
+    return os.path.join(BUILD_DIR, VARIANT or "", f"libfused_rollout_{digest}.so")
 
 
 def build() -> tuple:
@@ -52,11 +65,11 @@ def build() -> tuple:
     if os.path.exists(out):
         with open(report) as f:
             return out, 0.0, f.read()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        [_nvcc(), *_flags(), "-o", tmp, SOURCE],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
@@ -78,8 +91,13 @@ def load_library() -> ctypes.CDLL:
     lib.scene_tables_size.restype = I
     lib.max_bounds.argtypes = [P]
     lib.max_bounds.restype = I
-    lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, P]
+    lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
     lib.fused_rollout_launch.restype = I
-    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, F, I, P]
+    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, F, I, I, P]
     lib.fused_world_step_launch.restype = I
+    if VARIANT == "sections":
+        lib.read_sections.argtypes = [P]
+        lib.read_sections.restype = I
+        lib.set_rollout_threads.argtypes = [I]
+        lib.set_rollout_threads.restype = I
     return lib

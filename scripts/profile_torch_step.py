@@ -14,12 +14,23 @@ and the card's name and power limit; writes the Chrome trace to --out.
 `--task panda_pick_fast` is panda_pick with K1 at fast fidelity and the
 reduced manifold (`mppi.rollout_fidelity=fast mppi.rollout_manifold=reduced`).
 
+    python scripts/profile_torch_step.py --task panda_pick --warmup 121 --sections
+
+builds the kernels with their clock64() section counters (-DSECTION_CLOCKS,
+into _build/sections/), runs the --warmup loop steps, then launches the
+next step's K1 and K2 --steps times each on the inputs that step gave them
+and prints the split by section (FK, contacts, velocity solves, the impulse
+pass's inverse masses, warm start, sweeps and snap, cost; the velocity
+solves also in five parts) in cycles per
+sample and launch, with ptxas's registers and stack frame, and K1's time at
+its block size and at one warp per block (CUDA events).
+
     python scripts/profile_torch_step.py --task boxer_push --drift STATES
 
 runs on the CPU instead: how far the kernels' plain versions in float32
 drift from the same in float64, at the task's shipped config, from each
 world state in STATES (the files `chip_smoke.py` writes to
-chiprun_out/<task>_states.pt, for boxer_push, the point-robot paths
+chiprun_out/<task>_states.pt, for panda_pick, boxer_push, the point-robot paths
 point_robot, point_robot_obst1 and multi_pointbot, panda_effort,
 panda_stick_push, omni_panda_pick, multi_jackal, albert, anymal,
 panda_pick_fast and box_pair, the full box–box manifold scene of phase
@@ -27,6 +38,16 @@ panda_pick_fast and box_pair, the full box–box manifold scene of phase
 to (for all but boxer_push its hold controls, and for the paths of phases
 10-16 its first PLAIN_K1_SAMPLES samples), and K2 over 5 world steps by row
 group (not for panda_pick_fast, whose world step is panda_pick's).
+
+    python scripts/profile_torch_step.py --task panda_pick --warmup 110 --steps 160 \
+        --k2-holds 10 --out chiprun_out
+
+runs the loop on the card for --warmup and then --steps steps (on past a
+success), and from every 10th of the latter states holds K2 over 5 world
+steps against its plain version in float32, beside the plain version's own
+float32-vs-float64 drift from the same state (the hold's targets of
+chip_smoke.py), by row group; the states go to
+--out/<task>_k2_states.pt.
 """
 import argparse
 import json
@@ -88,6 +109,92 @@ def setup(task):
     return cfg, OBJECTIVES[task](cfg)
 
 
+def hold_draw(task, cfg, g, shape):
+    """The controls of chip_smoke.py's holds (the same generator draws):
+    boxer_push uniform in ±1, panda_pick in ±0.3 (phase 6), the later tasks
+    hold_controls."""
+    if task == "panda_pick":
+        return torch.rand(shape, generator=g) * 0.6 - 0.3
+    if task == "boxer_push":
+        return torch.rand(shape, generator=g) * 2.0 - 1.0
+    return hold_controls(task, cfg, g, shape)
+
+
+def hold_targets(task, cfg, built, s0, g, n):
+    """n K2 targets of chip_smoke.py's holds from state s0, drawn from g on
+    the CPU after the K1 controls: panda_pick's around s0.q with the
+    fingers' targets kept (phase 6), the others the command map of
+    hold_draw's controls."""
+    out = []
+    for _ in range(n):
+        if task == "panda_pick":
+            tgt = s0.q.cpu() + (torch.rand(s0.q.shape[-1], generator=g) * 0.4 - 0.2)
+            tgt[7:9] = s0.dof_target[7:9].cpu()
+        else:
+            u = hold_draw(task, cfg, g, (built.cmd_map.nu,))
+            tgt = built.cmd_map.apply(u[None], s0.q[None].cpu())[0]
+        out.append(tgt.to(s0.q.device))
+    return out
+
+
+def k2_holds(args, cfg, world, step):
+    """K2 against its plain version on the card, in float32 and float64,
+    over 5 world steps from every --k2-holds-th state of --steps loop steps
+    after --warmup (the loop runs on past a success), with the targets of
+    chip_smoke.py's holds: by row group, the kernel's |d| from the plain
+    float32 beside the plain float32's own |d| from float64. The states go
+    to --out/<task>_k2_states.pt (`--drift` reads them)."""
+    from chip_smoke import state_dict
+    from mppiisaac_tpu_torch.ops.fused_rollout import world_step_plain
+
+    fw, b = world._world_step, world.built
+    ks = fw.ks
+    A, D, NS, K, H = ks.nactor, ks.ndof, ks.n_state_rows, cfg.mppi.num_samples, cfg.mppi.horizon
+    states = []
+    for i in range(args.steps):
+        if i % args.k2_holds == 0:
+            states.append((f"step {args.warmup + i}", world.state.map(lambda x: x[0].clone())))
+        step()
+    os.makedirs(args.out, exist_ok=True)
+    torch.save({name: state_dict(s0) for name, s0 in states},
+               os.path.join(args.out, f"{args.task}_k2_states.pt"))
+    ones_b, ones_g = torch.ones(ks.nbody, device="cuda"), torch.ones(ks.ngeom, device="cuda")
+    tgts, r = [], []
+    for _, s0 in states:
+        g = torch.Generator().manual_seed(0)
+        hold_draw(args.task, cfg, g, (K, H, ks.nu))
+        tgts.append(hold_targets(args.task, cfg, b, s0, g, 5))
+        rows = fw.pack(s0).contiguous()
+        for tgt in tgts[-1]:
+            rows = fw.step_rows(rows, tgt.contiguous(), ones_b, ones_g)
+        r.append(rows)
+    N = len(states)
+    rp = {dt: torch.stack([fw.pack(s0) for _, s0 in states], 1).to(dt)
+          for dt in (torch.float32, torch.float64)}
+    for i in range(5):
+        tgt = torch.stack([t[i] for t in tgts])
+        for dt in rp:
+            rp[dt] = world_step_plain(ks, rp[dt], tgt.to(dt), ones_b.to(dt).expand(N, -1),
+                                      ones_g.to(dt).expand(N, -1), fw.substeps, fw.dt_sub,
+                                      fw.impulse_sweeps)
+
+    def groups(d):
+        root = d[: 13 * A].reshape(A, 13)
+        q = d[13 * A: 13 * A + D].max().item() if D else 0.0
+        return (max(root[:, :7].max().item(), q),
+                max(root[:, 7:].max().item(), d[13 * A + D: NS].max().item()),
+                d[NS:].max().item() if ks.n_fc else 0.0)
+
+    print(f"K2 over 5 world steps from {N} states of the {args.task} loop "
+          f"(pose, vel, lam): kernel vs plain float32 | plain float32 vs float64")
+    for j, (name, _) in enumerate(states):
+        p32 = rp[torch.float32][:, j].double()
+        dk = groups((r[j].double() - p32).abs())
+        dd = groups((p32 - rp[torch.float64][:, j]).abs())
+        print(f"  {name:9s} " + " ".join(f"{x:.3e}" for x in dk) + " | "
+              + " ".join(f"{x:.3e}" for x in dd), flush=True)
+
+
 def drift(task, path):
     """float32 against float64 of the plain K1 and K2 from the saved states."""
     from mppiisaac_tpu_torch.ops.fused_rollout import (
@@ -108,18 +215,10 @@ def drift(task, path):
     ks = fw.ks
     A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
     pm = ModelParams(torch.ones(K, b.scene.nbody), torch.ones(K, b.scene.ngeom))
-    # the inputs of chip_smoke.py's holds (the same generator draws): boxer_push
-    # uniform in ±1 on all samples, the later tasks hold_controls, the arm
-    # tasks' on the first PLAIN_K1_SAMPLES
-    held = task != "boxer_push"
-
-    def controls(g, shape):
-        return hold_controls(task, cfg, g, shape) if held else torch.rand(shape, generator=g) * 2.0 - 1.0
-
     for name, fields in torch.load(path).items():
         s0 = SimState(**fields)
         g = torch.Generator().manual_seed(0)
-        V = controls(g, (K, H, fr.nu))
+        V = hold_draw(task, cfg, g, (K, H, fr.nu))
         rows, Vb, mass, fric = fr.pack(broadcast_state(s0, K), pm, V)
         if task in SAMPLED:
             rows, Vb, mass, fric = (x[..., :PLAIN_K1_SAMPLES].contiguous()
@@ -140,9 +239,7 @@ def drift(task, path):
             continue
         r = {dt: fw.pack(s0).to(dt) for dt in (torch.float32, torch.float64)}
         ones_b, ones_g = torch.ones(ks.nbody), torch.ones(ks.ngeom)
-        for _ in range(5):
-            u = controls(g, (fr.nu,))
-            tgt = b.cmd_map.apply(u[None], s0.q[None])[0]
+        for tgt in hold_targets(task, cfg, b, s0, g, 5):
             for dt in r:
                 r[dt] = world_step_plain(ks, r[dt], tgt.to(dt), ones_b.to(dt), ones_g.to(dt),
                                          fw.substeps, fw.dt_sub, fw.impulse_sweeps)
@@ -155,6 +252,60 @@ def drift(task, path):
               f"{dd[NS:].max().item() if ks.n_fc else 0.0:.3e}", flush=True)
 
 
+# csrc/scene_tables.cuh SEC_*; the velocity solves are "free bodies and
+# integration" and the five "solves: ..." parts
+SECTIONS = ("fk", "contacts", "free bodies and integration", "impulse inverse masses",
+            "warm start", "sweeps", "snap", "command map and cost", "solves: tree and RNEA",
+            "solves: CRBA and drives", "solves: couple terms", "solves: Cholesky", "solves: psi")
+SOLVES = (2, 8, 9, 10, 11, 12)
+
+
+def sections(args, planner, world, step):
+    """The clock64() split of K1 and K2 on one control step's inputs, and K1
+    at one warp per block."""
+    import ctypes
+
+    from mppiisaac_tpu_torch.ops import native
+
+    fr, fw = planner.mppi.fused, world._world_step
+    seen = {}
+    run1, run2 = fr.run, fw.step_rows
+    fr.run = lambda *a: seen.setdefault("k1", a) and run1(*a)
+    fw.step_rows = lambda *a: seen.setdefault("k2", a) and run2(*a)
+    step()
+    fr.run, fw.step_rows = run1, run2
+    lib = native.load_library()
+    out = (ctypes.c_ulonglong * (2 * len(SECTIONS)))()
+    for kid, (name, fn, n_samples) in enumerate((
+            ("K1", lambda: fr.run(*seen["k1"]), fr.K), ("K2", lambda: fw.step_rows(*seen["k2"]), 1))):
+        fn()
+        torch.cuda.synchronize()
+        lib.read_sections(ctypes.cast(out, ctypes.c_void_p))
+        for _ in range(args.steps):
+            fn()
+        lib.read_sections(ctypes.cast(out, ctypes.c_void_p))
+        cyc = np.array(out[kid * len(SECTIONS):(kid + 1) * len(SECTIONS)], np.float64)
+        per = cyc / (args.steps * n_samples)
+        print(f"{name} sections ({args.task}, {args.steps} launches, cycles per sample and launch; "
+              f"total {per.sum():.0f}):")
+        for sec, c in zip(SECTIONS, per):
+            print(f"  {sec:30s} {c:14.0f}  {c / max(per.sum(), 1):.4f}")
+        sv = per[list(SOLVES)].sum()
+        print(f"  {'velocity solves (all)':30s} {sv:14.0f}  {sv / max(per.sum(), 1):.4f}")
+    from chip_smoke import cuda_time_ms
+
+    k1 = cuda_time_ms(lambda: fr.run(*seen["k1"]))
+    k2 = cuda_time_ms(lambda: fw.step_rows(*seen["k2"]))
+    lib.set_rollout_threads(32)
+    k1_32 = cuda_time_ms(lambda: fr.run(*seen["k1"]))
+    lib.set_rollout_threads(0)
+    print(f"K1 (section build, K={fr.K}): {k1:.3f} ms at the default block size, {k1_32:.3f} ms "
+          f"at 32 threads per block; K2 {k2:.3f} ms")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip())
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=sorted({*OBJECTIVES, *POINT_PATHS, "box_pair"}),
@@ -163,6 +314,10 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--drift", metavar="STATES", help="measure float32 drift on the CPU instead")
+    ap.add_argument("--sections", action="store_true",
+                    help="the kernels' per-section cycle split instead of the profile")
+    ap.add_argument("--k2-holds", type=int, metavar="EVERY",
+                    help="K2 against plain float32 and float64 from every EVERY-th state")
     args = ap.parse_args()
     if args.drift:
         drift(args.task, args.drift)
@@ -172,6 +327,14 @@ def main():
     if args.task == "box_pair":
         raise SystemExit("box_pair has no conf loop to profile (--drift only)")
     dev = torch.device("cuda")
+    if args.sections:
+        from mppiisaac_tpu_torch.ops import native
+
+        native.VARIANT = "sections"
+        _, _, ptxas = native.build()
+        for line in ptxas.splitlines():
+            if "registers" in line or "bytes stack frame" in line or "Compiling entry" in line:
+                print("ptxas:", line.strip())
     cfg, obj = setup(args.task)
     world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device=dev)
     if getattr(cfg, "goal", None) is not None and "goal" in world.scene.actor_names:
@@ -189,6 +352,12 @@ def main():
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
+    if args.sections:
+        sections(args, planner, world, step)
+        return
+    if args.k2_holds:
+        k2_holds(args, cfg, world, step)
+        return
     plan, act, wstep, total = [], [], [], []
     for _ in range(args.steps):
         t0 = time.perf_counter()

@@ -97,10 +97,11 @@ def sliding_spheres(jb, je):
     return je.refresh(js._replace(root_linvel=js.root_linvel.at[b].set(jnp.array([0.0, 0.4, 0.0]))))
 
 
-def world_steps(jb, je, tb, te, js, n, u_of):
-    """n world steps of both packages from the same JAX state; yields the
-    pair of states after each."""
-    jw, tw = JWorld(jb, je, interpret=True), FusedWorldStep(tb, te)
+def world_steps(jb, je, tb, te, js, n, u_of, jw=None):
+    """n world steps of both packages from the same JAX state (the JAX
+    package's through `jw`, by default its FusedWorldStep in interpret
+    mode); yields the pair of states after each."""
+    jw, tw = jw or JWorld(jb, je, interpret=True), FusedWorldStep(tb, te)
     jp = je.default_params()
     ts, tp = sim_state_from_jax(js), model_params_from_jax(jp)
     for i in range(n):
