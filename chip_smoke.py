@@ -97,6 +97,32 @@ Phases (any failure exits non-zero before the result line):
      the bb candidates' λ rows live; K1 and K2 against their plain versions
      from the sliding state (BOX_BOUNDS). The states of phases 13-17 go to
      chiprun_out/<path>_states.pt;
+ 17a. the planner's direct API: point_robot (K=100, H=20) to within 0.1 m of
+     its goal in its conf's 100 steps through `compute_action(q, qdot)`
+     alone (the benchmark runner's path); then `update_weights` changes the
+     next action from the same carry and state through the same
+     FusedRollout (its identity and its launches checked),
+     `update_mppi_params({"horizon": 10})` rebuilds it, and after
+     `add_to_env` with one sphere the planner still plans finite actions;
+ 17b. the two-process examples on one card: the point_robot planner example
+     (`python -m mppiisaac_tpu_torch.examples.point_robot.planner`) serves
+     from a subprocess on a free port, its world example runs here to the
+     goal within the conf's steps, and the first action over RPC equals the
+     in-process `compute_action_tensor` from the same state and seed, bit
+     for bit; then panda_pick for RPC_PICK_STEPS steps over RPC (no success
+     bar: only dof and root states travel, not the λ rows, as in the JAX
+     package) beside the same steps in process, through `run_task` and
+     through `compute_action_tensor` (the RPC entry's own work without a
+     second process), printing the three median control steps. K1's launches are the planner process's own count, which
+     it prints when stopped; every subprocess is stopped whatever happens,
+     and its failure fails the run;
+ 17c. seeded episodes on one build (`run_task_episodes`): pick over seeds 0-2
+     within EPISODE_PICK_STEPS steps (fails unless one succeeds; the JAX
+     package's rate is 10/10), multi_jackal over seeds 0-2 within its conf's
+     200 steps (prints the rate; fails only on a non-finite state), and pick
+     at seed 0 twice on one build: identical world states after
+     DETERMINISM_STEPS steps. Phases 17a-17c check the launch counters of
+     every loop and print their seconds;
  18. time K1 and K2 on the reach, pick, boxer_push, panda_stick_push,
      omni_panda_pick, multi_jackal, albert, anymal, fast-pick and box-pair
      paths against their plain versions (CUDA events). To keep the run
@@ -1443,6 +1469,294 @@ def box_pair_path(dev, root):
                       plain=(e1["plain_ms"], k2_plain))
 
 
+EPISODE_SEEDS = (0, 1, 2)
+EPISODE_PICK_STEPS = 600
+RPC_PICK_STEPS = 30
+DETERMINISM_STEPS = 20
+API_SPHERE = {"type": "sphere", "name": "api_obstacle", "size": [0.2],
+              "init_pos": [1.0, 0.2, 0.2], "mass": 1.0, "fixed": True}
+
+
+def reset_counts():
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+
+    FusedRollout.launches = 0
+    FusedWorldStep.launches = 0
+
+
+def read_counts():
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+
+    torch.cuda.synchronize()
+    return FusedRollout.launches, FusedWorldStep.launches
+
+
+def api_path(dev):
+    """Phase 17a: point_robot to its goal through the direct call
+    `compute_action(q, qdot)` alone (the benchmark runner's path); then
+    update_weights changes the next action through the same FusedRollout,
+    update_mppi_params({"horizon": ...}) rebuilds it, and after add_to_env
+    with one sphere the planner still plans finite actions."""
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import goal_world
+    from mppiisaac_tpu_torch.tasks import point_robot
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    cfg = load_config("tasks/point_robot")
+    obj = point_robot.PointRobotObjective(cfg)
+    planner = MPPIisaacPlanner(cfg, obj, device=dev)
+    world = goal_world(cfg, dev)
+    success = point_robot.success_fn(obj.nav_goal)
+    reset_counts()
+    step, done = 0, False
+    while step < cfg.n_steps and not done:
+        ds = world.dof_state[0].cpu().numpy()
+        a = planner.compute_action(ds[:, 0], ds[:, 1])
+        world.apply_robot_cmd(a)
+        world.step()
+        step += 1
+        done = success(world)
+    n1, n2 = read_counts()
+    finite = all(bool(torch.isfinite(t).all()) for t in world.state.tensors())
+    print(f"[17a] point_robot through compute_action(q, qdot) alone, K={cfg.mppi.num_samples} "
+          f"H={cfg.mppi.horizon}: {'success at step ' + str(step - 1) if done else 'no success'} "
+          f"(run_task: 41), {step} steps (conf {cfg.n_steps}), finite {finite}; launches K1 {n1}, "
+          f"K2 {n2}", flush=True)
+    if not done:
+        fail("point_robot did not reach its goal through compute_action within the conf's steps")
+    if not finite:
+        fail("non-finite world state")
+    if n1 != step or n2 != step:
+        fail("launch counters do not match the commands and world steps run")
+
+    # the same carry and state, other weights: another action, the same rollout
+    ds = world.dof_state[0].cpu().numpy()
+    fr, carry = planner.mppi.fused, planner.mppi.carry
+    reset_counts()
+    a_before = planner.compute_action(ds[:, 0], ds[:, 1])
+    planner.mppi.carry = carry
+    planner.update_weights({"nav": 0.0, "obstacle": 0.1, "coll": 0.0})
+    a_after = planner.compute_action(ds[:, 0], ds[:, 1])
+    n1, _ = read_counts()
+    print(f"    update_weights(nav 1 -> 0): action {np.round(a_before, 4).tolist()} -> "
+          f"{np.round(a_after, 4).tolist()}, same FusedRollout {planner.mppi.fused is fr}, "
+          f"K1 launches {n1} for 2 commands", flush=True)
+    if planner.mppi.fused is not fr or n1 != 2:
+        fail("update_weights built a new FusedRollout or did not launch it")
+    if np.array_equal(a_before, a_after):
+        fail("update_weights did not change the next action")
+    planner.update_mppi_params({"horizon": 10})
+    reset_counts()
+    a = planner.compute_action(ds[:, 0], ds[:, 1])
+    n1, _ = read_counts()
+    print(f"    update_mppi_params(horizon 10): new FusedRollout {planner.mppi.fused is not fr}, "
+          f"H {planner.mppi.fused.H}, U {tuple(planner.mppi.carry.U.shape)}, finite "
+          f"{bool(np.isfinite(a).all())}, K1 launches {n1}", flush=True)
+    if planner.mppi.fused is fr or planner.mppi.fused.H != 10 or n1 != 1 or not np.isfinite(a).all():
+        fail("update_mppi_params did not rebuild the rollout at the new horizon")
+    planner.add_to_env([dict(API_SPHERE)])
+    reset_counts()
+    acts = [planner.compute_action(ds[:, 0], ds[:, 1]) for _ in range(3)]
+    n1, _ = read_counts()
+    print(f"    add_to_env(one sphere): {planner.mppi.fused.ks.nactor} actors in the rollout, "
+          f"3 actions finite {all(np.isfinite(x).all() for x in acts)}, K1 launches {n1}; "
+          f"phase 17a {time.perf_counter() - t0:.1f} s", flush=True)
+    if planner.mppi.fused.ks.nactor != 2 or n1 != 3 or not all(np.isfinite(x).all() for x in acts):
+        fail("the planner does not plan over the scene after add_to_env")
+
+
+def remote_launches(proc, module):
+    """Stop a planner example process; → its K1 launches, or fail."""
+    from planner_process import stop_planner
+
+    rc = stop_planner(proc)
+    log = "".join(proc.log)
+    lines = [ln for ln in proc.log if ln.startswith("planner stopped: ")]
+    if rc != 0 or not lines:
+        fail(f"{module} ended with rc {rc}:\n{log[-3000:]}")
+    return int(lines[-1].rsplit(" ", 1)[1])
+
+
+def rpc_path(dev, root):
+    """Phase 17b: the two-process examples on one card. The point_robot
+    planner example serves on a free port from a subprocess, and its world
+    example runs here to the goal; its first action over RPC equals the
+    in-process compute_action_tensor from the same state and seed, bit for
+    bit. Then panda_pick for RPC_PICK_STEPS steps over RPC beside the same
+    steps in process, through run_task and through compute_action_tensor
+    (no success bar: the λ rows do not travel, as in the JAX package).
+    Each subprocess is stopped whatever happens."""
+    from planner_process import launch_planner, stop_planner
+    from mppiisaac_tpu_torch.examples.panda_pick import world as pick_world
+    from mppiisaac_tpu_torch.examples.point_robot import world as pr_world
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import goal_world, run_task
+    from mppiisaac_tpu_torch.runtime.transport import bytes_to_torch, torch_to_bytes
+    from mppiisaac_tpu_torch.tasks import panda_pick, point_robot
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    runs = {}
+    for key, module, world_mod in (
+            ("point_robot", "mppiisaac_tpu_torch.examples.point_robot.planner", pr_world),
+            ("panda_pick", "mppiisaac_tpu_torch.examples.panda_pick.planner", pick_world)):
+        t1 = time.perf_counter()
+        try:
+            proc, endpoint = launch_planner(module, [f"device={dev.type}",
+                                                     "endpoint=tcp://127.0.0.1:0"],
+                                            timeout=300, cwd=root)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"{module} did not start: {e}")
+        up_s = time.perf_counter() - t1
+        actions = []
+        try:
+            reset_counts()
+            args = [f"device={dev.type}", f"endpoint={endpoint}"]
+            if key == "panda_pick":
+                args.append(f"n_steps={RPC_PICK_STEPS}")
+            m = world_mod.run(args, device=dev.type, verbose=False,
+                              observer=lambda step, w, a: actions.append(a.clone()))
+            _, n2 = read_counts()
+            alive = proc.poll() is None
+        finally:
+            if proc.poll() is None:
+                n1 = remote_launches(proc, module)
+            else:
+                stop_planner(proc)
+                fail(f"{module} died:\n{''.join(proc.log)[-3000:]}")
+        if not alive:
+            fail(f"{module} died during the run")
+        runs[key] = (m, n1, n2, actions, up_s)
+        print(f"[17b] {key} over RPC ({module} on {endpoint}, up in {up_s:.1f} s): "
+              f"success_step {m.success_step}, {m.steps} steps, median step {1e3 / float(np.median(m.fps)):.3f} ms "
+              f"(RPC round trip {np.median(m.solver_time) * 1e3:.3f} ms), finite "
+              f"{m.final_state_finite}; launches K1 {n1} (planner process), K2 {n2}", flush=True)
+        if not m.final_state_finite:
+            fail("non-finite world state")
+        if n1 != m.steps or n2 != m.steps or n1 == 0:
+            fail("launch counters do not match the commands and world steps run")
+
+    m = runs["point_robot"][0]
+    if m.success_step is None:
+        fail("point_robot over RPC did not reach its goal within the conf's steps")
+    cfg = load_config("tasks/point_robot")
+    world = goal_world(cfg, dev)
+    planner = MPPIisaacPlanner(cfg, point_robot.PointRobotObjective(cfg), device=dev)
+    direct = bytes_to_torch(planner.compute_action_tensor(
+        torch_to_bytes(world.dof_state[0]), torch_to_bytes(world.root_state[0])))
+    first = runs["point_robot"][3][0].cpu()
+    same = bool(torch.equal(first, direct))
+    print(f"    first RPC action {first.tolist()} vs in-process compute_action_tensor "
+          f"{direct.tolist()}: bit for bit {same}", flush=True)
+    if not same:
+        fail("the first RPC action differs from the in-process action")
+
+    # pick in process, twice: run_task (the world state broadcast K-wide),
+    # and the RPC entry's own work without the second process (state bytes
+    # in, the refresh of their body caches, action bytes out)
+    pcfg = load_config("tasks/panda_pick")
+    reset_counts()
+    pm = run_task(pcfg, panda_pick.PandaPickObjective(pcfg), n_steps=RPC_PICK_STEPS, device=dev)
+    n1, n2 = read_counts()
+    world = goal_world(pcfg, dev)
+    planner = MPPIisaacPlanner(pcfg, panda_pick.PandaPickObjective(pcfg), device=dev)
+    reset_counts()
+    bytes_ms, split = [], []     # the step; (state in, command, world step)
+    for _ in range(RPC_PICK_STEPS):
+        t1 = time.perf_counter()
+        planner.objective.reset()
+        planner.reset_rollout_sim(torch_to_bytes(world.dof_state[0]),
+                                  torch_to_bytes(world.root_state[0]))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        a = bytes_to_torch(planner.command(), dev)
+        t3 = time.perf_counter()
+        world.apply_robot_cmd(a)
+        world.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        bytes_ms.append((t4 - t1) * 1e3)
+        split.append(((t2 - t1) * 1e3, (t3 - t2) * 1e3, (t4 - t3) * 1e3))
+    b1, b2 = read_counts()
+    split = np.median(np.array(split), axis=0)
+    rm = runs["panda_pick"][0]
+    rpc_ms, local_ms = 1e3 / float(np.median(rm.fps)), 1e3 / float(np.median(pm.fps))
+    print(f"    panda_pick {RPC_PICK_STEPS} steps, median control step: over RPC {rpc_ms:.3f} ms, in "
+          f"process {local_ms:.3f} ms (launches K1 {n1}, K2 {n2}), in process through "
+          f"compute_action_tensor {float(np.median(bytes_ms)):.3f} ms (state in "
+          f"{split[0]:.3f}, command {split[1]:.3f}, world step {split[2]:.3f}; launches K1 {b1}, "
+          f"K2 {b2}): "
+          f"RPC overhead {rpc_ms - local_ms:.3f} ms; phase 17b {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if {n1, n2, b1, b2} != {RPC_PICK_STEPS}:
+        fail("launch counters do not match the commands and world steps run")
+
+
+def episode_paths(dev):
+    """Phase 17c: seeded episodes on one build (`run_task_episodes`): pick
+    over EPISODE_SEEDS within EPISODE_PICK_STEPS (fails if no seed succeeds:
+    the JAX package's rate is 10/10), multi_jackal within its conf's 200
+    steps (prints the rate, fails on nothing but a non-finite state), and
+    seed 0 twice on one pick build: identical world states after
+    DETERMINISM_STEPS steps."""
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS
+    from mppiisaac_tpu_torch.runtime.loop import run_task_episodes
+    from mppiisaac_tpu_torch.tasks import multi_robot, panda_pick
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    for key in ("panda_pick", "multi_jackal"):
+        t1 = time.perf_counter()
+        cfg = load_config(f"tasks/{key}")
+        if key == "panda_pick":
+            obj, n = panda_pick.PandaPickObjective(cfg), EPISODE_PICK_STEPS
+            succ, jax_rate = panda_pick.success_fn(), "10/10 (steps 126-224, RESULTS_r5.json)"
+        else:
+            obj, n = multi_robot.MultiJackalObjective(cfg), cfg.n_steps
+            succ, jax_rate = multi_robot.success_fn(key, obj), "suite seed: step 147"
+        reset_counts()
+        rs = run_task_episodes(cfg, obj, list(EPISODE_SEEDS), n_steps=n, success_fn=succ, device=dev)
+        n1, n2 = read_counts()
+        steps = sum(m.steps for m in rs.values())
+        ok = {s: m.success_step for s, m in rs.items()}
+        rate = sum(v is not None for v in ok.values())
+        print(f"[17c] run_task_episodes {key} seeds {list(EPISODE_SEEDS)} within {n} steps: "
+              f"{rate}/{len(rs)} (success steps {ok}; the JAX package: {jax_rate}), median control "
+              f"step {1e3 / float(np.median([f for m in rs.values() for f in m.fps])):.3f} ms; "
+              f"launches K1 {n1}, K2 {n2} ({steps} steps); {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        if not all(m.final_state_finite for m in rs.values()):
+            fail("non-finite world state")
+        if n1 != steps or n2 != steps:
+            fail("launch counters do not match the commands and world steps run")
+        if key == "panda_pick" and rate == 0:
+            fail("no pick episode brought the block within 0.2 m of the goal")
+
+    cfg = load_config("tasks/panda_pick")
+    states = []
+
+    def record(world):
+        states.append(world.state)
+        return False
+
+    reset_counts()
+    run_task_episodes(cfg, panda_pick.PandaPickObjective(cfg), [0, "0"],
+                      n_steps=DETERMINISM_STEPS, success_fn=record, device=dev)
+    n1, n2 = read_counts()
+    a, b = states[DETERMINISM_STEPS - 1], states[2 * DETERMINISM_STEPS - 1]
+    diff = {f: (getattr(a, f).double() - getattr(b, f).double()).abs().max().item()
+            for f in SIM_STATE_FIELDS if getattr(a, f) is not None}
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in diff)
+    print(f"    pick seed 0 twice on one build: world states after {DETERMINISM_STEPS} steps "
+          f"identical {same} (max |d| {max(diff.values()):.3e}); launches K1 {n1}, K2 {n2}; "
+          f"phase 17c {time.perf_counter() - t0:.1f} s", flush=True)
+    if not same:
+        fail("seed 0 twice on one build gave different world states")
+    if n1 != 2 * DETERMINISM_STEPS or n2 != 2 * DETERMINISM_STEPS:
+        fail("launch counters do not match the commands and world steps run")
+
+
 def geometry_table():
     """Phase 1's launch geometry of K1 and K2 at each timed path's conf."""
     import ctypes
@@ -1508,6 +1822,9 @@ def main():
     records.append(anymal_path(dev, root))
     records.append(fast_pick_path(dev, root, pick))
     records.append(box_pair_path(dev, root))
+    api_path(dev)
+    rpc_path(dev, root)
+    episode_paths(dev)
 
     # ---- 18. timing, and each kernel's bound on the timed inputs ----
     t0 = time.perf_counter()

@@ -81,11 +81,21 @@ class MPPIPlanner:
             w = min(H if H % 2 == 1 else H - 1, 9)
             if w >= 5:
                 self._sg = f32(savgol_coeffs(w, 2))
+        self.refresh_constants()
+        self.carry = self.init_carry()
+        self.last_info: dict = {}
+
+    def refresh_constants(self):
+        """Re-read the bounds, the initial control and the noise mean from
+        the config (after an online change of them)."""
+        c = self.cfg
+
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
         self._u_min, self._u_max = f32(c.u_min), f32(c.u_max)
         self._u_init = f32(c.u_init)
         self._noise_mu = f32(c.noise_mu)
-        self.carry = self.init_carry()
-        self.last_info: dict = {}
 
     # ------------------------------------------------------------------
     def init_carry(self) -> MppiCarry:

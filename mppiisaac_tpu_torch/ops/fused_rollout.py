@@ -28,6 +28,7 @@ over the card's SMs and fit beside the tables in 227 KB.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -400,6 +401,14 @@ class _Tables:
             self._dev[device] = t
         return t
 
+    def repack(self, ks: KernelScene, vis_body: int):
+        """Pack the tables anew (same scene, other constants) and copy the
+        bytes into each device's buffer in place, in stream order."""
+        self._bytes = pack_tables(ks, vis_body)
+        src = torch.frombuffer(bytearray(self._bytes), dtype=torch.uint8)
+        for t in self._dev.values():
+            t.copy_(src)
+
 
 def _require_cuda(device: torch.device):
     if device.type != "cuda":
@@ -502,6 +511,17 @@ class FusedRollout:
         self._tables = _Tables(self.ks, self.vis_body)
         self.warp_bytes = region_bytes(self.ks)
         self._warps: Dict[int, int] = {}  # device index → warps per block
+
+    def set_cost(self, cost: CostSpec):
+        """Take another cost for the same scene (new weights, goal or
+        objective): re-pack the cost constants into the scene tables and
+        copy them to the device, with no new build. The cost indexes this
+        scene's actors, bodies and dofs: a changed scene needs a new
+        FusedRollout, with the cost from `kernel_cost(new_built)`."""
+        if cost is None or cost.task not in TASKS:
+            raise NotImplementedError(f"no CUDA cost for task spec {cost}")
+        self.ks = dataclasses.replace(self.ks, cost=cost)
+        self._tables.repack(self.ks, self.vis_body)
 
     def warps(self, device: torch.device) -> int:
         """Warps (samples) per block of the launches on a CUDA device."""

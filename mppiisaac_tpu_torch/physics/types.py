@@ -76,6 +76,9 @@ class SimState:
             [self.body_pos, self.body_quat, self.body_linvel, self.body_angvel], dim=-1
         )
 
+    def with_dof_state(self, dof_state: torch.Tensor) -> "SimState":
+        return self.replace(q=dof_state[..., 0], qd=dof_state[..., 1])
+
     def with_root_state(self, root_state: torch.Tensor) -> "SimState":
         return self.replace(
             root_pos=root_state[..., 0:3],

@@ -17,6 +17,27 @@ class SimView:
         self.scene = built.scene
         self.state = state
 
+    # raw tensors (reference layout)
+    @property
+    def root_state(self) -> torch.Tensor:           # (K,A,13)
+        return self.state.root_state
+
+    @property
+    def dof_state(self) -> torch.Tensor:            # (K,D,2)
+        return self.state.dof_state
+
+    @property
+    def rigid_body_state(self) -> torch.Tensor:     # (K,B,13)
+        return self.state.rigid_body_state
+
+    @property
+    def net_cf(self) -> torch.Tensor:               # (K,B,3)
+        return self.state.net_contact_force
+
+    @property
+    def num_bodies(self) -> int:
+        return self.scene.nbody
+
     def _ai(self, name: str) -> int:
         return self.scene.actor_index(name)
 
@@ -28,6 +49,14 @@ class SimView:
 
     def actor_linvel(self, name: str) -> torch.Tensor:         # (K,3)
         return self.state.root_linvel[..., self._ai(name), :]
+
+    def actor_angvel(self, name: str) -> torch.Tensor:        # (K,3)
+        return self.state.root_angvel[..., self._ai(name), :]
+
+    # reference-style aliases
+    get_actor_position_by_name = actor_position
+    get_actor_orientation_by_name = actor_orientation
+    get_actor_velocity_by_name = actor_linvel
 
     def actor_q(self, name: str) -> torch.Tensor:              # (K,ndof of the actor)
         return self.state.q[..., self.scene.actor_dof_slice(name)]
@@ -43,9 +72,24 @@ class SimView:
     def link_position(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
         return self.state.body_pos[..., self.scene.body_index(link, actor), :]
 
+    def link_orientation(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
+        return self.state.body_quat[..., self.scene.body_index(link, actor), :]
+
+    def link_velocity(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
+        return self.state.body_linvel[..., self.scene.body_index(link, actor), :]
+
     def link_state(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
         """(K,13) rigid-body state of a link (pose + velocities)."""
         return self.state.rigid_body_state[..., self.scene.body_index(link, actor), :]
+
+    def get_actor_link_by_name(self, actor: str, link: str) -> torch.Tensor:
+        """The reference's argument order: (actor, link) → (K,13)."""
+        return self.link_state(link, actor)
+
+    def get_dof_state(self) -> torch.Tensor:
+        """(K, 2·D) interleaved flat dof state."""
+        ds = self.state.dof_state
+        return ds.reshape(ds.shape[:-2] + (-1,))
 
     def link_contact_force(self, link: str, actor: Optional[str] = None) -> torch.Tensor:
         """(K,3) net contact force on a link."""
@@ -60,3 +104,12 @@ class SimView:
         except KeyError:
             pass
         return self.state.net_contact_force[..., self.scene.body_offset[self._ai(actor_name)], :]
+
+    # robot shorthand (single-robot scenes)
+    @property
+    def robot_name(self) -> str:
+        return self.built.robot_names[0]
+
+    def ee_position(self) -> torch.Tensor:
+        """(K,3) position of the first visualize link."""
+        return self.state.body_pos[..., self.built.visualize_bodies[0], :]
