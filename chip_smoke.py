@@ -67,9 +67,11 @@ Phases (any failure exits non-zero before the result line):
      their plain versions from the initial state and the loop's last state
      (OMNI_BOUNDS). The states of phases 10-12 go to
      chiprun_out/<task>_states.pt;
- 13. multi_jackal (K=300, H=12, two mesh-fitted floating jackals) until both
-     are within 0.25 m of their goals, within 400 steps (twice the conf's:
-     see MESH_LOOPS); 14. albert (K=500,
+ 13. multi_jackal (K=300, H=12, two mesh-fitted floating jackals) at the
+     conf's seed for 400 steps (twice the conf's: see MESH_LOOPS), then
+     seeds 0-4 within 400 steps per step, of which JACKAL_MIN_RATE must
+     bring both jackals within 0.25 m of their goals (jackal_rate); 14.
+     albert (K=500,
      H=8, a mesh-fitted diff-drive base with a 7-dof arm: TASK_ALBERT) until
      its end effector is within 0.15 m of the goal, within 500 steps; each
      with the launch counters checked, then K1 and K2 against their plain
@@ -123,6 +125,21 @@ Phases (any failure exits non-zero before the result line):
      at seed 0 twice on one build: identical world states after
      DETERMINISM_STEPS steps. Phases 17a-17c check the launch counters of
      every loop and print their seconds;
+ 17d. the chunked loop (`device_steps`: one control step captured as a CUDA
+     graph and replayed): pick at its shipped config, seed 0, for
+     CHUNK_EQUAL_STEPS steps at device_steps=CHUNK_STEPS and at 1 on one
+     build, world states and actions bit for bit (prints the largest |d|
+     per field and the graph's nodes per control step); then panda reach,
+     boxer_push, albert, multi_jackal, anymal (with its tape) and pick
+     through `run_task(device_steps=CHUNK_STEPS)`, each to the goal or the
+     step count of its earlier phase and ending at that phase's success step
+     (multi_jackal also over phase 13's seeds, each at its success step),
+     with the launch counters and the tape injections through the replays,
+     printing the median control step beside the per-step loop's of the
+     earlier phase; then the device's
+     idle share over TRACE_STEPS steady steps of panda and pick, per step
+     and chunked (torch.profiler; traces in profile_out/). Phase 17c's
+     episodes run at device_steps=CHUNK_STEPS;
  18. time K1 and K2 on the reach, pick, boxer_push, panda_stick_push,
      omni_panda_pick, multi_jackal, albert, anymal, fast-pick and box-pair
      paths against their plain versions (CUDA events). To keep the run
@@ -315,6 +332,7 @@ HOLD_AMP = {"panda_effort": 0.3, "panda_stick_push": 1.0, "omni_panda_pick": 0.3
             "multi_jackal": 1.0, "albert": 1.0, "anymal": 0.5, "panda_pick_fast": 1.0,
             "box_pair": 1.0}
 FAST_OVERRIDES = ["mppi.rollout_fidelity=fast", "mppi.rollout_manifold=reduced"]
+PER_STEP = {}           # the per-step loops' (median control step ms, success step), by conf (phase 17d)
 MOTION_STEP = 40        # phases 13-14: the hold state in motion, after this many steps
 ANYMAL_STEPS = 200
 LANDED_STEP = 15        # anymal drops from 1.2 m and lands near step 5 (dt 0.1)
@@ -704,6 +722,7 @@ def earlier_paths(dev, root):
         fail("panda did not reach its goal within the conf's steps")
     if not m.final_state_finite:
         fail("non-finite world state")
+    PER_STEP["panda"] = (1e3 / float(np.median(m.fps)), m.success_step)
     print(f"[4] launches in the loop: K1 {n_k1} (commands {m.steps}), K2 {n_k2} (world steps {m.steps})")
     if n_k1 != m.steps or n_k2 != m.steps or n_k1 == 0:
         fail("launch counters do not match the commands and world steps run")
@@ -734,6 +753,7 @@ def earlier_paths(dev, root):
         fail(f"panda_pick did not bring the block within 0.2 m of the goal in {PICK_MAX_STEPS} steps")
     if not pm.final_state_finite:
         fail("non-finite world state")
+    PER_STEP["panda_pick"] = (1e3 / float(np.median(pm.fps)), pm.success_step)
     print(f"    launches in the loop: K1 {p_k1} (commands {pm.steps}), K2 {p_k2} (world steps {pm.steps})")
     if p_k1 != pm.steps or p_k2 != pm.steps or p_k1 == 0:
         fail("launch counters do not match the commands and world steps run")
@@ -824,6 +844,7 @@ def earlier_paths(dev, root):
         if n1 != mm.steps or n2 != mm.steps or n1 == 0:
             fail("launch counters do not match the commands and world steps run")
         mobile[task] = dict(m=mm, n1=n1, n2=n2)
+        PER_STEP[task] = (1e3 / float(np.median(mm.fps)), mm.success_step)
         if task == "boxer_push":
             touch = seen.get("touch", seen["last"])
             print(f"    boxer touches the block at step {seen.get('touch_step')}", flush=True)
@@ -1208,10 +1229,9 @@ def held_path(key, cfg, obj, dev, root, named, bounds, n1, n2):
 
 
 # phases 13-14: (phase, the JAX package's success step, the loop's steps).
-# multi_jackal runs twice its conf's 200 steps: the port's loop reaches both
-# goals at step 276 with the conf seed (239 with seed 0, none in 400 with
-# seed 1), where the JAX package's reached them at 147; albert runs its
-# conf's 500
+# multi_jackal runs twice its conf's 200 steps and is held to a rate over
+# JACKAL_SEEDS (jackal_rate), where the JAX package's one episode reached
+# both goals at 147; albert runs its conf's 500
 MESH_LOOPS = {"multi_jackal": (13, "147", 400), "albert": (14, "372", 500)}
 
 
@@ -1239,6 +1259,49 @@ def counted_loop(label, cfg, obj, dev, prior=None, **kw):
     if n1 != m.steps or n2 != m.steps or n1 == 0:
         fail("launch counters do not match the commands and world steps run")
     return m, n1, n2, tapes
+
+
+JACKAL_SEEDS = (0, 1, 2, 3, 4)
+# the least number of JACKAL_SEEDS whose episode brings both jackals to
+# their goals within 400 steps: the rate measured on the H100 before and
+# after the Savitzky–Golay filter became one matrix (3/5 both times, other
+# seeds: PERF.md §6), so one seed fewer fails the run
+JACKAL_MIN_RATE = 3
+JACKAL_PER_STEP = {}     # seed → success step of phase 13's per-step episodes
+
+
+def jackal_episodes(cfg, obj, succ, dev, n_steps, device_steps):
+    """The multi_jackal episodes of JACKAL_SEEDS within n_steps on one build
+    (`run_task_episodes`), launch counters checked. → {seed: success step}."""
+    from mppiisaac_tpu_torch.runtime.loop import run_task_episodes
+
+    reset_counts()
+    rs = run_task_episodes(cfg, obj, list(JACKAL_SEEDS), n_steps=n_steps, success_fn=succ,
+                           device=dev, device_steps=device_steps)
+    n1, n2 = read_counts()
+    ok = {s: m.success_step for s, m in rs.items()}
+    rate = sum(v is not None for v in ok.values())
+    print(f"    multi_jackal over seeds {list(JACKAL_SEEDS)} within {n_steps} steps at "
+          f"device_steps={device_steps}: {rate}/{len(rs)} (success steps {ok}); launches K1 "
+          f"{n1}, K2 {n2}", flush=True)
+    if n1 != sum(m.commands for m in rs.values()) or n2 != n1:
+        fail("launch counters do not match the commands and world steps run")
+    if not all(m.final_state_finite for m in rs.values()):
+        fail("non-finite world state")
+    return ok
+
+
+def jackal_rate(cfg, obj, succ, dev, n_steps):
+    """Phase 13's bar for multi_jackal: a rate, not one seed (one episode
+    decides nothing: ROADMAP §3). The per-step episodes of JACKAL_SEEDS
+    within n_steps; fails unless at least JACKAL_MIN_RATE reach both goals.
+    Their success steps are held again through the chunked loop in 17d."""
+    ok = jackal_episodes(cfg, obj, succ, dev, n_steps, device_steps=1)
+    JACKAL_PER_STEP.update(ok)
+    rate = sum(v is not None for v in ok.values())
+    if rate < JACKAL_MIN_RATE:
+        fail(f"multi_jackal reached both goals in {rate} of seeds {list(JACKAL_SEEDS)} within "
+             f"{n_steps} steps, fewer than {JACKAL_MIN_RATE}")
 
 
 def mesh_path(task, dev, root):
@@ -1281,7 +1344,10 @@ def mesh_path(task, dev, root):
     print("    distance to the goal (m) by step: " + ", ".join(
         f"{k}: {'/'.join(f'{x:.3f}' for x in d)}" for k, d in seen["trace"] + [(m.steps, seen["d"])]),
         flush=True)
-    if m.success_step is None:
+    PER_STEP[task] = (1e3 / float(np.median(m.fps)), m.success_step)
+    if task == "multi_jackal":
+        jackal_rate(cfg, obj, succ, dev, n_steps)
+    elif m.success_step is None:
         fail(f"{task} did not reach its goal within {n_steps} steps")
     return held_path(task, cfg, obj, dev, root,
                      [("initial", None), ("in motion", seen.get("in motion", seen["last"]))],
@@ -1325,6 +1391,7 @@ def anymal_path(dev, root):
             fail(f"anymal ({name}): the prior's tape went into {tapes} of {m.steps} commands")
         if prior is not None:
             kept = dict(cfg=cfg, obj=obj, seen=seen, n1=n1, n2=n2)
+            PER_STEP["anymal"] = (1e3 / float(np.median(m.fps)), m.success_step)
     seen = kept["seen"]
     return held_path("anymal", kept["cfg"], kept["obj"], dev, root,
                      [("landed", seen.get("landed", seen["last"])), ("last", seen["last"])],
@@ -1716,15 +1783,17 @@ def episode_paths(dev):
             obj, n = multi_robot.MultiJackalObjective(cfg), cfg.n_steps
             succ, jax_rate = multi_robot.success_fn(key, obj), "suite seed: step 147"
         reset_counts()
-        rs = run_task_episodes(cfg, obj, list(EPISODE_SEEDS), n_steps=n, success_fn=succ, device=dev)
+        rs = run_task_episodes(cfg, obj, list(EPISODE_SEEDS), n_steps=n, success_fn=succ, device=dev,
+                               device_steps=CHUNK_STEPS)
         n1, n2 = read_counts()
-        steps = sum(m.steps for m in rs.values())
+        steps = sum(m.commands for m in rs.values())
         ok = {s: m.success_step for s, m in rs.items()}
         rate = sum(v is not None for v in ok.values())
         print(f"[17c] run_task_episodes {key} seeds {list(EPISODE_SEEDS)} within {n} steps: "
               f"{rate}/{len(rs)} (success steps {ok}; the JAX package: {jax_rate}), median control "
               f"step {1e3 / float(np.median([f for m in rs.values() for f in m.fps])):.3f} ms; "
-              f"launches K1 {n1}, K2 {n2} ({steps} steps); {time.perf_counter() - t1:.1f} s",
+              f"launches K1 {n1}, K2 {n2} ({steps} steps run, chunks of {CHUNK_STEPS}); "
+              f"{time.perf_counter() - t1:.1f} s",
               flush=True)
         if not all(m.final_state_finite for m in rs.values()):
             fail("non-finite world state")
@@ -1742,7 +1811,8 @@ def episode_paths(dev):
 
     reset_counts()
     run_task_episodes(cfg, panda_pick.PandaPickObjective(cfg), [0, "0"],
-                      n_steps=DETERMINISM_STEPS, success_fn=record, device=dev)
+                      n_steps=DETERMINISM_STEPS, success_fn=record, device=dev,
+                      device_steps=CHUNK_STEPS)
     n1, n2 = read_counts()
     a, b = states[DETERMINISM_STEPS - 1], states[2 * DETERMINISM_STEPS - 1]
     diff = {f: (getattr(a, f).double() - getattr(b, f).double()).abs().max().item()
@@ -1755,6 +1825,195 @@ def episode_paths(dev):
         fail("seed 0 twice on one build gave different world states")
     if n1 != 2 * DETERMINISM_STEPS or n2 != 2 * DETERMINISM_STEPS:
         fail("launch counters do not match the commands and world steps run")
+
+
+CHUNK_STEPS = 16           # control steps per host round trip (run_task_episodes' default)
+CHUNK_EQUAL_STEPS = 32
+TRACE_STEPS = 32
+# phase 17d's loops: (the earlier phase of the same loop per step, its step cap)
+CHUNK_LOOPS = {"panda": (3, None), "boxer_push": (7, None), "albert": (14, 500),
+               "multi_jackal": (13, 400), "anymal": (15, ANYMAL_STEPS),
+               "panda_pick": (5, PICK_MAX_STEPS)}
+
+
+def chunk_setup(key):
+    """(cfg, objective, success test, prior) of a phase-17d loop at its
+    shipped config."""
+    from mppiisaac_tpu_torch.tasks import (albert, anymal, mobile_push, multi_robot, panda_pick,
+                                           panda_reach)
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    cfg = load_config(f"tasks/{key}")
+    if key == "panda":
+        return cfg, panda_reach.PandaReachObjective(cfg), panda_reach.success_fn(), None
+    if key == "boxer_push":
+        obj = mobile_push.MobilePushObjective(cfg, "boxer", mobile_push.EE_LINK["boxer"])
+        return cfg, obj, mobile_push.success_fn(obj.goal), None
+    if key == "albert":
+        return cfg, albert.AlbertObjective(cfg), albert.success_fn(), None
+    if key == "multi_jackal":
+        obj = multi_robot.MultiJackalObjective(cfg)
+        return cfg, obj, multi_robot.success_fn(key, obj), None
+    if key == "anymal":
+        return cfg, anymal.AnymalObjective(cfg), anymal.success_fn(), anymal.gait_prior(cfg)
+    return cfg, panda_pick.PandaPickObjective(cfg), panda_pick.success_fn(), None
+
+
+def chunk_equality(dev):
+    """Phase 17d (1): pick at its shipped config, seed 0, CHUNK_EQUAL_STEPS
+    steps on one build, at device_steps=CHUNK_STEPS and at 1: the world
+    states and actions step by step, bit for bit."""
+    from mppiisaac_tpu_torch.mppi import prng
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import DeviceChunk, _run_chunked, goal_world, run_steps
+
+    cfg, obj, _, _ = chunk_setup("panda_pick")
+    world = goal_world(cfg, dev)
+    planner = MPPIisaacPlanner(cfg, obj, device=dev)
+    initial = world.state
+    carry0 = dataclasses.replace(planner.mppi.init_carry(), key=prng.prng_key(0))
+    runs = {}
+    for n in (1, CHUNK_STEPS):
+        states, acts = [], []
+
+        def record(w, states=states):
+            states.append(w.state.map(lambda x: x.detach().cpu().clone()))
+            return False
+
+        world.state, planner.mppi.carry = initial, carry0
+        reset_counts()
+        if n == 1:
+            m = run_steps(world, planner.compute_action_from_state, CHUNK_EQUAL_STEPS,
+                          cfg.isaacgym.dt, success_fn=record,
+                          observer=lambda s, w, a: acts.append(a.detach().cpu().clone()))
+        else:
+            chunk = DeviceChunk(world, planner, n)
+            m = _run_chunked(chunk, CHUNK_EQUAL_STEPS, cfg.isaacgym.dt, success_fn=record,
+                             chunk_observer=lambda s, w, a: acts.append(torch.from_numpy(a)))
+        runs[n] = (states, acts, read_counts(), m)
+    (s1, a1, c1, m1), (sn, an, cn, mn) = runs[1], runs[CHUNK_STEPS]
+    diff = {f: max(float((getattr(a, f).double() - getattr(b, f).double()).abs().max())
+                   for a, b in zip(s1, sn))
+            for f in SIM_STATE_FIELDS if getattr(s1[0], f) is not None}
+    diff["action"] = max(float((a - b).abs().max()) for a, b in zip(a1, an))
+    same = (len(s1) == len(sn) == CHUNK_EQUAL_STEPS and len(a1) == len(an)
+            and all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(s1, sn)
+                    for f in SIM_STATE_FIELDS if getattr(a, f) is not None)
+            and all(torch.equal(a, b) for a, b in zip(a1, an)))
+    print(f"[17d] pick K={cfg.mppi.num_samples} H={cfg.mppi.horizon}, seed 0, {CHUNK_EQUAL_STEPS} "
+          f"steps on one build, device_steps={CHUNK_STEPS} against 1: bit for bit {same}; largest "
+          f"|d| per field " + ", ".join(f"{k} {v:.3e}" for k, v in diff.items())
+          + f"; launches K1/K2 {c1} per step, {cn} chunked; graph nodes per control step "
+          f"{mn.graph_nodes}", flush=True)
+    if not same:
+        fail("the chunked pick differs from the per-step pick")
+    if c1 != (CHUNK_EQUAL_STEPS,) * 2 or cn != (CHUNK_EQUAL_STEPS,) * 2:
+        fail("launch counters do not match the commands and world steps run")
+    if mn.graph_nodes is None:
+        fail("the chunked loop did not capture a CUDA graph")
+
+
+def chunk_loops(dev):
+    """Phase 17d (2): the six loops through `run_task(device_steps=CHUNK_STEPS)`,
+    each to the goal or the step count of its earlier phase, with the launch
+    counters and anymal's tape injections through the replays: each must
+    end at the success step of the same loop per step in its earlier phase
+    (the same build and seed, the same kernels on the same inputs); the
+    median control step beside the per-step loop's."""
+    from mppiisaac_tpu_torch.mppi.solver import MPPIPlanner
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+
+    for key, (phase, cap) in CHUNK_LOOPS.items():
+        t1 = time.perf_counter()
+        cfg, obj, succ, prior = chunk_setup(key)
+        reset_counts()
+        MPPIPlanner.tape_injections = 0
+        m = run_task(cfg, obj, prior=prior, n_steps=cap, success_fn=succ, device=dev,
+                     device_steps=CHUNK_STEPS)
+        n1, n2 = read_counts()
+        tapes = MPPIPlanner.tape_injections
+        ms = 1e3 / float(np.median(m.fps))
+        per, per_success = PER_STEP[key]
+        print(f"[17d] run_task {key} device_steps={CHUNK_STEPS}: success_step {m.success_step} "
+              f"(per step, phase {phase}: {per_success}), "
+              f"{m.steps} steps ({m.commands} run), median control step {ms:.3f} ms chunked vs "
+              f"{per:.3f} ms per step (phase {phase}), {per / ms:.2f}x; launches K1 {n1}, K2 {n2}"
+              + (f", tapes {tapes}" if prior is not None else "")
+              + f"; graph nodes per step {m.graph_nodes}; finite {m.final_state_finite}; "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        if not m.final_state_finite:
+            fail("non-finite world state")
+        if n1 != m.commands or n2 != m.commands or n1 == 0:
+            fail("launch counters do not match the commands and world steps run")
+        if prior is not None and tapes != m.commands:
+            fail(f"{key}: the prior's tape went into {tapes} of {m.commands} commands")
+        if m.graph_nodes is None:
+            fail("the chunked loop did not capture a CUDA graph")
+        if m.success_step != per_success:
+            fail(f"{key}: the chunked loop ended at step {m.success_step}, the per-step loop at "
+                 f"{per_success}")
+        if key == "multi_jackal":
+            # the conf seed reaches no goal, so the rate's episodes are what
+            # the chunk must reproduce: each seed's success step of phase 13
+            ok = jackal_episodes(cfg, obj, succ, dev, cap, device_steps=CHUNK_STEPS)
+            if ok != JACKAL_PER_STEP:
+                fail(f"multi_jackal: the chunked episodes end at {ok}, the per-step ones at "
+                     f"{JACKAL_PER_STEP}")
+
+
+def idle_shares(dev, root):
+    """Phase 17d (3): the device's idle share over TRACE_STEPS steady control
+    steps of panda and pick, per step and chunked (torch.profiler; Chrome
+    traces in profile_out/: tens of MB each, kept out of chiprun_out/)."""
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import DeviceChunk, _run_chunked, goal_world, run_steps
+    from mppiisaac_tpu_torch.utils.profiling import trace
+
+    out = os.path.join(root, "profile_out")
+    for key in ("panda", "panda_pick"):
+        cfg, obj, _, _ = chunk_setup(key)
+        world = goal_world(cfg, dev)
+        planner = MPPIisaacPlanner(cfg, obj, device=dev)
+        dt = cfg.isaacgym.dt
+        run_steps(world, planner.compute_action_from_state, 3, dt)
+        with trace(out, f"trace_{key}_per_step.json") as t1:
+            run_steps(world, planner.compute_action_from_state, TRACE_STEPS, dt)
+        chunk = DeviceChunk(world, planner, CHUNK_STEPS)
+        _run_chunked(chunk, CHUNK_STEPS, dt)
+        with trace(out, f"trace_{key}_chunked.json") as t2:
+            _run_chunked(chunk, TRACE_STEPS, dt)
+        n1 = sum(c for c, _ in t1.kernels.values()) / TRACE_STEPS
+        n2 = sum(c for c, _ in t2.kernels.values()) / TRACE_STEPS
+        # the graph alone: CHUNK_STEPS replays back to back between two CUDA
+        # events (the step slot rewound first, as `run` does), against the
+        # device's busy time per step: the gaps between the graph's nodes
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        chunk._slot.zero_()
+        start.record()
+        for _ in range(CHUNK_STEPS):
+            chunk._graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        graph_ms = start.elapsed_time(end) / CHUNK_STEPS
+        print(f"[17d] {key} traced over {TRACE_STEPS} steps: per step {t1.window_s * 1e3 / TRACE_STEPS:.3f} "
+              f"ms/step, device busy {t1.device_busy_s * 1e3 / TRACE_STEPS:.3f} ms/step, idle "
+              f"share {t1.idle_share}, {n1:.1f} device events/step; chunked "
+              f"{t2.window_s * 1e3 / TRACE_STEPS:.3f} ms/step, busy "
+              f"{t2.device_busy_s * 1e3 / TRACE_STEPS:.3f} ms/step, idle share {t2.idle_share}, "
+              f"{n2:.1f} device events/step; the graph alone, replayed back to back: "
+              f"{graph_ms:.3f} ms/step", flush=True)
+        if t2.idle_share is None:
+            fail("the chunked trace shows no device time")
+
+
+def chunked_paths(dev, root):
+    """Phase 17d: the chunked loop (one captured control step, replayed)."""
+    t0 = time.perf_counter()
+    chunk_equality(dev)
+    chunk_loops(dev)
+    idle_shares(dev, root)
+    print(f"    phase 17d {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def geometry_table():
@@ -1825,6 +2084,7 @@ def main():
     api_path(dev)
     rpc_path(dev, root)
     episode_paths(dev)
+    chunked_paths(dev, root)
 
     # ---- 18. timing, and each kernel's bound on the timed inputs ----
     t0 = time.perf_counter()

@@ -153,3 +153,16 @@ def savgol_coeffs(window: int, polyorder: int) -> np.ndarray:
     A = np.vander(x, polyorder + 1, increasing=True)   # (window, p+1)
     # projection onto polynomial space evaluated at 0 → first row of pinv
     return np.linalg.pinv(A)[0]
+
+
+def savgol_matrix(coeffs: np.ndarray, H: int) -> np.ndarray:
+    """The (H, H) matrix M with M @ U the Savitzky–Golay window `coeffs`
+    over the rows of U (H, n) padded at each end with copies of its edge
+    rows: row t holds coeffs[w] at column clip(t + w − half, 0, H − 1),
+    summed where the padding folds several taps onto one edge row."""
+    half = len(coeffs) // 2
+    M = np.zeros((H, H), np.float64)
+    for t in range(H):
+        for w, cw in enumerate(np.asarray(coeffs, np.float32).astype(np.float64)):
+            M[t, min(max(t + w - half, 0), H - 1)] += cw
+    return M

@@ -8,7 +8,15 @@ Two notes on form:
 * the carry's key is a numpy array and its draws come from `mppi.prng`,
   the JAX package's threefry bit for bit: the same seed gives the same
   Cranley–Patterson shifts of the Halton table, command after command
-  (`_command_impl` also takes an injected ε, for tests of the update alone);
+  (`_command_impl` also takes an injected ε, for tests of the update alone).
+  The key chain does not depend on device results, so `draws(key, n)` makes
+  n commands' draws ahead on the host, and `_command_impl(draw=...)` takes
+  one of them: the chunked loop (runtime/loop.py) copies a chunk's draws to
+  the device once and replays a CUDA graph of the command;
+* past the host draw, a command is capturable in a CUDA graph: no host sync
+  (`cholesky_ex`, `inv_ex`), no copy from host memory (the constants live
+  on the device from `__init__` and `refresh_constants`), and the step clock
+  `t0` is a 0-d int64 tensor on the device, advanced by the command;
 * the rollout is always the fused rollout (`ops/fused_rollout.FusedRollout`,
   the CUDA kernel on CUDA tensors, its plain version on CPU tensors): the
   port has no per-sample engine step to vmap, so of the two prior forms it
@@ -25,7 +33,7 @@ import torch
 
 from . import prng
 from .config import MPPIConfig
-from .sampling import bspline_interp_matrix, halton, savgol_coeffs
+from .sampling import bspline_interp_matrix, halton, savgol_coeffs, savgol_matrix
 
 
 @dataclass
@@ -33,23 +41,25 @@ class MppiCarry:
     U: torch.Tensor          # (H, nu) nominal control sequence
     lambda_: torch.Tensor    # () temperature
     sigma: torch.Tensor      # (nu, nu) sampling covariance
-    t0: int = 0              # world control steps executed so far
+    t0: torch.Tensor         # () int64: world control steps executed so far
     key: Optional[np.ndarray] = None   # (2,) uint32 PRNG key, split per command
 
 
 class MPPIPlanner:
     """fused: the rollout, `fused.rollout(sim_state_K, params_K, V (K,H,nu))
-    → (costs (K,H), vis (H,K,3))`. device: where the solver's tensors live.
-    tape_prior: optional `(state0, t0) → (H, nu)` control tape, evaluated
-    once per command (with `use_priors`) from the K-wide state0 and the
-    world step clock, outside the rollout: one sample rolls the tape, and
-    with `prior_blend` a > 0 the sampling mean moves to (1 − a)·U + a·tape.
+    → (costs (K,H), vis (H,K,3))`. device: where the solver's tensors live
+    ("cuda", the default, as every entry point of the port; "cpu" for the
+    plain versions). tape_prior: optional `(state0, t0) → (H, nu)` control
+    tape, evaluated once per command (with `use_priors`) from the K-wide
+    state0 and the world step clock, outside the rollout: one sample rolls
+    the tape, and with `prior_blend` a > 0 the sampling mean moves to
+    (1 − a)·U + a·tape.
 
     `tape_injections` counts the commands into which a tape was injected."""
 
     tape_injections = 0
 
-    def __init__(self, cfg: MPPIConfig, nx: int, fused, device="cpu", tape_prior=None):
+    def __init__(self, cfg: MPPIConfig, nx: int, fused, device="cuda", tape_prior=None):
         self.fused = fused
         self.tape_prior = tape_prior
         self.nx = nx
@@ -80,22 +90,35 @@ class MPPIPlanner:
         if c.filter_u:
             w = min(H if H % 2 == 1 else H - 1, 9)
             if w >= 5:
-                self._sg = f32(savgol_coeffs(w, 2))
+                self._sg = f32(savgol_matrix(savgol_coeffs(w, 2), H))
+        self._eye = torch.eye(nu, dtype=torch.float32, device=dev)
         self.refresh_constants()
         self.carry = self.init_carry()
         self.last_info: dict = {}
 
     def refresh_constants(self):
-        """Re-read the bounds, the initial control and the noise mean from
-        the config (after an online change of them)."""
+        """Re-read the bounds, the initial control, the noise mean, the prior
+        blend and the cost discount from the config (after an online change
+        of them). A constant of the same shape is written in place, so a
+        captured command sees the new value."""
         c = self.cfg
 
-        def f32(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        def put(name, x):
+            if not torch.is_tensor(x):
+                x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+            old = getattr(self, name, None)
+            if old is not None and old.shape == x.shape:
+                old.copy_(x)
+            else:
+                setattr(self, name, x)
 
-        self._u_min, self._u_max = f32(c.u_min), f32(c.u_max)
-        self._u_init = f32(c.u_init)
-        self._noise_mu = f32(c.noise_mu)
+        put("_u_min", c.u_min)
+        put("_u_max", c.u_max)
+        put("_u_init", c.u_init)
+        put("_noise_mu", c.noise_mu)
+        put("_prior_blend", c.prior_blend)
+        put("_gamma", torch.tensor(np.float32(c.rollout_var_discount), device=self.device)
+            ** torch.arange(c.horizon, device=self.device, dtype=torch.float32))
 
     # ------------------------------------------------------------------
     def init_carry(self) -> MppiCarry:
@@ -109,41 +132,65 @@ class MPPIPlanner:
             U=U0,
             lambda_=torch.tensor(float(c.lambda_), dtype=torch.float32, device=dev),
             sigma=torch.as_tensor(np.asarray(c.noise_sigma, np.float32), device=dev),
-            t0=0,
+            t0=torch.zeros((), dtype=torch.int64, device=dev),
             key=prng.prng_key(int(c.seed_val)),
         )
 
+    def reset(self):
+        """A fresh carry from the config (the JAX solver's `reset`)."""
+        self.carry = self.init_carry()
+
     # ------------------------------------------------------------------
-    def _sample_noise(self, key: np.ndarray, sigma: torch.Tensor) -> torch.Tensor:
+    def _draw_np(self, key: np.ndarray) -> np.ndarray:
+        """The host draw of one command from `key`: the Cranley–Patterson
+        shift (sample_dims,) of the Halton table, or the (K, n_knots, nu)
+        uniforms of the normal draw."""
+        if self.cfg.sampling_method == "halton":
+            return prng.uniform(key, (self._sample_dims,))
+        return prng.normal_uniforms(key, (self.cfg.num_samples, self._n_knots, self.nu))
+
+    def draws(self, key: np.ndarray, n: int):
+        """n commands' draws ahead, from the key chain `_command_impl`
+        follows: → (the key after n commands, (n, ...) float32 on the host)."""
+        rows = []
+        for _ in range(n):
+            key, sub = prng.split(key)
+            rows.append(self._draw_np(sub))
+        return key, np.stack(rows)
+
+    def noise(self, draw: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
         """→ (K, H, nu) noise ε with covariance `sigma` per (sample, step),
-        drawn from `key`."""
+        from one command's draw."""
         c = self.cfg
         K, nu = c.num_samples, self.nu
-        L = torch.linalg.cholesky(sigma + torch.eye(nu, dtype=sigma.dtype, device=sigma.device) * 1e-8)
+        L = torch.linalg.cholesky_ex(sigma + self._eye * 1e-8).L
         if c.sampling_method == "halton":
             # Cranley–Patterson rotation refreshes the deterministic table
-            shift = torch.as_tensor(prng.uniform(key, (self._sample_dims,)), device=self.device)
-            u01 = torch.remainder(self._halton_base + shift, 1.0)
+            u01 = torch.remainder(self._halton_base + draw, 1.0)
             z = torch.special.ndtri(torch.clamp(u01, 1e-6, 1 - 1e-6))
             z = z.reshape(K, self._n_knots, nu)
         else:
-            u = torch.as_tensor(prng.normal_uniforms(key, (K, self._n_knots, nu)), device=self.device)
-            z = torch.special.erfinv(u) * np.float32(np.sqrt(2.0))
+            z = torch.special.erfinv(draw) * np.float32(np.sqrt(2.0))
         eps = torch.einsum("ktj,ij->kti", z, L) + self._noise_mu
         if self._interp is not None:
             eps = torch.einsum("ht,ktn->khn", self._interp, eps)
         return eps
 
     # ------------------------------------------------------------------
-    def _command_impl(self, carry: MppiCarry, state0, eps: Optional[torch.Tensor] = None):
+    def _command_impl(self, carry: MppiCarry, state0, eps: Optional[torch.Tensor] = None,
+                      draw: Optional[torch.Tensor] = None):
         """One MPPI command. state0 = (SimState_K, ModelParams_K). eps: inject
-        the (K,H,nu) noise instead of sampling it (tests)."""
+        the (K,H,nu) noise instead of sampling it (tests). draw: this
+        command's draw, made ahead by `draws` (the carry's key is then the
+        caller's to advance)."""
         c = self.cfg
         K, H, nu = c.num_samples, c.horizon, self.nu
         key = carry.key
+        if eps is None and draw is None:
+            key, d = self.draws(carry.key, 1)
+            draw = torch.as_tensor(d[0], device=self.device)
         if eps is None:
-            key, sub = prng.split(carry.key)
-            eps = self._sample_noise(sub, carry.sigma)
+            eps = self.noise(draw, carry.sigma)
         u_min, u_max = self._u_min, self._u_max
         V = torch.clamp(carry.U[None] + eps, u_min, u_max)            # (K,H,nu)
         if c.sample_null_action:
@@ -155,17 +202,14 @@ class MPPIPlanner:
             if c.prior_blend > 0.0:
                 # biased MPPI: the sampling mean moves toward the tape, while
                 # the importance term still measures deviation from U
-                a = torch.tensor(c.prior_blend, dtype=torch.float32, device=V.device)
+                a = self._prior_blend
                 V = torch.clamp((1 - a) * carry.U[None] + a * tape[None] + eps, u_min, u_max)
                 if c.sample_null_action:
                     V[K - 1] = 0.0
             V[K - 2] = tape
             type(self).tape_injections += 1
         eps_eff = V - carry.U[None]
-        eye = torch.eye(nu, dtype=carry.sigma.dtype, device=carry.sigma.device)
-        sigma_inv = torch.linalg.inv(carry.sigma + eye * 1e-8)
-        gamma = torch.as_tensor(c.rollout_var_discount, dtype=torch.float32, device=V.device) \
-            ** torch.arange(H, device=V.device, dtype=torch.float32)
+        sigma_inv = torch.linalg.inv_ex(carry.sigma + self._eye * 1e-8).inverse
 
         sim_state_K, params_K = state0
         costs, vis = self.fused.rollout(sim_state_K, params_K, V * c.u_scale)
@@ -178,7 +222,7 @@ class MPPIPlanner:
             act_cost = carry.lambda_ * torch.einsum("khj,ij->khi", eps_eff, sigma_inv)
             action_cost = torch.sum(carry.U[None] * act_cost, dim=(-1, -2))
 
-        S = torch.sum(costs * gamma[None], dim=1) + action_cost      # (K,)
+        S = torch.sum(costs * self._gamma[None], dim=1) + action_cost      # (K,)
         beta = torch.min(S)
         scaled = -(S - beta) / torch.clamp(carry.lambda_, min=1e-6)
         eta = torch.sum(torch.exp(scaled))
@@ -187,12 +231,9 @@ class MPPIPlanner:
         dU = torch.einsum("k,khn->hn", w, eps_eff)
         U_new = carry.U + dU
         if self._sg is not None:
-            half = self._sg.shape[0] // 2
-            Upad = torch.cat([U_new[:1].expand(half, nu), U_new, U_new[-1:].expand(half, nu)], 0)
-            U_new = torch.stack([
-                torch.einsum("w,wn->n", self._sg, Upad[t: t + self._sg.shape[0]])
-                for t in range(H)
-            ])
+            # the Savitzky–Golay window over the edge-padded sequence, as
+            # one (H, H) matrix
+            U_new = self._sg @ U_new
         U_new = torch.clamp(U_new, u_min, u_max)
 
         action = U_new[: c.u_per_command] * c.u_scale                 # (u_per_command, nu)
@@ -209,7 +250,7 @@ class MPPIPlanner:
         if c.update_cov:
             weighted = torch.einsum("k,khi,khj->ij", w, eps_eff, eps_eff) / H
             sigma = 0.9 * sigma + 0.1 * weighted
-            sigma = sigma + eye * 1e-5
+            sigma = sigma + self._eye * 1e-5
 
         new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma, t0=carry.t0 + c.u_per_command,
                               key=key)

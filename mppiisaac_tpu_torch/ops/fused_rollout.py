@@ -36,6 +36,7 @@ import torch
 
 from ..physics.contact import build_contact_tables
 from ..physics.types import ModelParams, SimState
+from ..utils.device_cache import DeviceCache
 from .fused_contacts import (F_A_ART, F_A_FREE, F_A_STA, F_B_ART, F_B_FREE, F_B_STA, F_EMIT_A,
                              F_EMIT_B, F_SWEPT)
 from .fused_physics import (
@@ -387,27 +388,31 @@ def _check(name, x: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-class _Tables:
-    """Packed scene tables, copied once to each device that asks for them."""
+class _DeviceTables:
+    """A kernel's packed scene tables and the λ-row index of its swept
+    candidates, each copied once to each device that asks for it (so a
+    captured CUDA graph copies nothing from the host)."""
 
-    def __init__(self, ks: KernelScene, vis_body: int):
+    def __init__(self, ks: KernelScene, vis_body: int, fc_idx):
+        self.vis_body = vis_body
+        self.fc_idx = np.asarray(fc_idx)
         self._bytes = pack_tables(ks, vis_body)
-        self._dev: Dict[torch.device, torch.Tensor] = {}
+        self._dev = DeviceCache()
 
-    def on(self, device: torch.device) -> torch.Tensor:
-        t = self._dev.get(device)
-        if t is None:
-            t = torch.frombuffer(bytearray(self._bytes), dtype=torch.uint8).to(device)
-            self._dev[device] = t
-        return t
+    def tables(self, device: torch.device) -> torch.Tensor:
+        return self._dev.get("tables", self._host, torch.uint8, device)
 
-    def repack(self, ks: KernelScene, vis_body: int):
+    def _host(self) -> np.ndarray:
+        return np.frombuffer(bytearray(self._bytes), np.uint8)
+
+    def fc(self, device: torch.device) -> torch.Tensor:
+        return self._dev.get("fc_idx", lambda: self.fc_idx, torch.long, device)
+
+    def repack(self, ks: KernelScene):
         """Pack the tables anew (same scene, other constants) and copy the
         bytes into each device's buffer in place, in stream order."""
-        self._bytes = pack_tables(ks, vis_body)
-        src = torch.frombuffer(bytearray(self._bytes), dtype=torch.uint8)
-        for t in self._dev.values():
-            t.copy_(src)
+        self._bytes = pack_tables(ks, self.vis_body)
+        self._dev.refill("tables", self._host())
 
 
 def _require_cuda(device: torch.device):
@@ -416,11 +421,11 @@ def _require_cuda(device: torch.device):
                            f"version on CPU tensors), not on {device}")
 
 
-def _lam_rows(ks: KernelScene, fc_idx, lam: Optional[torch.Tensor], lead, device):
+def _lam_rows(ks: KernelScene, dev_tables: _DeviceTables, lam: Optional[torch.Tensor], lead, device):
     """The λ rows of `contact_lam` (…, n_con, 4) at the swept candidates,
     zeros where the state carries no matching cache. → (…, n_fc, 4)."""
     if lam is not None and lam.shape[-2] == ks.n_con and lam.shape[-1] == 4:
-        return lam[..., torch.as_tensor(fc_idx, device=lam.device), :].to(torch.float32)
+        return lam[..., dev_tables.fc(lam.device), :].to(torch.float32)
     return torch.zeros(lead + (ks.n_fc, 4), dtype=torch.float32, device=device)
 
 
@@ -508,7 +513,7 @@ class FusedRollout:
         self.substeps = engine.substeps if substeps is None else int(substeps)
         self.dt_sub = engine.scene.dt / self.substeps
         self.impulse_sweeps = int(impulse_sweeps)
-        self._tables = _Tables(self.ks, self.vis_body)
+        self._tables = _DeviceTables(self.ks, self.vis_body, self.fc_idx)
         self.warp_bytes = region_bytes(self.ks)
         self._warps: Dict[int, int] = {}  # device index → warps per block
 
@@ -521,7 +526,7 @@ class FusedRollout:
         if cost is None or cost.task not in TASKS:
             raise NotImplementedError(f"no CUDA cost for task spec {cost}")
         self.ks = dataclasses.replace(self.ks, cost=cost)
-        self._tables.repack(self.ks, self.vis_body)
+        self._tables.repack(self.ks)
 
     def warps(self, device: torch.device) -> int:
         """Warps (samples) per block of the launches on a CUDA device."""
@@ -535,7 +540,7 @@ class FusedRollout:
         """→ the kernel inputs: rows (NS + 4·n_fc, K) f32 (fast fidelity: NS),
         V (H,nu,K) bf16 (the rounding the TPU kernel applies to its
         controls), mass (B,K), fric (G,K)."""
-        lam = _lam_rows(self.ks, self.fc_idx, sim_state_K.contact_lam, (self.K,),
+        lam = _lam_rows(self.ks, self._tables, sim_state_K.contact_lam, (self.K,),
                         sim_state_K.q.device) if self.world_fidelity else None
         rows = state_to_rows(self.ks, sim_state_K.root_state, sim_state_K.q, sim_state_K.qd, lam)
         V = V_khn.to(torch.bfloat16).permute(1, 2, 0).contiguous()
@@ -574,7 +579,7 @@ class FusedRollout:
         vis = torch.empty(self.H, self.K, 3, dtype=torch.float32, device=rows.device)
         with torch.cuda.device(rows.device):
             rc = lib.fused_rollout_launch(
-                self._tables.on(rows.device).data_ptr(), rows.data_ptr(), V.data_ptr(),
+                self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), V.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), costs.data_ptr(), vis.data_ptr(),
                 self.K, self.H, self.substeps, self.dt_sub, self.impulse_sweeps,
                 int(self.world_fidelity), self.warps(rows.device), self.warp_bytes,
@@ -601,7 +606,7 @@ class FusedWorldStep:
         self.substeps = engine.substeps
         self.dt_sub = engine.dt_sub
         self.impulse_sweeps = int(impulse_sweeps)
-        self._tables = _Tables(self.ks, -1)
+        self._tables = _DeviceTables(self.ks, -1, self.fc_idx)
         self.warp_bytes = region_bytes(self.ks)
 
     def _check_inputs(self, rows, tgt, mass, fric):
@@ -627,7 +632,7 @@ class FusedWorldStep:
         out = torch.empty_like(rows)
         with torch.cuda.device(rows.device):
             rc = lib.fused_world_step_launch(
-                self._tables.on(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
+                self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), out.data_ptr(), self.substeps, self.dt_sub,
                 self.impulse_sweeps, self.warp_bytes,
                 torch.cuda.current_stream(rows.device).cuda_stream,
@@ -638,7 +643,7 @@ class FusedWorldStep:
         return out
 
     def pack(self, state: SimState) -> torch.Tensor:
-        lam = _lam_rows(self.ks, self.fc_idx, state.contact_lam, (), state.q.device)
+        lam = _lam_rows(self.ks, self._tables, state.contact_lam, (), state.q.device)
         return state_to_rows(self.ks, state.root_state[None], state.q[None], state.qd[None],
                              lam[None])[:, 0]
 
@@ -661,6 +666,6 @@ class FusedWorldStep:
         lam = state.contact_lam
         if self.ks.n_fc and lam is not None and tuple(lam.shape) == (self.ks.n_con, 4):
             lam = lam.clone()
-            lam[torch.as_tensor(self.fc_idx, device=lam.device)] = out[NS:].reshape(-1, 4)
+            lam[self._tables.fc(lam.device)] = out[NS:].reshape(-1, 4)
             st = st.replace(contact_lam=lam)
         return self.engine.refresh(st)

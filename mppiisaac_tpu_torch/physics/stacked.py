@@ -15,6 +15,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.device_cache import DeviceCache
 from .math3d import cross, quat_from_axis_angle, quat_mul, quat_normalize, quat_rotate
 from .model import JOINT_PRISMATIC, JOINT_REVOLUTE
 from .scene_model import SceneModel
@@ -89,6 +90,15 @@ class StackedModel:
     # gripper finger. These get the implicit motor curve τ = u − (|u|/v_max)qd⁺
     # instead of a bare constant force (see drive_terms_stacked).
     finger_motor: np.ndarray = field(default_factory=lambda: np.zeros(0, _F32))
+
+    def __post_init__(self):
+        # the tables below on each device, copied at their first use (a
+        # refresh inside a captured CUDA graph copies nothing from the host)
+        self._dev = DeviceCache()
+
+    def on(self, name: str, make, dtype, device) -> torch.Tensor:
+        """The table `make()` as a tensor of `dtype` on `device`."""
+        return self._dev.get(name, make, dtype, device)
 
 
 def build_stacked(scene: SceneModel) -> StackedModel:
@@ -311,29 +321,30 @@ def fk_stacked(m: StackedModel, root_pos, root_quat, q):
     dev, dt_ = root_pos.device, root_pos.dtype
     B = m.B
     lead = root_pos.shape[:-2]
-    jq = torch.as_tensor(m.jquat, dtype=dt_, device=dev)
-    jp = torch.as_tensor(m.jpos, dtype=dt_, device=dev)
-    ax = torch.as_tensor(m.jaxis, dtype=dt_, device=dev)
+    jq = m.on("jquat", lambda: m.jquat, dt_, dev)
+    jp = m.on("jpos", lambda: m.jpos, dt_, dev)
+    ax = m.on("jaxis", lambda: m.jaxis, dt_, dev)
     if m.D:
-        has = torch.as_tensor(m.body_jdof >= 0, device=dev)
-        qb = torch.where(has, q[..., torch.as_tensor(m.body_jdof_clipped, device=dev).long()], 0.0)
+        has = m.on("has_dof", lambda: m.body_jdof >= 0, torch.bool, dev)
+        qb = torch.where(has, q[..., m.on("jdof", lambda: m.body_jdof_clipped, torch.long, dev)],
+                         0.0)
     else:
         qb = torch.zeros(lead + (B,), dtype=dt_, device=dev)
-    is_rev = torch.as_tensor(m.jtype == JOINT_REVOLUTE, device=dev)
-    is_prism = torch.as_tensor(m.jtype == JOINT_PRISMATIC, device=dev)
+    is_rev = m.on("is_rev", lambda: m.jtype == JOINT_REVOLUTE, torch.bool, dev)
+    is_prism = m.on("is_prism", lambda: m.jtype == JOINT_PRISMATIC, torch.bool, dev)
     rotq = quat_from_axis_angle(ax, torch.where(is_rev, qb, 0.0))
     L_quat = quat_mul(jq, rotq)
     L_pos = jp + torch.where(is_prism[:, None], quat_rotate(jq, ax * qb[..., None]), 0.0)
-    is_root = torch.as_tensor(m.parent < 0, device=dev)
-    ba = torch.as_tensor(m.body_actor, device=dev).long()
+    is_root = m.on("is_root", lambda: m.parent < 0, torch.bool, dev)
+    ba = m.on("body_actor", lambda: m.body_actor, torch.long, dev)
     L_pos = torch.where(is_root[:, None], root_pos[..., ba, :], L_pos)
     L_quat = torch.where(is_root[:, None], root_quat[..., ba, :], L_quat)
     # pointer doubling with a virtual identity node at index B
     T_pos = torch.cat([L_pos, torch.zeros(lead + (1, 3), dtype=dt_, device=dev)], -2)
-    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt_, device=dev).expand(lead + (1, 4))
+    ident = m.on("ident", lambda: [0.0, 0.0, 0.0, 1.0], dt_, dev).expand(lead + (1, 4))
     T_quat = torch.cat([L_quat, ident], -2)
-    for Pk in m.parent_chain:
-        idx = torch.as_tensor(Pk, device=dev).long()
+    for k, Pk in enumerate(m.parent_chain):
+        idx = m.on(f"chain{k}", lambda: Pk, torch.long, dev)
         pp = T_pos[..., idx, :]
         pq = T_quat[..., idx, :]
         T_pos = pp + quat_rotate(pq, T_pos)
@@ -347,14 +358,17 @@ def fk_stacked(m: StackedModel, root_pos, root_quat, q):
 def motion_subspace_stacked(m: StackedModel, body_pos, axis_w):
     """(...,NV,6) world-frame Plücker motion subspaces."""
     dev = body_pos.device
-    cb = torch.as_tensor(m.dofc_body, device=dev).long()
+    cb = m.on("dofc_body", lambda: m.dofc_body, torch.long, dev)
     a = axis_w[..., cb, :]
     p = body_pos[..., cb, :]
-    is_rev = torch.as_tensor((m.jtype[m.dofc_body] == JOINT_REVOLUTE) & m.dofc_is_joint, device=dev)
-    is_prism = torch.as_tensor((m.jtype[m.dofc_body] == JOINT_PRISMATIC) & m.dofc_is_joint, device=dev)
+    is_rev = m.on("dofc_rev", lambda: (m.jtype[m.dofc_body] == JOINT_REVOLUTE) & m.dofc_is_joint,
+                  torch.bool, dev)
+    is_prism = m.on("dofc_prism",
+                    lambda: (m.jtype[m.dofc_body] == JOINT_PRISMATIC) & m.dofc_is_joint,
+                    torch.bool, dev)
     S_rev = torch.cat([a, cross(p, a)], -1)
     S_prism = torch.cat([torch.zeros_like(a), a], -1)
-    S = torch.as_tensor(m.base_S, dtype=body_pos.dtype, device=dev).expand(S_rev.shape)
+    S = m.on("base_S", lambda: m.base_S, body_pos.dtype, dev).expand(S_rev.shape)
     S = torch.where(is_rev[:, None], S_rev, S)
     return torch.where(is_prism[:, None], S_prism, S)
 
@@ -366,9 +380,9 @@ def generalized_velocities(m: StackedModel, state: SimState):
     v_o = state.root_linvel - cross(w, state.root_pos)
     base6 = torch.cat([w, v_o], -1)
     base6 = base6.reshape(base6.shape[:-2] + (-1,))
-    u = base6 @ torch.as_tensor(m.base_pick, dtype=dt_, device=dev).T
+    u = base6 @ m.on("base_pick", lambda: m.base_pick, dt_, dev).T
     if m.D:
-        u = u + state.qd @ torch.as_tensor(m.joint_pick, dtype=dt_, device=dev).T
+        u = u + state.qd @ m.on("joint_pick", lambda: m.joint_pick, dt_, dev).T
     return u
 
 
@@ -376,7 +390,7 @@ def refresh_stacked(m: StackedModel, state: SimState) -> SimState:
     body_pos, body_quat, axis_w = fk_stacked(m, state.root_pos, state.root_quat, state.q)
     S = motion_subspace_stacked(m, body_pos, axis_w)
     u = generalized_velocities(m, state)
-    anc = torch.as_tensor(m.anc_dof, dtype=body_pos.dtype, device=body_pos.device)
+    anc = m.on("anc_dof", lambda: m.anc_dof, body_pos.dtype, body_pos.device)
     v_b = anc @ (S * u[..., None])
     w_b = v_b[..., :3]
     lin_b = v_b[..., 3:] + cross(w_b, body_pos)

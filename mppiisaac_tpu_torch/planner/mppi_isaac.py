@@ -103,11 +103,12 @@ class MPPIisaacPlanner:
         return self.sim.built
 
     # ------------------------------------------------------------------
-    def _full(self, carry, world_state, eps=None):
+    def _full(self, carry, world_state, eps=None, draw=None):
         """The 1-env world state K-wide into the rollout sim, then one MPPI
-        command."""
+        command (`eps`, `draw`: as `MPPIPlanner._command_impl`)."""
         self.reset_rollout_from_state(world_state)
-        return self.mppi._command_impl(carry, (self.sim.state, self._params_K), eps=eps)
+        return self.mppi._command_impl(carry, (self.sim.state, self._params_K), eps=eps,
+                                       draw=draw)
 
     def _finish(self, action, carry, info):
         self.mppi.carry = carry

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..physics.math3d import quat_to_yaw
+from ..utils.device_cache import DeviceCache
 from .observables import SimView
 
 
@@ -61,11 +62,20 @@ class QuadrupedGaitPrior:
         self._phase = np.asarray(phases if phases is not None else [0.0, 0.5, 0.5, 0.0],
                                  np.float32)
         self._left = np.array([1.0, 0.0, 1.0, 0.0], np.float32)   # LF and LH are left
+        # the tape's constants on each device, copied at their first use (a
+        # tape inside a captured command copies nothing from the host)
+        self._dev = DeviceCache()
 
-    def tape(self, view: SimView, t0: int) -> torch.Tensor:
+    def tape(self, view: SimView, t0) -> torch.Tensor:
         """view: a SimView of one env (no leading axis); t0: the world control
-        steps executed so far. → (H, 12) velocity targets."""
+        steps executed so far (an int, or the solver carry's 0-d int64
+        tensor). → (H, 12) velocity targets."""
         base = view.link_position("base", self.robot)
+        dev = base.device
+        side = self._dev.get("side", lambda: np.where(self._left > 0, -1.0, 1.0), torch.float32, dev)
+        phase = self._dev.get("phase", lambda: self._phase, torch.float32, dev)
+        rate = self._dev.get("rate", lambda: self.dt * self.freq, torch.float32, dev)
+        steps = self._dev.get("steps", lambda: np.arange(self.H), torch.int32, dev)
         goal = view.actor_position(self.goal_actor)
         yaw = quat_to_yaw(view.actor_orientation(self.robot))
         to_goal = goal[..., :2] - base[..., :2]
@@ -77,13 +87,9 @@ class QuadrupedGaitPrior:
         fwd = stride * torch.clamp(torch.cos(hdg_err), 0.0, 1.0)                # gate on facing
         turn = stride * self.k_turn * torch.sin(hdg_err)
         # left legs shorten their stride when turning left (turn > 0)
-        side = torch.as_tensor(np.where(self._left > 0, -1.0, 1.0).astype(np.float32),
-                               device=base.device)
         leg_gain = fwd[None] + turn[None] * side                               # (4,)
 
-        t = (t0 + torch.arange(self.H, dtype=torch.int32, device=base.device)).to(torch.float32)
-        phase = torch.as_tensor(self._phase, device=base.device)
-        rate = torch.tensor(self.dt * self.freq, dtype=torch.float32, device=base.device)
+        t = (t0 + steps).to(torch.float32)
         ph = torch.remainder(t[:, None] * rate + phase[None], 1.0)
         d = self.duty
         in_stance = ph < d

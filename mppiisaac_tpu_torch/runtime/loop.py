@@ -1,10 +1,17 @@
 """Single-process control loop: world sim + MPPI planner in one process
 (parity with the JAX package's `runtime/loop.py` `run_task` and
-`run_task_episodes`, per-step path).
+`run_task_episodes`).
 
 Each control step: one planner command from the world state, the action
-through the command map, one world step. The chunked device loop of the JAX
-package (`device_steps`, many steps per host round trip) is not ported yet.
+through the command map, one world step. Two paths, as in the JAX package:
+
+* the per-step loop (`run_steps`): the host drives every step;
+* the chunked loop (`device_steps` > 1, `DeviceChunk`): up to N control steps
+  per host round trip. On CUDA one control step is captured once as a CUDA
+  graph (the JAX package jits a `lax.scan` over N steps) and replayed N
+  times; the host copies the chunk's noise draws in once and fetches the
+  post-step world states and actions as one buffer once, then replays
+  `success_fn` step by step. On the CPU the same step body runs eagerly.
 """
 from __future__ import annotations
 
@@ -17,8 +24,12 @@ import numpy as np
 import torch
 
 from ..mppi import prng
+from ..mppi.solver import MppiCarry, MPPIPlanner
+from ..ops.fused_rollout import FusedRollout, FusedWorldStep
+from ..physics.types import SIM_STATE_FIELDS, SimState
 from ..planner.mppi_isaac import MPPIisaacPlanner
 from ..utils.config_store import ExampleConfig
+from ..utils.profiling import graph_nodes
 from .sim import Simulation
 
 
@@ -31,6 +42,12 @@ class LoopMetrics:
     steps: int = 0
     success_step: Optional[int] = None
     final_state_finite: bool = True
+    # control steps the device ran: `steps`, plus those a chunk ran past
+    # the success step
+    commands: int = 0
+    # the chunked loop on CUDA: the nodes of the captured control step by
+    # type (utils/profiling.graph_nodes)
+    graph_nodes: Optional[dict] = None
 
     def summary(self) -> dict:
         return {
@@ -91,7 +108,7 @@ def run_steps(world: Simulation, act: Callable, n: int, dt: float,
         actual = t2 - t0
         metrics.fps.append(1.0 / max(actual, 1e-9))
         metrics.rt_factor.append(dt / max(actual, 1e-9))
-        metrics.steps = step + 1
+        metrics.steps = metrics.commands = step + 1
         if prev_pos is not None:
             metrics.path_length += float(np.linalg.norm(rp - prev_pos))
         prev_pos = rp
@@ -123,15 +140,28 @@ def run_task(
     verbose: bool = False,
     randomize: bool = True,
     device="cuda",
+    device_steps: int = 1,
+    chunk_observer: Optional[Callable] = None,
 ) -> LoopMetrics:
     """success_fn(world: Simulation) -> bool; observer(step, world, action);
     prior: a tape prior for the planner (MPPIisaacPlanner). real_time: sleep
     out each control period. device: "cuda" (the kernels; the default) or
-    "cpu" (their plain versions)."""
+    "cpu" (their plain versions).
+
+    device_steps > 1 runs up to that many control steps per host round trip
+    (`DeviceChunk`), as the JAX package's chunked loop; success stays exact,
+    replayed on the fetched post-step states. chunk_observer(step, world,
+    action) sees each of them (`world` pinned to that step's state, on the
+    host). A per-step observer or real-time pacing takes the per-step loop,
+    as in the JAX package."""
     device = torch.device(device)
     world = goal_world(cfg, device)
     planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device)
     n = n_steps if n_steps is not None else cfg.n_steps
+    if device_steps > 1 and observer is None and not real_time:
+        return _run_chunked(DeviceChunk(world, planner, device_steps), n, cfg.isaacgym.dt,
+                            success_fn=success_fn, verbose=verbose,
+                            chunk_observer=chunk_observer)
     return run_steps(world, planner.compute_action_from_state, n, cfg.isaacgym.dt,
                      success_fn=success_fn, observer=observer, verbose=verbose,
                      real_time=real_time)
@@ -144,29 +174,273 @@ def run_task_episodes(
     prior=None,
     n_steps: Optional[int] = None,
     success_fn: Optional[Callable] = None,
+    device_steps: int = 16,
     randomize: bool = True,
     verbose: bool = False,
     device="cuda",
 ) -> Dict[int, LoopMetrics]:
-    """Seeded episodes on one build: the world and the planner (with their
-    FusedRollout and FusedWorldStep) are built once; each seed then runs a
-    fresh episode from the initial world state (goal marker placed), with
-    the solver carry re-keyed by `prng.prng_key(seed)` (JAX's
-    `PRNGKey(seed)`). → {seed: LoopMetrics}. The JAX function's chunked
-    device loop (`device_steps`) is not ported: every episode runs the
-    per-step loop."""
+    """Seeded episodes on one build: the world, the planner (with their
+    FusedRollout and FusedWorldStep) and, for device_steps > 1, the chunk
+    (its CUDA graph) are built once; each seed then runs a fresh episode
+    from the initial world state (goal marker placed), with the solver
+    carry re-keyed by `prng.prng_key(seed)` (JAX's `PRNGKey(seed)`).
+    device_steps=1 runs the per-step loop. → {seed: LoopMetrics}."""
     device = torch.device(device)
     world = goal_world(cfg, device)
     initial = world.state
     planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device)
+    chunk = DeviceChunk(world, planner, device_steps) if device_steps > 1 else None
     n = n_steps if n_steps is not None else cfg.n_steps
     results = {}
     for seed in seeds:
         world.state = initial
         planner.mppi.carry = dataclasses.replace(planner.mppi.init_carry(),
                                                  key=prng.prng_key(int(seed)))
-        results[seed] = run_steps(world, planner.compute_action_from_state, n,
-                                  cfg.isaacgym.dt, success_fn=success_fn)
+        if chunk is None:
+            results[seed] = run_steps(world, planner.compute_action_from_state, n,
+                                      cfg.isaacgym.dt, success_fn=success_fn)
+        else:
+            results[seed] = _run_chunked(chunk, n, cfg.isaacgym.dt, success_fn=success_fn)
         if verbose:
             print(f"seed {seed}: {results[seed].summary()}", flush=True)
     return results
+
+
+def _counts():
+    return (FusedRollout.launches, FusedWorldStep.launches, MPPIPlanner.tape_injections)
+
+
+def _add_counts(d, times=1):
+    FusedRollout.launches += d[0] * times
+    FusedWorldStep.launches += d[1] * times
+    MPPIPlanner.tape_injections += d[2] * times
+
+
+class DeviceChunk:
+    """Up to N control steps (plan → command map → world step) per host
+    round trip, on one build of the world and the planner.
+
+    Static buffers hold the solver carry (U, λ, Σ, t0), the 1-env world
+    SimState, the chunk's N noise draws, a step slot and the (N, X) output:
+    each step's post-step world state, field by field, then its action. One
+    step reads them, writes its packed row into the output at the slot, and
+    writes its results back into the carry and state buffers.
+
+    On CUDA the step is captured once as a CUDA graph and replayed: the
+    first step of the first chunk runs on a side stream as the capture's
+    warm-up (it builds the kernels' library, copies their tables and sets
+    their launch attributes, all of which a capture refuses), and every
+    later step is a replay. A capture or replay that fails raises; there is
+    no eager fallback. On CPU tensors (the caller asked for the CPU) the
+    same step runs eagerly.
+
+    A replay makes no Python call, so the kernels' launch counters and the
+    solver's tape injections are raised by the counts the capture recorded,
+    once per replay. The tables of `update_weights` and `update_objective`
+    are written in place and seen by the graph; a changed solver config is
+    captured anew; a new solver or FusedRollout (a structural
+    `update_mppi_params`, `add_to_env`) makes `run` raise."""
+
+    def __init__(self, world, planner: MPPIisaacPlanner, device_steps: int):
+        if int(device_steps) < 1:
+            raise ValueError(f"device_steps must be ≥ 1, got {device_steps}")
+        if world.device != planner.device:
+            raise ValueError(f"world on {world.device}, planner on {planner.device}")
+        self.world, self.planner = world, planner
+        self.n = int(device_steps)
+        self.device = world.device
+        self._mppi, self._fused = planner.mppi, planner.mppi.fused
+        self._stepper = world._world_step
+        tmpl = world.state
+        self._fields = [f for f in SIM_STATE_FIELDS if getattr(tmpl, f) is not None]
+        self._shapes = [tuple(getattr(tmpl, f).shape) for f in self._fields]
+        self._sizes = [int(np.prod(sh)) for sh in self._shapes]
+        dev = self.device
+        self._state = {f: torch.empty(sh, dtype=torch.float32, device=dev)
+                       for f, sh in zip(self._fields, self._shapes)}
+        c = self._mppi.carry
+        self._U, self._lam = torch.empty_like(c.U), torch.empty_like(c.lambda_)
+        self._sigma, self._t0 = torch.empty_like(c.sigma), torch.empty_like(c.t0)
+        _, d = self._mppi.draws(c.key, 1)
+        self._draws = torch.empty((self.n,) + d.shape[1:], dtype=torch.float32, device=dev)
+        self._slot = torch.zeros(1, dtype=torch.long, device=dev)
+        self._out = torch.empty(self.n, sum(self._sizes) + planner.mppi.nu,
+                                dtype=torch.float32, device=dev)
+        self._graph = None
+        self._signature = None
+        self._delta = (0, 0, 0)
+        self._info = None
+        self.captures = 0
+        self.nodes = None           # the captured step's graph nodes by type
+
+    # ------------------------------------------------------------------
+    def _step(self):
+        """One control step on the static buffers (captured on CUDA)."""
+        planner, world = self.planner, self.world
+        carry = MppiCarry(U=self._U, lambda_=self._lam, sigma=self._sigma, t0=self._t0)
+        state = SimState(**self._state)
+        draw = self._draws.index_select(0, self._slot)[0]
+        action, new, info = planner._full(carry, state, draw=draw)
+        # the first command of the action, as `apply_robot_cmd` takes it
+        state = world.stepped(world.commanded(state, action[0].expand(1, -1)))
+        row = torch.cat([getattr(state, f).reshape(-1) for f in self._fields]
+                        + [action[0].reshape(-1).to(torch.float32)])
+        self._out.index_copy_(0, self._slot, row[None])
+        self._slot += 1
+        off = 0
+        for f, sz, sh in zip(self._fields, self._sizes, self._shapes):
+            self._state[f].copy_(row[off: off + sz].view(sh))
+            off += sz
+        self._U.copy_(new.U)
+        self._lam.copy_(new.lambda_)
+        self._sigma.copy_(new.sigma)
+        self._t0.copy_(new.t0)
+        return info
+
+    def _capture(self):
+        """The warm-up step on a side stream (a real step of the run), then
+        the capture of the step."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = _counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            self._info = self._step()
+        after = _counts()
+        self._delta = tuple(a - b for a, b in zip(after, before))
+        _add_counts(self._delta, -1)       # the capture itself launched nothing
+        self.nodes = graph_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
+        self._graph = graph
+        self.captures += 1
+        return warm
+
+    # ------------------------------------------------------------------
+    def run(self, n_steps: int):
+        """Up to min(N, n_steps) control steps from `world.state` and the
+        solver's carry. Leaves the carry and `world.state` at the last step
+        run. → (post-step SimStates on the host, actions (k, nu) numpy)."""
+        planner, world, mppi = self.planner, self.world, self.planner.mppi
+        if mppi is not self._mppi or mppi.fused is not self._fused \
+                or world._world_step is not self._stepper:
+            raise RuntimeError("the planner or the world was rebuilt (a structural "
+                               "update_mppi_params or add_to_env) after this chunk was built: "
+                               "build a new DeviceChunk")
+        k = min(self.n, int(n_steps))
+        key, draws = mppi.draws(mppi.carry.key, k)
+        start = world.state
+        for f in self._fields:
+            self._state[f].copy_(getattr(start, f))
+        c = mppi.carry
+        self._U.copy_(c.U)
+        self._lam.copy_(c.lambda_)
+        self._sigma.copy_(c.sigma)
+        self._t0.copy_(c.t0)
+        self._draws[:k].copy_(torch.from_numpy(draws))
+        self._slot.zero_()
+        if self.device.type == "cuda":
+            sig = repr(mppi.cfg)
+            todo, info = k, self._info
+            if self._graph is None or sig != self._signature:
+                info = self._capture()
+                self._signature = sig
+                todo -= 1
+            for _ in range(todo):
+                self._graph.replay()
+            _add_counts(self._delta, todo)
+            if todo:
+                info = self._info          # the graph's outputs, from the last replay
+        else:
+            for _ in range(k):
+                info = self._step()
+        packed = self._out[:k].to("cpu", copy=True).numpy()      # the one fetch
+        mppi.carry = MppiCarry(U=self._U.clone(), lambda_=self._lam.clone(),
+                               sigma=self._sigma.clone(), t0=self._t0.clone(), key=key)
+        world.state = SimState(**{f: t.clone() for f, t in self._state.items()})
+        mppi.last_info = {n: v.clone() for n, v in info.items()}
+        planner._last_vis = mppi.last_info.get("vis")
+        states, actions = self._unpack(packed)
+        # the rollout sim as the last command left it: K-wide, the state the
+        # command planned from
+        last_from = start if k == 1 else states[k - 2].map(lambda x: x.to(self.device))
+        planner.reset_rollout_from_state(last_from)
+        return states, actions
+
+    def _unpack(self, packed):
+        """(k, X) host array → (k SimStates of CPU tensors, actions (k, nu))."""
+        states = []
+        for row in packed:
+            off, fields = 0, {}
+            for f, sz, sh in zip(self._fields, self._sizes, self._shapes):
+                fields[f] = torch.from_numpy(row[off: off + sz].reshape(sh))
+                off += sz
+            states.append(SimState(**fields))
+        return states, packed[:, off:]
+
+
+def _run_chunked(chunk: DeviceChunk, n: int, dt: float, success_fn=None, verbose=False,
+                 chunk_observer=None) -> LoopMetrics:
+    """One episode of up to n control steps through `chunk`, from the
+    world's state and the solver's carry: once per chunk, `objective.reset()`,
+    the chunk, one fetch, then per step the metrics (each step's time is the
+    chunk's over its steps), `chunk_observer` and `success_fn` on the
+    fetched state; at a success the world is rewound to that step's state."""
+    world, planner = chunk.world, chunk.planner
+    metrics = LoopMetrics()
+    step = 0
+    prev_pos = None
+    while step < n:
+        t0 = time.perf_counter()
+        planner.objective.reset()
+        states, actions = chunk.run(n - step)
+        t1 = time.perf_counter()
+        k = len(states)
+        metrics.commands += k
+        per = (t1 - t0) / k
+        for i in range(k):
+            metrics.solver_time.append(per)
+            metrics.fps.append(1.0 / max(per, 1e-9))
+            metrics.rt_factor.append(dt / max(per, 1e-9))
+            metrics.steps = step + 1
+            rp = states[i].root_pos[0, 0].numpy()
+            if prev_pos is not None:
+                metrics.path_length += float(np.linalg.norm(rp - prev_pos))
+            prev_pos = rp
+            if chunk_observer is not None:
+                chunk_observer(step, _StateProxy(world, states[i]), actions[i])
+            if success_fn is not None and metrics.success_step is None \
+                    and success_fn(_StateProxy(world, states[i])):
+                metrics.success_step = step
+                # rewind the live world to the success step
+                world.state = states[i].map(lambda x: x.to(world.device))
+                break
+            step += 1
+        if verbose:
+            print(f"chunk @{metrics.steps}: {per * 1e3:7.2f} ms/step  RT {dt / max(per, 1e-9):6.2f}")
+        if metrics.success_step is not None:
+            break
+    metrics.graph_nodes = chunk.nodes
+    metrics.final_state_finite = bool(all(torch.isfinite(t).all() for t in world.state.tensors()))
+    return metrics
+
+
+class _StateProxy:
+    """Simulation look-alike pinned to one fetched state (the success replay
+    and the chunk observer): the world's getters and views read `state`."""
+
+    def __init__(self, world, state):
+        self._world = world
+        self.state = state
+        self.built = world.built
+
+    def __getattr__(self, name):
+        attr = getattr(type(self._world), name, None)
+        if isinstance(attr, property):
+            return attr.fget(self)
+        if callable(attr):
+            return attr.__get__(self)
+        return getattr(self._world, name)

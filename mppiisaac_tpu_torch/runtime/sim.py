@@ -171,16 +171,25 @@ class Simulation:
         u = self._f32(u)
         if u.ndim == 1:
             u = u.expand(self.num_envs, u.shape[0])
-        self.state = self.state.replace(dof_target=self.built.cmd_map.apply(u, self.state.q))
+        self.state = self.commanded(self.state, u)
+
+    def commanded(self, state: SimState, u: torch.Tensor) -> SimState:
+        """`state` with the dof targets of u (num_envs, nu) through the
+        command map."""
+        return state.replace(dof_target=self.built.cmd_map.apply(u, state.q))
 
     def step(self):
         """Advance the world one control dt (one env)."""
+        self.state = self.stepped(self.state)
+
+    def stepped(self, state: SimState) -> SimState:
+        """The 1-env `state` one control dt later (the world-step kernel)."""
         if self._world_step is None:
             raise NotImplementedError(
                 "stepping a batch of envs (the JAX package's XLA engine) is not ported")
-        st0 = self.state.map(lambda x: x[0])
+        st0 = state.map(lambda x: x[0])
         pr0 = self.params.map(lambda x: x[0])
-        self.state = self._world_step.step(st0, pr0).map(lambda x: x[None])
+        return self._world_step.step(st0, pr0).map(lambda x: x[None])
 
     # ------------------------------------------------------------------
     def _f32(self, x) -> torch.Tensor:

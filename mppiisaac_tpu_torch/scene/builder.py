@@ -23,6 +23,7 @@ from ..physics.model import (
 from ..physics.scene_model import SceneModel
 from ..physics.types import SimState
 from ..physics.urdf import GEOM_BOX, GEOM_SPHERE, parse_urdf
+from ..utils.device_cache import DeviceCache
 from .actor import ActorSpec
 from .assets import mesh_fit
 from .robots import robot_urdf
@@ -64,10 +65,13 @@ class CommandMap:
     # opening; hysteresis keeps both while killing MPPI's open/close dither.
     binarize_dofs: List[Tuple[int, int, float, float, float, float]] = field(default_factory=list)
 
+    def __post_init__(self):
+        self._dev = DeviceCache()   # W on each device, copied at its first use
+
     def apply(self, u: torch.Tensor, q: Optional[torch.Tensor] = None) -> torch.Tensor:
         """u (..., nu) → dof targets (..., ndof). q (..., ndof) enables the
         hysteresis hold branch (without it the flip is a plain threshold)."""
-        tgt = u @ torch.as_tensor(self.W, dtype=u.dtype, device=u.device).T
+        tgt = u @ self._dev.get("W", lambda: self.W, u.dtype, u.device).T
         for dof, src, lo, hi, th, band in self.binarize_dofs:
             uc = u[..., src]
             if band > 0.0 and q is not None:

@@ -14,13 +14,16 @@ Subcommands:
   suite                          one episode of every other task, each at its
                                  conf's seed
 Options: device=cuda|cpu (default cuda), n_steps=N (cap each episode),
-results=PATH (default chiprun_out/validate_torch.json at the repo root); any
-other key=value is a config override (e.g. mppi.num_samples=16).
+device_steps=N (control steps per host round trip, default 16 as in the JAX
+package's sweeps; 1 runs the per-step loop), results=PATH (default
+chiprun_out/validate_torch.json at the repo root); any other key=value is a
+config override (e.g. mppi.num_samples=16).
 
 Every episode of a sweep runs on one build (`runtime/loop.run_task_episodes`:
 the carry keyed by `PRNGKey(seed)`, as the JAX package's). Each subcommand
 prints one JSON line per episode and a summary, and adds the summary to the
-results file under its key, with the card's name and power limit.
+results file under its key, with device_steps and the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -80,12 +83,14 @@ def _episodes(key, cfg, obj, seeds, opts, prior=None, success_fn=None, n_steps=N
     if opts["n_steps"] is not None:
         n_steps = int(opts["n_steps"])
     t0 = time.perf_counter()
+    ds = int(opts["device_steps"])
     results = run_task_episodes(cfg, obj, seeds, prior=prior, n_steps=n_steps,
-                                success_fn=success_fn, device=opts["device"])
+                                success_fn=success_fn, device=opts["device"], device_steps=ds)
     for s, m in results.items():
         print(json.dumps({"key": key, "seed": s, **m.summary(),
                           "finite": m.final_state_finite}), flush=True)
-    summ = {**_summ(results), **extra, "wall_s": time.perf_counter() - t0, **_card(opts["device"])}
+    summ = {**_summ(results), **extra, "device_steps": ds, "wall_s": time.perf_counter() - t0,
+            **_card(opts["device"])}
     print("SUMMARY " + json.dumps(summ), flush=True)
     print(f"SUCCESS {summ['successes']}/{summ['episodes']}", flush=True)
     _record(opts["results"], key, summ)
@@ -161,7 +166,8 @@ def suite(opts, overrides):
         if opts["n_steps"] is not None:
             kw["n_steps"] = int(opts["n_steps"])
         t0 = time.perf_counter()
-        m = fn(overrides=list(overrides) or None, device=opts["device"], **kw)
+        m = fn(overrides=list(overrides) or None, device=opts["device"],
+               device_steps=int(opts["device_steps"]), **kw)
         out[name] = {"success_step": m.success_step, "steps": m.steps,
                      "finite": m.final_state_finite,
                      "median_control_ms": float(np.median([1e3 / f for f in m.fps])),
@@ -170,7 +176,8 @@ def suite(opts, overrides):
     n_ok = sum(1 for v in out.values() if v["success_step"] is not None)
     print("SUMMARY " + json.dumps(out), flush=True)
     print(f"SUCCESS {n_ok}/{len(out)}", flush=True)
-    _record(opts["results"], "suite", {**out, **_card(opts["device"])})
+    _record(opts["results"], "suite", {**out, "device_steps": int(opts["device_steps"]),
+                                       **_card(opts["device"])})
     return out
 
 
@@ -194,7 +201,7 @@ def main(argv=None, device="cuda"):
     positional = [a for a in rest if "=" not in a]
     overrides, opts = split_cli(
         [a for a in rest if "=" in a],
-        {"device": device, "n_steps": None,
+        {"device": device, "n_steps": None, "device_steps": 16,
          "results": os.path.join(REPO, "chiprun_out", "validate_torch.json")})
     return SUBCOMMANDS[sub](opts, overrides, *positional)
 

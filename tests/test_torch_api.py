@@ -231,7 +231,7 @@ def _inject(jp, tp, seed):
     eps = np.random.RandomState(seed).uniform(
         -0.8, 0.8, (c.num_samples, c.horizon, tp.mppi.nu)).astype(np.float32)
     jp.mppi._sample_noise = lambda key, sigma: jnp.asarray(eps)
-    tp.mppi._sample_noise = lambda key, sigma: torch.as_tensor(eps)
+    tp.mppi.noise = lambda draw, sigma: torch.as_tensor(eps)
     dynamics = jp.mppi.dynamics
     jp.mppi.dynamics = lambda st, u, t: dynamics(st, u.astype(jnp.bfloat16).astype(jnp.float32), t)
     jp.mppi.retrace()

@@ -10,6 +10,7 @@ tests/conftest.py imports) with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -p no:cacheprovider --noconftest
 """
+import numpy as np
 import pytest
 import torch
 
@@ -562,3 +563,104 @@ def test_finger_gate_world_step_kernel_matches_plain(panda):
     A, D, NS = fw.ks.nactor, fw.ks.ndof, fw.ks.n_state_rows
     ncf = rows_p[13 * A + 2 * D: NS].reshape(-1, 3)
     assert float(ncf[fingers].norm(dim=-1).max()) > built.scene.grip_force_gate
+
+
+def test_rollout_launch_replays_from_a_cuda_graph(panda):
+    """K1 at the panda config (52 KB of shared memory per block, so every
+    launch sets the kernel's shared-memory attribute): captured once after a
+    warm-up launch, a replay gives the eager launch's costs and vis bit for
+    bit."""
+    cfg, world = panda
+    built = world.built
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = FusedRollout(built, world.engine, PandaReachObjective(cfg).kernel_cost(built), H, K,
+                      vis_body=built.visualize_bodies[0])
+    g = torch.Generator().manual_seed(3)
+    V = (torch.rand(K, H, fr.nu, generator=g) * 4 - 2).cuda()
+    st = broadcast_state(world.state.map(lambda x: x[0]), K)
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(st, pm, V)
+    costs0, vis0 = fr.run(*inputs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        costs, vis = fr.run(*inputs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(costs, costs0) and torch.equal(vis, vis0)
+
+
+@pytest.mark.parametrize("task", ["panda", "panda_pick"])
+def test_chunk_equals_the_per_step_loop(panda, task):
+    """`run_task` at device_steps=4 (one captured control step, replayed)
+    against the per-step loop over 8 steps at the shipped config: world
+    states bit for bit, K1 and K2 once per step, one capture."""
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+
+    cfg = load_config(f"tasks/{task}")
+    obj = (PandaReachObjective if task == "panda" else PandaPickObjective)(cfg)
+    runs = {}
+    for n in (1, 4):
+        seen = []
+
+        def record(w, seen=seen):
+            seen.append(w.state.map(lambda x: x.detach().cpu().clone()))
+            return False
+
+        FusedRollout.launches = FusedWorldStep.launches = 0
+        m = run_task(cfg, obj, n_steps=8, success_fn=record, device="cuda", device_steps=n)
+        torch.cuda.synchronize()
+        assert (FusedRollout.launches, FusedWorldStep.launches) == (8, 8), n
+        assert m.steps == m.commands == 8
+        runs[n] = seen
+    for i, (a, b) in enumerate(zip(runs[1], runs[4])):
+        for f in SIM_STATE_FIELDS:
+            if getattr(a, f) is not None:
+                assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
+
+
+def test_chunk_sees_online_changes_on_the_card(panda):
+    """On the card, between two chunks: `update_weights` re-packs the tables
+    the captured graph reads (no new capture), a changed solver config is
+    captured anew, and each next chunk equals the per-step loop under the
+    change, bit for bit; a structural `update_mppi_params` makes the old
+    chunk raise."""
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import DeviceChunk, goal_world
+
+    cfg = load_config("tasks/panda")
+    world = goal_world(cfg, "cuda")
+    planner = MPPIisaacPlanner(cfg, PandaReachObjective(cfg), device="cuda")
+    chunk = DeviceChunk(world, planner, 4)
+    chunk.run(4)
+    carry, state = planner.mppi.carry, world.state
+
+    def chunked():
+        planner.mppi.carry, world.state = carry, state
+        return chunk.run(4)[1]
+
+    def per_step():
+        planner.mppi.carry, world.state = carry, state
+        acts = []
+        for _ in range(4):
+            a = planner.compute_action_from_state(world.state)
+            world.apply_robot_cmd(a)
+            world.step()
+            acts.append(a.cpu().numpy())
+        return np.stack(acts)
+
+    a0 = chunked()
+    assert np.array_equal(a0, per_step()) and chunk.captures == 1
+    planner.update_weights({k: 3.0 * v for k, v in planner.objective.weights.items()})
+    a1 = chunked()
+    assert chunk.captures == 1 and not np.array_equal(a0, a1)
+    assert np.array_equal(a1, per_step())
+    planner.update_mppi_params({"noise_abs_cost": not cfg.mppi.noise_abs_cost})
+    a2 = chunked()
+    assert chunk.captures == 2 and not np.array_equal(a1, a2)
+    assert np.array_equal(a2, per_step())
+    planner.update_mppi_params({"horizon": 10})
+    with pytest.raises(RuntimeError, match="rebuilt"):
+        chunk.run(4)

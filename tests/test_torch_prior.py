@@ -101,7 +101,7 @@ def test_command_with_tape_prior_matches_jax(overrides):
 
     jp = JPlanner(jc.mppi, jc.nx, dynamics=None, running_cost=None, fused=_JStub(),
                   tape_prior=j_tape)
-    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub(), tape_prior=t_tape)
+    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub(), tape_prior=t_tape, device="cpu")
     rng = np.random.RandomState(11)
     carry = jp.init_carry()
     carry = carry._replace(U=jnp.asarray(rng.uniform(-0.5, 0.5, carry.U.shape), jnp.float32),

@@ -226,9 +226,9 @@ def test_mobile_cost_matches_jax_kernel_cost(task, kind, robot):
 
 
 def test_entry_points_default_to_cuda():
-    """run_task, run_task_episodes, Simulation, MPPIisaacPlanner, every
-    task's run, the two-process examples' main (and their world loops) and
-    the validate twin default to the card; a task CLI without device= asks
+    """run_task, run_task_episodes, Simulation, MPPIisaacPlanner, the MPPI
+    solver (MPPIPlanner), every task's run, the two-process examples' main
+    (and their world loops) and the validate twin default to the card; a task CLI without device= asks
     for the card too, and on a machine without one it fails instead of
     falling back to the CPU."""
     from mppiisaac_tpu_torch import validate
@@ -237,9 +237,11 @@ def test_entry_points_default_to_cuda():
     from mppiisaac_tpu_torch.examples.panda_pick import world as pick_world
     from mppiisaac_tpu_torch.examples.point_robot import planner as pr_planner
     from mppiisaac_tpu_torch.examples.point_robot import world as pr_world
+    from mppiisaac_tpu_torch.mppi.solver import MPPIPlanner as TSolver
     from mppiisaac_tpu_torch.runtime.loop import run_task_episodes
 
-    for fn in (run_task, run_task_episodes, TSim.__init__, TPlanner.__init__, panda_reach.run,
+    for fn in (run_task, run_task_episodes, TSim.__init__, TPlanner.__init__, TSolver.__init__,
+               panda_reach.run,
                panda_pick.run, mobile_reach.run, mobile_push.run, point_robot.run,
                multi_robot.run, panda_stick_push.run, omni_panda_pick.run, pick_planner.main,
                pick_world.main, pr_planner.main, pr_world.main, pick_world.run, pr_world.run,

@@ -53,7 +53,7 @@ CASES = [
 def test_command_matches_jax_with_injected_noise(task, overrides):
     jc, tc = j_load(f"tasks/{task}", overrides), t_load(f"tasks/{task}", overrides)
     jp = JPlanner(jc.mppi, jc.nx, dynamics=None, running_cost=None, fused=_JStub())
-    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub())
+    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub(), device="cpu")
     rng = np.random.RandomState(7)
     carry = jp.init_carry()
     carry = carry._replace(U=jnp.asarray(rng.uniform(-0.5, 0.5, carry.U.shape), jnp.float32))
@@ -81,13 +81,13 @@ def test_halton_ndtri_noise_statistics():
     ndtri: zero mean, per-step covariance (Σ_t P[h,t]²)·Σ, fresh shifts per
     draw and a seeded, reproducible generator."""
     tc = t_load("tasks/panda")
-    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub())
+    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub(), device="cpu")
     c = tp.cfg
     sigma = tp.carry.sigma
     key, draws = tp.carry.key, []
     for _ in range(4):
         key, sub = prng.split(key)
-        draws.append(tp._sample_noise(sub, sigma))
+        draws.append(tp.noise(torch.from_numpy(tp._draw_np(sub)), sigma))
     eps = torch.cat(draws).double()                                  # (4K,H,nu)
     assert eps.shape[1:] == (c.horizon, tp.nu)
     P = bspline_interp_matrix(tp._n_knots, c.horizon, c.spline_degree)
@@ -96,8 +96,9 @@ def test_halton_ndtri_noise_statistics():
     assert np.abs(eps.mean(0).numpy()).max() < 0.05 * std.min()
     np.testing.assert_allclose(eps.var(0).numpy(), expect_var, rtol=0.1)
     assert not torch.equal(draws[0], draws[1])
-    tp2 = TPlanner(tc.mppi, tc.nx, fused=_TStub())
-    assert torch.equal(tp2._sample_noise(prng.split(tp2.carry.key)[1], sigma), draws[0])
+    tp2 = TPlanner(tc.mppi, tc.nx, fused=_TStub(), device="cpu")
+    assert torch.equal(tp2.noise(torch.from_numpy(tp2._draw_np(prng.split(tp2.carry.key)[1])),
+                                 sigma), draws[0])
 
 
 @pytest.mark.parametrize("seed", [0, 42, 2**31 + 5])
@@ -128,7 +129,7 @@ def test_commands_match_jax_with_drawn_noise(task, overrides):
     draws what the JAX solver draws, so actions and carries agree."""
     jc, tc = j_load(f"tasks/{task}", overrides), t_load(f"tasks/{task}", overrides)
     jp = JPlanner(jc.mppi, jc.nx, dynamics=None, running_cost=None, fused=_JStub())
-    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub())
+    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub(), device="cpu")
     jcar, tcar = jp.init_carry(), tp.carry
     for i in range(3):
         a_j, jcar, i_j = jp._command_impl(jcar, (None, None))
@@ -145,7 +146,7 @@ def test_update_noise_sigma_matches_jax():
     change together, as in the JAX solver."""
     jc, tc = j_load("tasks/point_robot"), t_load("tasks/point_robot")
     jp = JPlanner(jc.mppi, jc.nx, dynamics=None, running_cost=None, fused=_JStub())
-    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub())
+    tp = TPlanner(tc.mppi, tc.nx, fused=_TStub(), device="cpu")
     new = np.diag([0.3, 0.4, 0.5])
     jp.update_noise_sigma(new)
     tp.update_noise_sigma(new)
