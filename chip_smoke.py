@@ -140,6 +140,22 @@ Phases (any failure exits non-zero before the result line):
      idle share over TRACE_STEPS steady steps of panda and pick, per step
      and chunked (torch.profiler; traces in profile_out/). Phase 17c's
      episodes run at device_steps=CHUNK_STEPS;
+ 17e. the batched world: the balls demo
+     (`mppiisaac_tpu_torch.examples.balls_demo`, BALLS_ENVS = 1080 envs of 4
+     balls, 100 steps after one warm-up step) through `Simulation.step`, one
+     K2 launch per step over all envs (launches counted), the envs identical (1e-4, as the JAX demo)
+     and the snapshot restored exactly; then the batched K2 held from the
+     balls after BALLS_SETTLE steps with each env's x velocities drawn apart
+     and from a randomized point robot pushing its block (256 envs, per-env
+     mass, friction and commands), BATCH_HOLD_STEPS steps each: envs 0, N/2
+     and N−1 of every launch bit for bit against the one-env launch on their
+     inputs, the batch against the plain version on a slice of 16 envs
+     within 10× that slice's own float32-vs-float64 drift (hold_batch);
+ 17f. the bench twin (`python -m mppiisaac_tpu_torch.bench`: pick K=1000,
+     H=30, world fidelity, 1 sweep; its JSON line is printed on an earlier
+     line) with its K1 launches counted, then its K1 on a command's inputs
+     against the plain version on the first BENCH_PLAIN_SAMPLES samples,
+     within 10× that plain version's own float32-vs-float64 drift;
  18. time K1 and K2 on the reach, pick, boxer_push, panda_stick_push,
      omni_panda_pick, multi_jackal, albert, anymal, fast-pick and box-pair
      paths against their plain versions (CUDA events). To keep the run
@@ -153,7 +169,9 @@ Phases (any failure exits non-zero before the result line):
      print their seconds. The earlier paths keep their depth. Each kernel
      entry also gives its launch geometry (warps_per_block, smem_bytes);
      each path's line before them prints how many times faster both kernels
-     are than with one thread per sample (EARLIER_MS, PR 5's times).
+     are than with one thread per sample (EARLIER_MS). Then
+     the batched K2 on phase 17e's balls (1080 envs, its launches those of
+     the demo) and the bench's K1 at H=30, each as one more entry.
 Each kernel's bound — the least time the card could take for the same work —
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s; the operations are
@@ -511,13 +529,14 @@ def k1_bound(fr, k1_in):
 
 
 def k2_bound(fw, k2_in):
-    """(bound ms, bound_by, flops, bytes, live share) of K2 on these inputs."""
+    """(bound ms, bound_by, flops, bytes, live share) of K2 on these inputs
+    (one env, or N envs in the kernel's layout)."""
     from mppiisaac_tpu_torch.ops import fused_physics as fp
 
-    rows, tgt, mass, fric = k2_in
+    rows, tgt, mass, fric = (x if x.dim() == 2 else x[:, None] for x in k2_in)
     with torch.no_grad(), OpCount() as c:
-        st = fp.rows_to_state(fw.ks, rows[:, None])
-        fp.substep(fw.ks, st, tgt[None], mass[None], fric[None], fw.dt_sub, fw.impulse_sweeps)
+        st = fp.rows_to_state(fw.ks, rows)
+        fp.substep(fw.ks, st, tgt.T, mass.T, fric.T, fw.dt_sub, fw.impulse_sweeps)
     flops = c.flops * fw.substeps
     nbytes = 2 * _nbytes(rows) + _nbytes(tgt, mass, fric) + len(fw._tables._bytes)
     return _bound(flops, nbytes) + (c.live_share,)
@@ -2016,6 +2035,167 @@ def chunked_paths(dev, root):
     print(f"    phase 17d {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 17e: the batched world (the balls demo's scene, then a randomized
+# point-robot batch), each step of every env in one K2 launch
+BALLS_ENVS, BALLS_BALLS, BALLS_STEPS = 1080, 4, 100
+BALLS_SETTLE = 20            # steps before the hold: two balls landed, two falling
+POINT_BATCH_ENVS = 256
+BATCH_HOLD_STEPS = 3
+BATCH_PLAIN_ENVS = 16        # the plain version's slice of the batch (envs are independent)
+
+
+def _groups(ks, d):
+    """max |d| of (rows, N) differences by row group (pose, vel, lam)."""
+    A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
+    root = d[: 13 * A].reshape(A, 13, -1)
+    q = d[13 * A: 13 * A + D].max().item() if D else 0.0
+    return dict(pose=max(root[:, :7].max().item(), q),
+                vel=max(root[:, 7:].max().item(), d[13 * A + D: NS].max().item()),
+                lam=d[NS:].max().item() if ks.n_fc else 0.0)
+
+
+def hold_batch(name, sim, n):
+    """K2 over all of `sim`'s envs for n steps from its state (one launch a
+    step), each step's envs 0, N/2 and N−1 bit for bit against the one-env
+    launch on their inputs, and the batch against the plain version on a
+    slice of BATCH_PLAIN_ENVS envs, within 10× that slice's own
+    float32-vs-float64 drift over the same steps (floor 1e-6) by row
+    group; the λ rows must carry an impulse. → (the largest group's |d|,
+    the kernel's inputs of the first step)."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import world_step_plain
+
+    fw = sim._world_step
+    ks = fw.ks
+    rows = fw.pack(sim.state).contiguous()
+    k2_in = (rows, sim.state.dof_target.T.contiguous(),
+             sim.params.body_mass_scale.T.contiguous(), sim.params.geom_friction.T.contiguous())
+    _, tgt, mass, fric = k2_in
+    N = rows.shape[1]
+    idx = torch.arange(0, N, max(1, N // BATCH_PLAIN_ENVS), device=rows.device)[:BATCH_PLAIN_ENVS]
+    plain_in = {dt: [x[:, idx].to(dt) for x in k2_in] for dt in (torch.float32, torch.float64)}
+    rp = {dt: v[0] for dt, v in plain_in.items()}
+    for _ in range(n):
+        out = fw.step_rows(rows, tgt, mass, fric)
+        for e in (0, N // 2, N - 1):
+            one = fw.step_rows(rows[:, e].contiguous(), tgt[:, e].contiguous(),
+                               mass[:, e].contiguous(), fric[:, e].contiguous())
+            if not torch.equal(one, out[:, e]):
+                fail(f"{name}: env {e} of the batched K2 differs from its one-env launch")
+        rows = out
+        for dt, (_, t, m, f) in plain_in.items():
+            rp[dt] = world_step_plain(ks, rp[dt], t.T, m.T, f.T, fw.substeps, fw.dt_sub,
+                                      fw.impulse_sweeps)
+    torch.cuda.synchronize()
+    err = _groups(ks, (rows[:, idx].double() - rp[torch.float32].double()).abs())
+    drift = _groups(ks, (rp[torch.float32].double() - rp[torch.float64]).abs())
+    bound = {k: max(10 * v, 1e-6) for k, v in drift.items()}
+    print(f"  {name}: envs 0, {N // 2}, {N - 1} bit-equal to their one-env launches over {n} "
+          f"steps; envs {idx[0].item()}..{idx[-1].item()} (every {N // len(idx)}th) against the "
+          f"plain batch: max|d| " + ", ".join(
+              f"{k} {e:.3e} (bound {bound[k]:.3g}: 10x drift {drift[k]:.3g})"
+              for k, e in err.items()), flush=True)
+    if not bool(torch.isfinite(rows).all()) or any(e > bound[k] for k, e in err.items()):
+        fail(f"{name}: the batched K2 disagrees with its plain version")
+    if ks.n_fc and float(rp[torch.float32][ks.n_state_rows:].abs().max()) == 0.0:
+        fail(f"{name}: no λ row carried a contact impulse")
+    return max(err.values()), k2_in
+
+
+def batched_paths(dev):
+    """Phase 17e: the demo at BALLS_ENVS envs through the batched
+    `Simulation.step` (launches counted, envs identical, exact restore);
+    then the batched K2 held from the balls after BALLS_SETTLE steps with
+    each env's x velocities drawn apart, and from a randomized point-robot
+    batch pushing its block. → the timed batch (phase 18)."""
+    from mppiisaac_tpu_torch.examples import balls_demo
+    from mppiisaac_tpu_torch.runtime.sim import Simulation
+    from mppiisaac_tpu_torch.scene.builder import SimConfig
+
+    t0 = time.perf_counter()
+    reset_counts()
+    demo = balls_demo.main(BALLS_ENVS, BALLS_BALLS, BALLS_STEPS, device=dev)
+    n1, n2 = read_counts()
+    print(f"[17e] balls demo: {BALLS_ENVS} envs x {BALLS_STEPS} steps, launches K1 {n1} K2 {n2}; "
+          f"{demo['ms_per_step']:.3f} ms per step, {demo['env_steps_per_s']:.0f} env-steps/s",
+          flush=True)
+    if not (demo["identical"] and demo["exact"]):
+        fail("balls demo: envs differ or the restore is not exact")
+    if (n1, n2) != (0, BALLS_STEPS + 1):
+        fail(f"balls demo: expected K2 once per step ({BALLS_STEPS} and the warm-up step), got "
+             f"K1 {n1} K2 {n2}")
+    sim = balls_demo.balls_sim(BALLS_ENVS, BALLS_BALLS, dev)
+    for _ in range(BALLS_SETTLE):
+        sim.step()
+    vx = np.random.RandomState(SEED).uniform(-0.5, 0.5, (BALLS_ENVS, BALLS_BALLS))
+    rl = sim.state.root_linvel.clone()
+    rl[..., 0] = torch.as_tensor(vx, dtype=torch.float32, device=dev)
+    sim._set(sim.state.replace(root_linvel=rl))
+    err, k2_in = hold_batch(f"balls N={BALLS_ENVS}", sim, BATCH_HOLD_STEPS)
+    psim = Simulation(SimConfig(dt=0.05, substeps=1), ["point_robot", "block", "goal"],
+                      num_envs=POINT_BATCH_ENVS, randomize=True, seed=3, device=dev)
+    psim.set_actor_position_by_name("block", [0.45, 0.0, 0.1])      # in front of the robot
+    u = np.random.RandomState(SEED).uniform(-1, 1, (POINT_BATCH_ENVS, 3)).astype(np.float32)
+    u[:, 0] = 1.0                                                    # pushing along +x
+    psim.apply_robot_cmd(u)
+    hold_batch(f"point_robot + block N={POINT_BATCH_ENVS}, randomized", psim, BATCH_HOLD_STEPS)
+    print(f"    phase 17e {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(fw=sim._world_step, k2_in=k2_in, n2=n2, err=err, demo=demo)
+
+
+BENCH_PLAIN_SAMPLES = 32     # phase 17f: the plain K1 at H=30 on this many samples
+
+
+def bench_path(dev):
+    """Phase 17f: the bench twin (`python -m mppiisaac_tpu_torch.bench`, its
+    defaults: pick K=1000, H=30) with its K1 launches counted (warm-up batch
+    and command, ITERS batches of CHUNK, the latency calls), then K1 on a
+    command's inputs of its rollout (the initial state, V drawn as the
+    solver draws it) against the plain version on BENCH_PLAIN_SAMPLES
+    samples, within 10× that plain version's own float32-vs-float64 drift
+    (floor 1e-6). → the timed path (phase 18)."""
+    from mppiisaac_tpu_torch import bench
+    from mppiisaac_tpu_torch.ops.fused_rollout import rollout_plain
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rec = bench.main()
+    n1, n2 = read_counts()
+    expect = (bench.CHUNK + 1) + bench.ITERS * bench.CHUNK + bench.LATENCY_CALLS
+    print(f"[17f] bench twin: {rec['value']:.0f} env-steps/s, {rec['per_command_ms']:.3f} ms per "
+          f"command, latency {rec['latency_ms']:.3f} ms; launches K1 {n1} (expected {expect}), "
+          f"K2 {n2}", flush=True)
+    if (n1, n2) != (expect, 0):
+        fail(f"bench twin: expected {expect} K1 launches and no K2, got {n1} and {n2}")
+    planner = rec["planner"]
+    mppi, fr = planner.mppi, planner.mppi.fused
+    _, d = mppi.draws(mppi.carry.key, 1)
+    eps = mppi.noise(torch.as_tensor(d[0], device=dev), mppi.carry.sigma)
+    V = torch.clamp(mppi.carry.U[None] + eps, mppi._u_min, mppi._u_max) * mppi.cfg.u_scale
+    k1_in = fr.pack(planner.sim.state, planner._params_K, V)
+    costs, vis = fr.run(*k1_in)
+    n = BENCH_PLAIN_SAMPLES
+    part = [x[..., :n].contiguous() for x in k1_in]
+    plain, ms = {}, {}
+    for dt in (torch.float32, torch.float64):
+        with Timer() as t:
+            plain[dt] = rollout_plain(fr.ks, part[0].to(dt), part[1].to(dt), part[2].to(dt),
+                                      part[3].to(dt), fr.H, fr.substeps, fr.dt_sub, fr.vis_body,
+                                      fr.impulse_sweeps, fr.world_fidelity)
+        ms[dt] = t.ms
+    plain_ms = ms[torch.float32]
+    err = (costs[:n].double() - plain[torch.float32][0].double()).abs().max().item()
+    drift = (plain[torch.float32][0].double() - plain[torch.float64][0]).abs().max().item()
+    bound = max(10 * drift, 1e-6)
+    print(f"  bench K1 (K={fr.K}, H={fr.H}) costs of the first {n} samples against the plain "
+          f"version: max|d| {err:.3e} (bound {bound:.3g}: 10x drift {drift:.3g}); the plain K1 on "
+          f"{n} samples {plain_ms / 1e3:.1f} s; phase 17f {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not bool(torch.isfinite(costs).all()) or err > bound:
+        fail("bench twin: K1 disagrees with its plain version")
+    within("bench vis", vis[:, :n], plain[torch.float32][1], VIS_ATOL, 0.0)
+    return dict(fr=fr, k1_in=k1_in, n1=n1, err=err, plain_ms=plain_ms, rec=rec)
+
+
 def geometry_table():
     """Phase 1's launch geometry of K1 and K2 at each timed path's conf."""
     import ctypes
@@ -2036,6 +2216,13 @@ def geometry_table():
         print(f"    geometry {task}: K1 K={K}, {W} warps per block, {-(-K // W)} blocks on {n_sm} "
               f"SMs, {tables + W * nbytes} B shared per block ({tables} B tables + {W} x {nbytes} "
               f"B per sample); K2 1 block of 1 warp, {tables + nbytes} B shared", flush=True)
+    from mppiisaac_tpu_torch.examples import balls_demo
+
+    w = balls_demo.balls_sim(1, BALLS_BALLS, device="cpu")
+    W, nbytes = launch_geometry(KernelScene.build(w.built, w.engine, None), BALLS_ENVS, n_sm)
+    print(f"    geometry balls batch: K2 N={BALLS_ENVS} envs, {W} warps per block, "
+          f"{-(-BALLS_ENVS // W)} blocks on {n_sm} SMs, {tables + W * nbytes} B shared per block "
+          f"({tables} B tables + {W} x {nbytes} B per env)", flush=True)
 
 
 def main():
@@ -2085,6 +2272,8 @@ def main():
     rpc_path(dev, root)
     episode_paths(dev)
     chunked_paths(dev, root)
+    batch = batched_paths(dev)
+    bench_run = bench_path(dev)
 
     # ---- 18. timing, and each kernel's bound on the timed inputs ----
     t0 = time.perf_counter()
@@ -2121,6 +2310,49 @@ def main():
                 "launches": n, "max_abs_err": e, "ms": tk, "plain_ms": tp,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
                 "warps_per_block": wpb, "smem_bytes": smem, **extra})
+    # the batched K2 (the balls at BALLS_ENVS envs) and the bench's K1 (H=30)
+    fw, k2_in = batch["fw"], batch["k2_in"]
+    N = k2_in[0].shape[1]
+    k2_ms = cuda_time_ms(lambda: fw.step_rows(*k2_in))
+    k2_plain = cuda_time_ms(lambda: fw.plain(*k2_in), reps=3, warmup=1)
+    b2 = k2_bound(fw, k2_in)
+    W = fw.warps(dev, N)
+    tables = len(fw._tables._bytes)
+    # the same launch shape on the first n_sm·W envs: one wave of blocks
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    wave_in = [x[:, : n_sm * W].contiguous() for x in k2_in]
+    wave_ms = cuda_time_ms(lambda: fw.step_rows(*wave_in))
+    print(f"[18] balls batch N={N}: K2 {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms; {W} warps per "
+          f"block, {-(-N // W)} blocks on {n_sm} SMs, {tables + W * fw.warp_bytes} B shared; one "
+          f"wave ({n_sm * W} envs, {n_sm} blocks) {wave_ms:.3f} ms; bound {b2[0]:.6f} ms ({b2[1]}: "
+          f"{b2[2]:.4g} flop, {b2[3]} B, live block share {b2[4]:.3f}); "
+          f"{N / k2_ms * 1e3:.0f} env-steps/s in the kernel", flush=True)
+    entries.append({
+        "name": "fused_world_step_kernel", "path": f"balls_batch_N{N}", "route": "cuda",
+        "source": src, "replaces": "mppiisaac_tpu/ops/pallas/fused_rollout.py:533",
+        "launches": batch["n2"], "max_abs_err": batch["err"], "ms": k2_ms, "plain_ms": k2_plain,
+        "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None, "warps_per_block": W,
+        "smem_bytes": tables + W * fw.warp_bytes, "envs": N, "blocks": -(-N // W),
+        "one_wave_envs": n_sm * W, "one_wave_ms": wave_ms,
+        "demo_ms_per_step": batch["demo"]["ms_per_step"],
+        "demo_env_steps_per_s": batch["demo"]["env_steps_per_s"]})
+    fr, k1_in = bench_run["fr"], bench_run["k1_in"]
+    k1_ms = cuda_time_ms(lambda: fr.run(*k1_in), reps=10)
+    b1 = k1_bound(fr, k1_in)
+    W = fr.warps(dev)
+    tables = len(fr._tables._bytes)
+    print(f"[18] bench K={fr.K}, H={fr.H}: K1 {k1_ms:.3f} ms vs plain {bench_run['plain_ms']:.3f} "
+          f"ms on {BENCH_PLAIN_SAMPLES} samples; {W} warps per block; bound {b1[0]:.6f} ms "
+          f"({b1[1]}: {b1[2]:.4g} flop, {b1[3]} B, live block share {b1[4]:.3f})", flush=True)
+    entries.append({
+        "name": "fused_rollout_kernel", "path": f"bench_pick_K{fr.K}_H{fr.H}", "route": "cuda",
+        "source": src, "replaces": "mppiisaac_tpu/ops/pallas/fused_rollout.py:367",
+        "launches": bench_run["n1"], "max_abs_err": bench_run["err"], "ms": k1_ms,
+        "plain_ms": bench_run["plain_ms"], "bound_ms": b1[0], "bound_by": b1[1],
+        "library_ms": None, "warps_per_block": W, "smem_bytes": tables + W * fr.warp_bytes,
+        "plain_samples": BENCH_PLAIN_SAMPLES,
+        "bench_env_steps_per_s": bench_run["rec"]["value"],
+        "bench_latency_ms": bench_run["rec"]["latency_ms"]})
     print(f"    phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -48,15 +48,17 @@ int emu_rollout(const void* tables, const float* rows, const uint16_t* V, const 
   return 0;
 }
 
+// K2 over N envs with one warp per block, block e running env e
 int emu_world_step(const void* tables, const float* rows, const float* tgt, const float* mass,
-                   const float* fric, float* out, int substeps, float dt_sub, int sweeps,
+                   const float* fric, float* out, int N, int substeps, float dt_sub, int sweeps,
                    int warp_bytes) {
   if ((long)sizeof(SceneTables) + warp_bytes > (long)sizeof(smem)) return 1;
   emu::block_dim.x = 32;
-  run_block(0, [&] {
-    fused_world_step_kernel((const SceneTables*)tables, rows, tgt, mass, fric, out, substeps,
-                            dt_sub, sweeps, 1, 1);
-  });
+  for (int e = 0; e < N; ++e)
+    run_block(e, [&] {
+      fused_world_step_kernel((const SceneTables*)tables, rows, tgt, mass, fric, out, N,
+                              substeps, dt_sub, sweeps, 1);
+    });
   return 0;
 }
 

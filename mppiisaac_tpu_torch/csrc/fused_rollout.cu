@@ -741,27 +741,34 @@ fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __rest
 }
 
 // ---------------------------------------------------------------------------
-// K2: one env advanced one control dt (all substeps at world fidelity).
+// K2: N envs, each advanced one control dt (all substeps at world fidelity).
 //
 // Replaces FusedWorldStep._kernel (ops/pallas/fused_rollout.py:483-516,
-// launched by pallas_call at :533). K1's device code at K = 1: one block of
-// one warp runs the world's one sample, with `sweeps` (16) impulse sweeps
-// per substep and the λ rows in and out. The stride of mass and fric (1) and
-// the world flag (1) come as arguments, as in K1, so that the compiler
-// builds the same code for both. Bound, like K1, by the latency of one
-// sample's chain; the warp's lanes shorten it.
+// launched by pallas_call at :533), which steps one env; the JAX package
+// steps a batch only through XLA's vmap of Engine.step. Here K1's device
+// code runs one warp per env, W warps per block (as K1: W ≤ 8, chosen by
+// the wrapper so that N envs spread over the SMs), with `sweeps` (16)
+// impulse sweeps per substep and the λ rows in and out. Rows and targets are
+// laid out env-fastest (rows[r·N + e], tgt[d·N + e]) and mass and fric with
+// stride N, exactly as K1 reads its samples with stride K; the world flag
+// (1) comes as an argument, as in K1, so that the compiler builds the same
+// code for both. An env's warp does the same arithmetic at any N, so each
+// env of a batch equals the one-env launch on its inputs bit for bit. Bound,
+// like K1, by the latency of one env's chain; the warp's lanes shorten it.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32, 1)
+__global__ void __launch_bounds__(256, 1)
 fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __restrict__ rows_in,
                         const float* __restrict__ tgt_in, const float* __restrict__ mass,
-                        const float* __restrict__ fric, float* __restrict__ rows_out,
-                        int substeps, float dt_sub, int sweeps, int stride, int world) {
+                        const float* __restrict__ fric, float* __restrict__ rows_out, int N,
+                        int substeps, float dt_sub, int sweeps, int world) {
   extern __shared__ int smem[];
   SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
-  const int lane = threadIdx.x & 31;
-  const Warp W{reinterpret_cast<float*>(smem) + sizeof(SceneTables) / 4, lane};
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int e = blockIdx.x * (blockDim.x >> 5) + wi;
+  if (e >= N) return;  // the whole warp
+  const Warp W{reinterpret_cast<float*>(smem) + sizeof(SceneTables) / 4 + wi * sc.warp_words, lane};
   Sample s;
   Kin kin;
   Swept sw;
@@ -769,13 +776,13 @@ fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __r
   bind(sc, W, s, kin, sw, c);
   c.kid = 1;
   const int n_rows = state_rows(sc) + 4 * sc.n_fc;
-  for (int r = lane; r < n_rows; r += 32) W.w[r] = rows_in[r];
+  for (int r = lane; r < n_rows; r += 32) W.w[r] = rows_in[r * N + e];
   float* tgt = W.f(sc, L_TGT);
-  for (int d = lane; d < sc.ndof; d += 32) tgt[d] = tgt_in[d];
+  for (int d = lane; d < sc.ndof; d += 32) tgt[d] = tgt_in[d * N + e];
   __syncwarp();
   for (int it = 0; it < substeps; ++it)
-    substep(sc, s, kin, sw, c, W, tgt, mass, fric, stride, dt_sub, sweeps, world != 0);
-  for (int r = lane; r < n_rows; r += 32) rows_out[r] = W.w[r];
+    substep(sc, s, kin, sw, c, W, tgt, mass + e, fric + e, N, dt_sub, sweeps, world != 0);
+  for (int r = lane; r < n_rows; r += 32) rows_out[r * N + e] = W.w[r];
 }
 
 // ---------------------------------------------------------------------------
@@ -837,15 +844,17 @@ int fused_rollout_launch(const void* tables, const void* rows, const void* V, co
   return (int)cudaGetLastError();
 }
 
+// N envs; warps: envs per block; warp_bytes: one env's region
 int fused_world_step_launch(const void* tables, const void* rows, const void* tgt,
-                            const void* mass, const void* fric, void* out, int substeps,
-                            float dt_sub, int sweeps, int warp_bytes, void* stream) {
-  const int smem = (int)sizeof(SceneTables) + warp_bytes;
+                            const void* mass, const void* fric, void* out, int N, int substeps,
+                            float dt_sub, int sweeps, int warps, int warp_bytes, void* stream) {
+  const int blocks = (N + warps - 1) / warps;
+  const int smem = (int)sizeof(SceneTables) + warps * warp_bytes;
   int rc = set_smem((const void*)fused_world_step_kernel, smem);
   if (rc != 0) return rc;
-  fused_world_step_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
+  fused_world_step_kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const float*)tgt, (const float*)mass,
-      (const float*)fric, (float*)out, substeps, dt_sub, sweeps, 1, 1);
+      (const float*)fric, (float*)out, N, substeps, dt_sub, sweeps, 1);
   return (int)cudaGetLastError();
 }
 

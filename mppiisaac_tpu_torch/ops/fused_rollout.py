@@ -592,10 +592,10 @@ class FusedRollout:
 
 
 class FusedWorldStep:
-    """K2: one env advanced one control dt (every substep, `impulse_sweeps`
-    sweeps each) in one launch. `step` seeds the λ rows from
-    SimState.contact_lam, scatters them back, and refreshes the body caches
-    with the engine's torch refresh."""
+    """K2: N ≥ 1 envs, each advanced one control dt (every substep,
+    `impulse_sweeps` sweeps each), in one launch of one warp per env. `step`
+    seeds each env's λ rows from its SimState.contact_lam, scatters them
+    back, and refreshes the body caches with the engine's torch refresh."""
 
     launches = 0
 
@@ -608,33 +608,54 @@ class FusedWorldStep:
         self.impulse_sweeps = int(impulse_sweeps)
         self._tables = _DeviceTables(self.ks, -1, self.fc_idx)
         self.warp_bytes = region_bytes(self.ks)
+        self._warps: Dict[tuple, int] = {}  # (device index, N) → warps per block
 
-    def _check_inputs(self, rows, tgt, mass, fric):
+    def warps(self, device: torch.device, N: int = 1) -> int:
+        """Warps (envs) per block of a launch over N envs on a CUDA device
+        (1 at N = 1)."""
+        W = self._warps.get((device.index, N))
+        if W is None:
+            n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+            W = self._warps[(device.index, N)] = warps_per_block(self.warp_bytes, N, n_sm)
+        return W
+
+    def _check_inputs(self, rows, tgt, mass, fric) -> int:
+        """The kernel's layout, env-fastest: rows (NS + 4·n_fc, N), tgt (D, N),
+        mass (B, N), fric (G, N); one env may drop the N axis. → N."""
         ks, dev = self.ks, rows.device
-        _check("rows", rows, (ks.n_rows,), torch.float32, dev)
-        _check("tgt", tgt, (ks.ndof,), torch.float32, dev)
-        _check("mass", mass, (ks.nbody,), torch.float32, dev)
-        _check("fric", fric, (ks.ngeom,), torch.float32, dev)
+        lead = tuple(rows.shape[1:2])
+        if rows.dim() not in (1, 2) or lead == (0,):
+            raise ValueError(f"rows: shape {tuple(rows.shape)}, expected ({ks.n_rows},) or "
+                             f"({ks.n_rows}, N ≥ 1)")
+        _check("rows", rows, (ks.n_rows,) + lead, torch.float32, dev)
+        _check("tgt", tgt, (ks.ndof,) + lead, torch.float32, dev)
+        _check("mass", mass, (ks.nbody,) + lead, torch.float32, dev)
+        _check("fric", fric, (ks.ngeom,) + lead, torch.float32, dev)
+        return lead[0] if lead else 1
 
     def plain(self, rows, tgt, mass, fric):
+        """The kernel's plain PyTorch version, on any device, in the
+        kernel's layout."""
         self._check_inputs(rows, tgt, mass, fric)
+        if rows.dim() == 2:                     # world_step_plain takes envs first
+            tgt, mass, fric = tgt.T, mass.T, fric.T
         return world_step_plain(self.ks, rows, tgt, mass, fric, self.substeps, self.dt_sub,
-                                self.impulse_sweeps)
+                                self.impulse_sweeps).contiguous()
 
     def step_rows(self, rows, tgt, mass, fric):
-        """rows (NS + 4·n_fc,), tgt (D,), mass (B,), fric (G,) → rows one dt
-        later."""
+        """rows (NS + 4·n_fc, N), tgt (D, N), mass (B, N), fric (G, N) → rows
+        one dt later (one env: the same without the N axis)."""
         if rows.device.type == "cpu":
             return self.plain(rows, tgt, mass, fric)
         _require_cuda(rows.device)
-        self._check_inputs(rows, tgt, mass, fric)
+        N = self._check_inputs(rows, tgt, mass, fric)
         lib = _library()
         out = torch.empty_like(rows)
         with torch.cuda.device(rows.device):
             rc = lib.fused_world_step_launch(
                 self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
-                mass.data_ptr(), fric.data_ptr(), out.data_ptr(), self.substeps, self.dt_sub,
-                self.impulse_sweeps, self.warp_bytes,
+                mass.data_ptr(), fric.data_ptr(), out.data_ptr(), N, self.substeps, self.dt_sub,
+                self.impulse_sweeps, self.warps(rows.device, N), self.warp_bytes,
                 torch.cuda.current_stream(rows.device).cuda_stream,
             )
         if rc != 0:
@@ -643,29 +664,37 @@ class FusedWorldStep:
         return out
 
     def pack(self, state: SimState) -> torch.Tensor:
-        lam = _lam_rows(self.ks, self._tables, state.contact_lam, (), state.q.device)
-        return state_to_rows(self.ks, state.root_state[None], state.q[None], state.qd[None],
-                             lam[None])[:, 0]
+        """→ the rows of `state`: (NS + 4·n_fc, N) for N envs, (NS + 4·n_fc,)
+        for one env without the leading axis."""
+        if state.q.dim() == 1:
+            return self.pack(state.map(lambda x: x[None]))[:, 0]
+        lead = tuple(state.q.shape[:1])
+        lam = _lam_rows(self.ks, self._tables, state.contact_lam, lead, state.q.device)
+        return state_to_rows(self.ks, state.root_state, state.q, state.qd, lam)
 
     def step(self, state: SimState, params: ModelParams) -> SimState:
-        """SimState of one env (no leading axis) → SimState one control dt
-        later, body caches refreshed, λ rows scattered into contact_lam."""
+        """SimState of N envs (leading axis N; params (N, B) and (N, G)), or
+        of one env without it → the same one control dt later, body caches
+        refreshed, λ rows scattered into contact_lam."""
+        if state.q.dim() == 1:
+            one = self.step(state.map(lambda x: x[None]), params.map(lambda x: x[None]))
+            return one.map(lambda x: x[0])
         A, D, B = self.ks.nactor, self.ks.ndof, self.ks.nbody
-        NS = self.ks.n_state_rows
+        NS, N = self.ks.n_state_rows, state.q.shape[0]
         out = self.step_rows(
-            self.pack(state).contiguous(), state.dof_target.to(torch.float32).contiguous(),
-            params.body_mass_scale.to(torch.float32).contiguous(),
-            params.geom_friction.to(torch.float32).contiguous(),
-        )
-        st = state.with_root_state(out[: 13 * A].reshape(A, 13))
+            self.pack(state).contiguous(), state.dof_target.to(torch.float32).T.contiguous(),
+            params.body_mass_scale.to(torch.float32).T.contiguous(),
+            params.geom_friction.to(torch.float32).T.contiguous(),
+        ).T.contiguous()
+        st = state.with_root_state(out[:, : 13 * A].reshape(N, A, 13))
         st = st.replace(
-            q=out[13 * A: 13 * A + D],
-            qd=out[13 * A + D: 13 * A + 2 * D],
-            net_contact_force=out[13 * A + 2 * D: NS].reshape(B, 3),
+            q=out[:, 13 * A: 13 * A + D],
+            qd=out[:, 13 * A + D: 13 * A + 2 * D],
+            net_contact_force=out[:, 13 * A + 2 * D: NS].reshape(N, B, 3),
         )
         lam = state.contact_lam
-        if self.ks.n_fc and lam is not None and tuple(lam.shape) == (self.ks.n_con, 4):
+        if self.ks.n_fc and lam is not None and tuple(lam.shape[1:]) == (self.ks.n_con, 4):
             lam = lam.clone()
-            lam[self._tables.fc(lam.device)] = out[NS:].reshape(-1, 4)
+            lam[:, self._tables.fc(lam.device)] = out[:, NS:].reshape(N, -1, 4)
             st = st.replace(contact_lam=lam)
         return self.engine.refresh(st)

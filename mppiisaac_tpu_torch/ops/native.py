@@ -93,7 +93,7 @@ def load_library() -> ctypes.CDLL:
     lib.max_bounds.restype = I
     lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
     lib.fused_rollout_launch.restype = I
-    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, F, I, I, P]
+    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, I, F, I, I, I, P]
     lib.fused_world_step_launch.restype = I
     if VARIANT == "sections":
         lib.read_sections.argtypes = [P]

@@ -2,9 +2,11 @@
 `runtime/sim.py`, itself parity with the reference's `IsaacGymWrapper`).
 
 State is one batched SimState attribute; every mutator replaces it, and each
-setter refreshes the body caches (`Engine.refresh`). A world of one env
-steps through the fused world-step kernel (K2, or its plain version on the
-CPU); a K-env instance is the planner's scene holder and is never stepped.
+setter refreshes the body caches (`Engine.refresh`). `step` advances all
+num_envs envs in one launch of the fused world-step kernel (K2, one warp per
+env; its plain version on the CPU), each env with its own row of `params`
+and its own contact_lam. The planner's K-env instance is its scene holder
+and is never stepped.
 """
 from __future__ import annotations
 
@@ -88,6 +90,11 @@ class Simulation:
         return specs
 
     def start_sim(self):
+        if self.cfg.fused_world is False:
+            raise NotImplementedError(
+                "SimConfig.fused_world=False selects the JAX package's XLA engine "
+                "(Engine.step under vmap), which is not ported: the port steps every world "
+                "through the fused world-step kernel (fused_world None or True)")
         self.built = build_scene(
             self.env_cfg, self.cfg, self._init_positions,
             seed=self._seed if self._randomize else None,
@@ -103,8 +110,7 @@ class Simulation:
                 torch.ones(self.num_envs, s.ngeom, dtype=torch.float32, device=self.device),
             )
         self._world_step = FusedWorldStep(
-            self.built, self.engine, impulse_sweeps=self.cfg.fused_world_sweeps,
-        ) if self.num_envs == 1 else None
+            self.built, self.engine, impulse_sweeps=self.cfg.fused_world_sweeps)
         self.state = broadcast_state(
             self.built.initial_state(self.engine, self.device), self.num_envs
         ).map(torch.Tensor.contiguous)
@@ -179,17 +185,15 @@ class Simulation:
         return state.replace(dof_target=self.built.cmd_map.apply(u, state.q))
 
     def step(self):
-        """Advance the world one control dt (one env)."""
+        """Advance every env one control dt."""
         self.state = self.stepped(self.state)
 
     def stepped(self, state: SimState) -> SimState:
-        """The 1-env `state` one control dt later (the world-step kernel)."""
+        """`state` (num_envs envs) one control dt later: one launch of the
+        world-step kernel over all envs, each with its own params row."""
         if self._world_step is None:
-            raise NotImplementedError(
-                "stepping a batch of envs (the JAX package's XLA engine) is not ported")
-        st0 = state.map(lambda x: x[0])
-        pr0 = self.params.map(lambda x: x[0])
-        return self._world_step.step(st0, pr0).map(lambda x: x[None])
+            raise RuntimeError("the simulation was stopped (stop_sim): start_sim builds it anew")
+        return self._world_step.step(state, self.params)
 
     # ------------------------------------------------------------------
     def _f32(self, x) -> torch.Tensor:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
+import subprocess
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -107,6 +108,17 @@ def trace(log_dir: str, name: str = "trace.json"):
         res.device_busy_s = sum(e.self_device_time_total for e in events) / 1e6
         res.kernels = {e.key: (e.count, e.self_device_time_total / 1e6)
                        for e in sorted(events, key=lambda e: -e.self_device_time_total)}
+
+
+def card() -> Dict[str, Optional[str]]:
+    """The card a measurement ran on: {"device": torch's name of GPU 0,
+    "power_limit": `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`'s first line, None where nvidia-smi fails}."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+        else None
+    return {"device": torch.cuda.get_device_name(0), "power_limit": line}
 
 
 # CUgraphNodeType of the CUDA driver API

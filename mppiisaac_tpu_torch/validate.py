@@ -29,12 +29,13 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from .utils.profiling import card
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PICK_STEPS = 1500
@@ -58,10 +59,8 @@ def _summ(results):
 def _card(device) -> dict:
     if torch.device(device).type != "cuda":
         return {"device": "cpu"}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    return {"device": torch.cuda.get_device_name(0),
-            "nvidia_smi": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None}
+    c = card()
+    return {"device": c["device"], "nvidia_smi": c["power_limit"]}
 
 
 def _record(path, key, summary):

@@ -4,7 +4,9 @@ reduced manifold), boxer_push, point-robot, panda_effort, omni_panda_pick,
 multi_jackal, albert and anymal main paths, on the box pair of the full
 box–box manifold (bbA/bbB), and on the mini-gripper grasp scenes (a ball held
 by fingers with the gripper map or with effort fingers, and velocity fingers
-closing on a post through the finger force gate). Marked `cuda`: they skip without an
+closing on a post through the finger force gate), and K2 over a grid of
+envs (a randomized point-robot batch, the 1080-ball demo through
+`Simulation.step`). Marked `cuda`: they skip without an
 NVIDIA GPU and run on the card (whose machine has no JAX, which
 tests/conftest.py imports) with
 
@@ -17,6 +19,7 @@ import torch
 from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
 from mppiisaac_tpu_torch.physics.types import ModelParams
 from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
+from mppiisaac_tpu_torch.scene.builder import SimConfig
 from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective
 from mppiisaac_tpu_torch.utils.config_store import load_config
@@ -664,3 +667,56 @@ def test_chunk_sees_online_changes_on_the_card(panda):
     planner.update_mppi_params({"horizon": 10})
     with pytest.raises(RuntimeError, match="rebuilt"):
         chunk.run(4)
+
+
+def test_batched_world_step_kernel_matches_plain_and_one_env(panda):
+    """K2 over a grid of N=64 envs of a randomized point robot pushing a
+    block (per-env mass, friction and commands; W warps per block) against
+    the plain version's batch over 3 steps, and envs 0, 31 and 63 of each
+    launch equal the one-env launch on their inputs bit for bit."""
+    N = 64
+    sim = Simulation(SimConfig(dt=0.05, substeps=1), ["point_robot", "block", "goal"],
+                     num_envs=N, randomize=True, seed=3, device="cuda")
+    sim.set_actor_position_by_name("block", [0.45, 0.0, 0.1])
+    u = np.random.RandomState(1).uniform(-1, 1, (N, 3)).astype(np.float32)
+    u[:, 0] = 1.0
+    sim.apply_robot_cmd(u)
+    fw = sim._world_step
+    rows = fw.pack(sim.state).contiguous()
+    rows_p = rows.clone()
+    tgt = sim.state.dof_target.T.contiguous()
+    mass = sim.params.body_mass_scale.T.contiguous()
+    fric = sim.params.geom_friction.T.contiguous()
+    for _ in range(3):
+        n0 = FusedWorldStep.launches
+        out = fw.step_rows(rows, tgt, mass, fric)
+        assert FusedWorldStep.launches == n0 + 1
+        for e in (0, 31, 63):
+            one = fw.step_rows(rows[:, e].contiguous(), tgt[:, e].contiguous(),
+                               mass[:, e].contiguous(), fric[:, e].contiguous())
+            assert torch.equal(one, out[:, e]), e
+        rows, rows_p = out, fw.plain(rows_p, tgt, mass, fric)
+    torch.cuda.synchronize()
+    assert fw.warps(rows.device, N) == 1      # 64 envs spread over the SMs one per block
+    torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
+    assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"
+
+
+def test_simulation_steps_every_env_in_one_launch(panda):
+    """The balls demo's scene at 1080 envs: each `Simulation.step` is one K2
+    launch (8 warps per block, 135 blocks), the envs stay identical and the
+    snapshot restores exactly."""
+    from mppiisaac_tpu_torch.examples import balls_demo
+
+    sim = balls_demo.balls_sim(1080, 4, device="cuda")
+    snap = sim.save_state()
+    n0 = FusedWorldStep.launches
+    for _ in range(30):
+        sim.step()
+    torch.cuda.synchronize()
+    assert FusedWorldStep.launches == n0 + 30
+    assert sim._world_step.warps(sim.device, 1080) == 8
+    z = sim.state.root_pos[..., 2]
+    torch.testing.assert_close(z, z[:1].expand_as(z), rtol=0.0, atol=1e-4)
+    sim.restore_state(snap)
+    assert torch.equal(sim.state.root_pos, snap.root_pos)

@@ -8,7 +8,8 @@ into a library in a temporary directory; the tests run K1 (one warp per
 sample, block by block) and K2 through it on panda reach (K=4, H=2), on the
 boxer of boxer_push resting on its wheels, on pick's block settled on the
 table, on the mini-gripper holding a ball (the couple contacts) and at the
-stick's first touch of the block in the panda_stick_push loop, and hold
+stick's first touch of the block in the panda_stick_push loop, plus K2 over
+a grid of 3 envs (a randomized point robot pushing a block), and hold
 them against `FusedRollout.plain` / `FusedWorldStep.plain`
 with the tolerances of tests/test_torch_cuda.py (chip_smoke.py's bounds for
 the boxer, the settled block and the stick's touch). The build decides inside the fixture
@@ -35,6 +36,7 @@ from mppiisaac_tpu_torch.ops import fused_rollout as fro
 from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
 from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
 from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
+from mppiisaac_tpu_torch.scene.builder import SimConfig
 from mppiisaac_tpu_torch.tasks.mobile_push import MobilePushObjective
 from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective
@@ -70,7 +72,7 @@ def emu(tmp_path_factory):
     lib = ctypes.CDLL(out)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.emu_rollout.argtypes = [P] * 7 + [I, I, I, F, I, I, I]
-    lib.emu_world_step.argtypes = [P] * 6 + [I, F, I, I]
+    lib.emu_world_step.argtypes = [P] * 6 + [I, I, F, I, I]
     assert lib.emu_scene_tables_size() == ctypes.sizeof(fro._SceneTablesC)
     return lib
 
@@ -101,7 +103,7 @@ def emu_world_steps(lib, fw, built, st, tgt_of, n):
         tgt = tgt_of().contiguous()
         out = torch.empty_like(rows)
         assert lib.emu_world_step(tb.ctypes.data, rows.data_ptr(), tgt.data_ptr(),
-                                  ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(),
+                                  ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), 1,
                                   fw.substeps, fw.dt_sub, fw.impulse_sweeps, fw.warp_bytes) == 0
         rows = out
         rows_p = fw.plain(rows_p, tgt, ones_b, ones_g)
@@ -268,6 +270,47 @@ def test_stick_first_touch_kernels_match_plain(emu):
     rows, rows_p = emu_world_steps(emu, fw, b, st, tgt, 5)
     for k, e in _row_groups(fw.ks, (rows - rows_p).abs()).items():
         assert e <= bound[k], (k, e)
+
+
+def emu_world_step_envs(lib, fw, rows, tgt, mass, fric):
+    """One launch of the emulated K2 over N envs, in the kernel's layout."""
+    out = torch.empty_like(rows)
+    tb = _bytes(fw._tables)
+    N = rows.shape[1]
+    assert lib.emu_world_step(tb.ctypes.data, rows.data_ptr(), tgt.data_ptr(), mass.data_ptr(),
+                              fric.data_ptr(), out.data_ptr(), N, fw.substeps, fw.dt_sub,
+                              fw.impulse_sweeps, fw.warp_bytes) == 0
+    return out
+
+
+def test_batched_world_step_matches_plain(emu):
+    """K2 over a grid of N=3 envs (rows, targets, mass and friction laid out
+    env-fastest, each env its own block here) against the plain version's
+    batch, over 3 steps of a randomized point robot pushing a block (per-env
+    mass and friction, per-env commands); every env of the emulated batch
+    equals the emulated one-env launch on its inputs bit for bit."""
+    sim = Simulation(SimConfig(dt=0.05, substeps=1), ["point_robot", "block", "goal"],
+                     num_envs=3, randomize=True, seed=3, device="cpu")
+    sim.set_actor_position_by_name("block", [0.45, 0.0, 0.1])
+    u = np.random.RandomState(1).uniform(-1, 1, (3, 3)).astype(np.float32)
+    u[:, 0] = 1.0
+    sim.apply_robot_cmd(u)
+    fw = sim._world_step
+    rows = fw.pack(sim.state).contiguous()
+    rows_p = rows.clone()
+    tgt = sim.state.dof_target.T.contiguous()
+    mass = sim.params.body_mass_scale.T.contiguous()
+    fric = sim.params.geom_friction.T.contiguous()
+    for _ in range(3):
+        out = emu_world_step_envs(emu, fw, rows, tgt, mass, fric)
+        for e in range(3):
+            one = emu_world_step_envs(emu, fw, rows[:, e:e + 1].contiguous(),
+                                      tgt[:, e:e + 1].contiguous(), mass[:, e:e + 1].contiguous(),
+                                      fric[:, e:e + 1].contiguous())
+            assert torch.equal(one[:, 0], out[:, e]), e
+        rows, rows_p = out, fw.plain(rows_p, tgt, mass, fric)
+    torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
+    assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"
 
 
 @pytest.mark.parametrize("task", SHIPPED)
