@@ -172,6 +172,41 @@ Phases (any failure exits non-zero before the result line):
      are than with one thread per sample (EARLIER_MS). Then
      the batched K2 on phase 17e's balls (1080 envs, its launches those of
      the demo) and the bench's K1 at H=30, each as one more entry.
+ 19. the unfused rollout, the engine world and K-sharding:
+ 19a. panda reach (K=500, H=12) with `use_fused=False` (Engine.step,
+     compute_cost): the first command on the card against the same command
+     on the CPU (same state, same draw) within 10× the CPU's own
+     float32-vs-float64 drift of that command's rollout; then the loop to
+     its goal within the conf's 200 steps per step and at device_steps=16
+     (one captured control step), K1 never launched, K2 once per world
+     step; prints the median control steps, the aten ops of one command and
+     the graph's nodes per step;
+ 19b. the same loop (chunked) with ArmJacobianPrior and use_priors: sample
+     K−2's applied controls of the first command against the prior's
+     clipped commands along that sample's own rollout, replayed alone
+     (PRIOR_REPLAY_ATOL); prints the success step (not held);
+ 19c. point_robot (K=100, H=20) with a goal actor and PointNavigationPrior
+     to its goal (chunked); then K2 from the loop's state at step 8 (the
+     robot moving, its dof_target nonzero) over 5 steps against its plain
+     version within 10× the plain version's own float32-vs-float64 drift
+     there (floor 1e-6; the drift printed beside each bound), and timed;
+ 19d. `SimConfig.fused_world=False`: 19c's loop for ENGINE_WORLD_STEPS
+     steps with the world on Engine.step (no kernel launched), replayed on
+     the CPU with the card's actions, every field within 10× the CPU's own
+     float32-vs-float64 drift of the replay (at least 1e-5); then the balls
+     demo's scene at 1080 envs stepped by Engine.step, ms and env-steps/s
+     beside K2's of phase 17e;
+ 19e. K-sharding: panda_pick (K=1000, H=12) with `fused_factory` on 2 gloo
+     ranks sharing the card (`python -m mppiisaac_tpu_torch.parallel.sharding`,
+     one process each), each rank's K1 over 500 samples once per command,
+     beside the one-device command of the same carry and state: the same
+     action on every rank and within 1e-5 relative of the one-device one,
+     the per-sample costs equal (bit for bit, or within 1e-5 of the largest
+     cost: it prints which), both command times; then K1 at K=500 from the
+     settled block against plain (PICK_BOUNDS) and timed. NCCL across cards
+     is not exercised (one card). Phase 19 adds three kernel entries: K2 under
+     19a-19b (timed in phase 18 on the reach), K2 under 19c, K1 per rank in
+     19e.
 Each kernel's bound — the least time the card could take for the same work —
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s; the operations are
@@ -2196,6 +2231,395 @@ def bench_path(dev):
     return dict(fr=fr, k1_in=k1_in, n1=n1, err=err, plain_ms=plain_ms, rec=rec)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the unfused rollout (the engine's Engine.step, compute_cost, the
+# closed-loop priors), the engine world (fused_world=False) and K-sharding
+# ---------------------------------------------------------------------------
+
+UNFUSED_CHUNK = 16          # device_steps of the chunked unfused loops
+ENGINE_WORLD_STEPS = 20     # 19d: the engine world on the card against the CPU
+BALLS_ENGINE_STEPS = 10     # 19d: timed engine steps of the balls scene
+NAV_HOLD_STEP, NAV_HOLD_STEPS = 8, 5   # 19c: K2's hold state (a step of the loop), its steps
+SHARD_RANKS, SHARD_REPS = 2, 5
+# 19b: sample K−2 replayed alone against its place in the K-batch: the
+# batched products may sum in another order on the card
+PRIOR_REPLAY_ATOL = 1e-4
+_VIEW_OPS = {"view", "_unsafe_view", "expand", "slice", "select", "unsqueeze", "squeeze", "t",
+             "transpose", "permute", "as_strided", "alias", "detach", "unbind", "split",
+             "split_with_sizes", "diagonal", "_reshape_alias", "reshape", "lift_fresh"}
+
+
+def aten_ops(fn):
+    """(the aten operations fn dispatches that are not views — each launches
+    at most one kernel on the card —, fn's result)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = [0]
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEW_OPS:
+                n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Mode():
+        out = fn()
+    torch.cuda.synchronize()
+    return n[0], out
+
+
+def first_command(cfg, obj, dev, prior=None):
+    """One unfused command from the task's initial world state with the
+    first draw of the conf's seed: → (action, costs, info, planner)."""
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import goal_world
+
+    world = goal_world(cfg, dev)
+    p = MPPIisaacPlanner(cfg, obj, prior, device=dev, use_fused=False)
+    p.reset_rollout_from_state(world.state)
+    _, d = p.mppi.draws(p.mppi.carry.key, 1)
+    draw = torch.as_tensor(d[0], device=dev)
+    st = (p.sim.state, p._params_K)
+    a, _, info = p.mppi._command_impl(p.mppi.carry, st, draw=draw)
+    return a, info["costs"], info, p, st, draw
+
+
+def unfused_loop(label, cfg, obj, dev, prior=None, **kw):
+    """run_task with the unfused rollout, launch counters set to 0 just
+    before it: K1 never launches, K2 once per world step. → (metrics, K2)."""
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+
+    reset_counts()
+    t0 = time.perf_counter()
+    m = run_task(cfg, obj, prior=prior, device=dev, use_fused=False if prior is None else None,
+                 **kw)
+    n1, n2 = read_counts()
+    nodes = m.graph_nodes
+    print(f"{label}: success_step {m.success_step}, {m.steps} steps ({m.commands} run), median "
+          f"control step {1e3 / float(np.median(m.fps)):.3f} ms, finite {m.final_state_finite}; "
+          f"launches K1 {n1}, K2 {n2}" + (f"; graph nodes per step {nodes}" if nodes else "")
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    if not m.final_state_finite:
+        fail(f"{label}: non-finite world state")
+    if n1 != 0 or n2 != m.commands or n2 == 0:
+        fail(f"{label}: expected no K1 and K2 once per world step, got K1 {n1} K2 {n2} for "
+             f"{m.commands} steps")
+    return m, n2
+
+
+def unfused_reach(dev):
+    """19a: panda reach with use_fused=False: the first command on the card
+    against the CPU's (bounds: 10× the CPU's own float32-vs-float64 drift of
+    that command), then the loop to its goal per step and chunked."""
+    from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective, success_fn
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    cfg = load_config("tasks/panda")
+    obj = PandaReachObjective(cfg)
+    a_g, c_g, _, pg, _, _ = first_command(cfg, obj, dev)
+    a_c, c_c, _, pc, st, draw = first_command(cfg, obj, "cpu")
+    # the same command with its rollout in float64 (the update in float32)
+    st64 = tuple(x.map(torch.Tensor.double) for x in st)
+    rollout = pc.mppi._rollout
+
+    def rollout64(state0, V, use_prior):
+        return tuple(x.float() for x in rollout(st64, V.double(), use_prior))
+
+    pc.mppi._rollout = rollout64
+    a64, _, i64 = pc.mppi._command_impl(pc.mppi.carry, st, draw=draw)
+    del pc.mppi._rollout
+    drift_c = (c_c.double() - i64["costs"].double()).abs().max().item()
+    drift_a = (a_c.double() - a64.double()).abs().max().item()
+    print(f"[19a] panda reach unfused, first command K={cfg.mppi.num_samples} "
+          f"H={cfg.mppi.horizon}, {pg.sim.engine.substeps} substeps: CPU float32 vs float64 "
+          f"drift: costs {drift_c:.3e}, action {drift_a:.3e}", flush=True)
+    within("[19a] first command costs, card vs CPU", c_g.cpu(), c_c, max(10 * drift_c, 1e-5), 0.0)
+    within("[19a] first action, card vs CPU", a_g.cpu(), a_c, max(10 * drift_a, 1e-6), 0.0)
+    carry, state0 = pg.mppi.carry, (pg.sim.state, pg._params_K)
+    ops_cmd, _ = aten_ops(lambda: pg.mppi._command_impl(carry, state0))
+    succ = success_fn()
+    m1, n2a = unfused_loop("[19a] panda reach unfused, per step", cfg, obj, dev, n_steps=cfg.n_steps,
+                           success_fn=succ)
+    m2, n2b = unfused_loop(f"[19a] panda reach unfused, device_steps={UNFUSED_CHUNK}", cfg, obj,
+                           dev, n_steps=cfg.n_steps, success_fn=succ, device_steps=UNFUSED_CHUNK)
+    for m in (m1, m2):
+        if m.success_step is None:
+            fail("[19a] panda reach with the unfused rollout did not reach its goal")
+    per, chunk = 1e3 / float(np.median(m1.fps)), 1e3 / float(np.median(m2.fps))
+    print(f"[19a] median control step {per:.3f} ms per step, {chunk:.3f} ms chunked; "
+          f"{ops_cmd} aten ops per command (eager, on the card), graph nodes per control step "
+          f"{m2.graph_nodes}; success steps {m1.success_step} / {m2.success_step}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(n2=n2a + n2b, per_ms=per, chunk_ms=chunk, ops=ops_cmd, nodes=m2.graph_nodes,
+                success=(m1.success_step, m2.success_step))
+
+
+def arm_prior_reach(dev):
+    """19b: the reach loop with ArmJacobianPrior and use_priors: sample
+    K−2's applied controls against the prior's clipped commands along its
+    own rollout (the first command, the sample replayed alone), then the
+    loop chunked (its success step printed, not held)."""
+    from mppiisaac_tpu_torch.planner.priors import ArmJacobianPrior
+    from mppiisaac_tpu_torch.runtime.sim import Simulation
+    from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective, success_fn
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    cfg = load_config("tasks/panda", ["mppi.use_priors=true"])
+    obj = PandaReachObjective(cfg)
+    built = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device=dev).built
+    prior = ArmJacobianPrior(built, ee_link="panda_ee_tip")
+    a, _, info, p, (st, pr), _ = first_command(cfg, obj, dev, prior)
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    applied = info["applied"][K - 2]
+    mp = p.mppi
+    s1 = (st.map(lambda x: x[K - 2: K - 1].contiguous()), pr.map(lambda x: x[K - 2: K - 1]))
+    worst = 0.0
+    for t in range(H):
+        pu = torch.clamp(mp.prior(s1, t), mp._u_min, mp._u_max)[0]
+        worst = max(worst, (pu - applied[t]).abs().max().item())
+        s1 = mp.dynamics(s1, applied[t][None] * cfg.mppi.u_scale, t)
+    print(f"[19b] sample K-2 applies the prior's clipped commands along its rollout: max |d| "
+          f"{worst:.3e} over {H} steps (atol {PRIOR_REPLAY_ATOL:g}); |u| up to "
+          f"{applied.abs().max().item():.3f}", flush=True)
+    if not worst <= PRIOR_REPLAY_ATOL or not torch.isfinite(info["costs"]).all():
+        fail("[19b] sample K-2 does not follow the closed-loop prior")
+    m, n2 = unfused_loop(f"[19b] panda reach + ArmJacobianPrior, device_steps={UNFUSED_CHUNK}",
+                         cfg, obj, dev, prior=prior, n_steps=cfg.n_steps, success_fn=success_fn(),
+                         device_steps=UNFUSED_CHUNK)
+    print(f"[19b] success step {m.success_step} (a sample, not a bar); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(n2=n2, success=m.success_step, ms=1e3 / float(np.median(m.fps)))
+
+
+def point_prior_cfg(fused_world=None):
+    from mppiisaac_tpu_torch.tasks.point_robot import PointRobotObjective
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    cfg = load_config("tasks/point_robot", ["mppi.use_priors=true"])
+    cfg.actors = ["point_robot", "goal"]
+    if fused_world is not None:
+        cfg.isaacgym.fused_world = fused_world
+    return cfg, PointRobotObjective(cfg)
+
+
+def point_prior_loop(dev):
+    """19c: point_robot with a goal actor and PointNavigationPrior to its
+    goal (chunked); then K2 from the loop's state after NAV_HOLD_STEP steps
+    (the robot moving, its dof_target nonzero) over NAV_HOLD_STEPS steps
+    against its plain version (hold_batch: within 10× the plain version's
+    own float32-vs-float64 drift there, printed beside each bound), and
+    timed on those inputs for phase 19's kernel entry."""
+    from mppiisaac_tpu_torch.planner.priors import PointNavigationPrior
+    from mppiisaac_tpu_torch.runtime.loop import goal_world
+    from mppiisaac_tpu_torch.tasks.point_robot import success_fn
+
+    t0 = time.perf_counter()
+    cfg, obj = point_prior_cfg()
+    seen = {}
+
+    def keep(step, w, a):
+        if step == NAV_HOLD_STEP:
+            seen["state"] = w.state.map(lambda x: x.clone())
+
+    m, n2 = unfused_loop(f"[19c] point_robot + PointNavigationPrior K={cfg.mppi.num_samples} "
+                         f"H={cfg.mppi.horizon}, device_steps={UNFUSED_CHUNK}", cfg, obj, dev,
+                         prior=PointNavigationPrior(), success_fn=success_fn(obj.nav_goal),
+                         device_steps=UNFUSED_CHUNK, chunk_observer=keep)
+    if m.success_step is None:
+        fail("[19c] point_robot with PointNavigationPrior did not reach its goal")
+    if "state" not in seen:
+        fail(f"[19c] the loop ended before step {NAV_HOLD_STEP}, K2's hold state")
+    world = goal_world(cfg, dev)
+    world.state = seen["state"].map(lambda x: x.to(dev))
+    speed = world.state.qd.abs().max().item()
+    target = world.state.dof_target.abs().max().item()
+    print(f"[19c] K2's hold state: step {NAV_HOLD_STEP} of the loop, |qd| up to {speed:.3e}, "
+          f"|dof_target| up to {target:.3e}", flush=True)
+    if not (speed > 1e-3 and target > 1e-3):
+        fail("[19c] K2's hold state is at rest: a kernel that left it unchanged would pass")
+    err, _ = hold_batch(f"[19c] K2 from step {NAV_HOLD_STEP}", world, NAV_HOLD_STEPS)
+    fw = world._world_step
+    s0 = world.state.map(lambda x: x[0])
+    k2_in = (fw.pack(s0).contiguous(), s0.dof_target.contiguous(),
+             torch.ones(world.scene.nbody, device=dev), torch.ones(world.scene.ngeom, device=dev))
+    ms = cuda_time_ms(lambda: fw.step_rows(*k2_in))
+    plain = cuda_time_ms(lambda: fw.plain(*k2_in), reps=3, warmup=1)
+    b2 = k2_bound(fw, k2_in)
+    print(f"[19c] success step {m.success_step}; its K2: {ms:.4f} ms vs plain {plain:.3f} ms, "
+          f"max |d| {err:.3e} over {NAV_HOLD_STEPS} steps, bound {b2[0]:.6f} ms ({b2[1]}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(n2=n2, success=m.success_step, ms=ms, plain_ms=plain, err=err, bound=b2)
+
+
+def engine_world(dev, demo):
+    """19d: fused_world=False. The point_robot prior loop of 19c with its
+    world on Engine.step for ENGINE_WORLD_STEPS steps, replayed on the CPU
+    with the card's actions (bounds: 10× the CPU's own float32-vs-float64
+    drift of the same replay, at least 1e-5); then the balls demo's scene
+    at BALLS_ENVS envs stepped by Engine.step, beside K2's (phase 17e)."""
+    from mppiisaac_tpu_torch.examples import balls_demo
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS
+    from mppiisaac_tpu_torch.planner.priors import PointNavigationPrior
+    from mppiisaac_tpu_torch.runtime.loop import goal_world, run_task
+    from mppiisaac_tpu_torch.runtime.sim import Simulation
+    from mppiisaac_tpu_torch.scene.builder import SimConfig
+
+    t0 = time.perf_counter()
+    cfg, obj = point_prior_cfg(fused_world=False)
+    seen = []
+    reset_counts()
+    run_task(cfg, obj, prior=PointNavigationPrior(), n_steps=ENGINE_WORLD_STEPS, device=dev,
+             observer=lambda step, w, a: seen.append(
+                 (a.detach().cpu().clone(), w.state.map(lambda x: x.detach().cpu().clone()))))
+    n1, n2 = read_counts()
+    if (n1, n2) != (0, 0) or len(seen) != ENGINE_WORLD_STEPS:
+        fail(f"[19d] the engine world launched a kernel (K1 {n1}, K2 {n2}) or ran {len(seen)} "
+             f"steps")
+    world = goal_world(cfg, "cpu")
+    if world._world_step is not world.engine:
+        fail("[19d] fused_world=False did not give the engine world")
+    s32, s64 = world.state, world.state.map(torch.Tensor.double)
+    p32, p64 = world.params, world.params.map(torch.Tensor.double)
+    cmap, eng = world.built.cmd_map, world.engine
+    worst = {}
+    for a, card in seen:
+        u = a.reshape(1, -1)
+        s32 = eng.step(s32.replace(dof_target=cmap.apply(u, s32.q)), p32)
+        s64 = eng.step(s64.replace(dof_target=cmap.apply(u.double(), s64.q)), p64)
+        for f in SIM_STATE_FIELDS:
+            c, x, y = getattr(card, f), getattr(s32, f), getattr(s64, f)
+            d, drift = (c - x).abs().max().item(), (x.double() - y).abs().max().item()
+            w = worst.setdefault(f, [0.0, 0.0])
+            w[0], w[1] = max(w[0], d), max(w[1], drift)
+    for f, (d, drift) in worst.items():
+        bound = max(10 * drift, 1e-5)
+        print(f"  [19d] engine world card vs CPU over {ENGINE_WORLD_STEPS} steps, {f}: max |d| "
+              f"{d:.3e}, drift {drift:.3e}, bound {bound:.3e} {'ok' if d <= bound else 'MISS'}",
+              flush=True)
+        if not d <= bound:
+            fail(f"[19d] the engine world on the card disagrees with the CPU in {f}")
+    sim = Simulation(SimConfig(**balls_demo.BALLS_CONFIG, fused_world=False),
+                     balls_demo.ball_actors(BALLS_BALLS), num_envs=BALLS_ENVS, device=dev)
+    sim.step()
+    torch.cuda.synchronize()
+    with Timer() as t:
+        for _ in range(BALLS_ENGINE_STEPS):
+            sim.step()
+    ms = t.ms / BALLS_ENGINE_STEPS
+    if not all(torch.isfinite(x).all() for x in sim.state.tensors()):
+        fail("[19d] the balls' engine world went non-finite")
+    print(f"[19d] balls scene, {BALLS_ENVS} envs x {BALLS_BALLS} balls on Engine.step (eager): "
+          f"{ms:.3f} ms per step, {BALLS_ENVS / ms * 1e3:.0f} env-steps/s; K2 (phase 17e): "
+          f"{demo['ms_per_step']:.3f} ms per step, {demo['env_steps_per_s']:.0f} env-steps/s; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(balls_ms=ms, balls_env_steps_per_s=BALLS_ENVS / ms * 1e3)
+
+
+def sharded_pick(dev, root):
+    """19e: panda_pick (K=1000, H=12) with fused_factory on SHARD_RANKS gloo
+    ranks sharing the card (`python -m mppiisaac_tpu_torch.parallel.sharding`,
+    one process per rank), beside the one-device command of the same carry
+    and state; then K1 at the rank's K timed for phase 19's entry."""
+    from mppiisaac_tpu_torch.parallel import sharding
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import goal_world
+    from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "chiprun_out", "sharded_pick.json")
+    rc = sharding.launch(SHARD_RANKS, ["task=panda_pick", "device=cuda", f"reps={SHARD_REPS}",
+                                       f"out={out}"], timeout=400)
+    if rc != 0:
+        fail(f"[19e] the sharded command's ranks failed (rc {rc})")
+    with open(out) as fh:
+        r = json.load(fh)
+    K, Kr = r["K"], r["K_rank"]
+    print(f"[19e] panda_pick K={K} H={r['H']} on {r['ranks']} gloo ranks (one card): K1 over "
+          f"{Kr} samples per rank, launches per rank {r['k1_launches_per_rank']} ({SHARD_REPS} "
+          f"commands each), one-device K1 launches {r['k1_launches_one']}; per-sample costs "
+          f"{'equal bit for bit' if r['costs_bit_equal'] else 'max |d| %.3e' % r['costs_max_abs_diff']}"
+          f" (costs up to {r['costs_max_abs']:.3f}); action max rel |d| "
+          f"{r['action_max_rel_diff']:.3e}; same action on every rank "
+          f"{r['same_action_on_every_rank']}; command {r['ms_sharded']:.3f} ms sharded vs "
+          f"{r['ms_one']:.3f} ms on one device (medians of {SHARD_REPS}); NCCL across cards is "
+          f"not exercised (one card)", flush=True)
+    if Kr != K // SHARD_RANKS or r["k1_launches_per_rank"] != [SHARD_REPS] * SHARD_RANKS:
+        fail("[19e] each rank's K1 must run over K/ranks samples once per command")
+    if not r["same_action_on_every_rank"] or not r["action_max_rel_diff"] <= 1e-5:
+        fail("[19e] the sharded action disagrees with the one-device action")
+    if not r["costs_max_abs_diff"] <= 1e-5 * max(r["costs_max_abs"], 1.0):
+        fail("[19e] the sharded per-sample costs disagree with the one-device ones")
+    # K1 at the rank's K (phase 19's entry), from the settled block (20
+    # world steps holding the arm still, as phase 6) under controls uniform
+    # in ±0.3·u_max
+    from mppiisaac_tpu_torch.runtime.sim import broadcast_state
+
+    cfg = load_config("tasks/panda_pick")
+    world = goal_world(cfg, dev)
+    p = MPPIisaacPlanner(cfg, PandaPickObjective(cfg), device=dev)
+    for _ in range(20):
+        world.apply_robot_cmd(np.zeros(p.mppi.nu, np.float32))
+        world.step()
+    fr, frp = p.fused_factory()(Kr), p.fused_factory()(PLAIN_K1_SAMPLES)
+    g = torch.Generator().manual_seed(SEED)
+    amp = 0.3 * torch.as_tensor(cfg.mppi.u_max, dtype=torch.float32)
+    V = ((torch.rand((Kr, fr.H, fr.nu), generator=g) * 2.0 - 1.0) * amp).to(dev)
+    k1_in = fr.pack(broadcast_state(world.state.map(lambda x: x[0]), Kr),
+                    p._params_K.map(lambda x: x[:Kr]), V)
+    ms = cuda_time_ms(lambda: fr.run(*k1_in))
+    part = tuple(x[..., :PLAIN_K1_SAMPLES].contiguous() for x in k1_in)
+    with Timer() as t:
+        plain_costs = frp.plain(*part)[0]
+    plain = t.ms
+    err = (fr.run(*k1_in)[0][:PLAIN_K1_SAMPLES] - plain_costs).abs().max().item()
+    if not err <= PICK_BOUNDS["settled block"]["k1_max"]:
+        fail(f"[19e] K1 at K={Kr} disagrees with its plain version ({err:.3e})")
+    b1 = k1_bound(fr, k1_in)
+    print(f"[19e] K1 at K={Kr}: {ms:.3f} ms vs plain {plain:.3f} ms on {PLAIN_K1_SAMPLES} "
+          f"samples, max |d| {err:.3e} (the settled-block bound 5e-4), bound {b1[0]:.6f} ms "
+          f"({b1[1]}); {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(r=r, ms=ms, plain_ms=plain, err=err, bound=b1, K=Kr)
+
+
+def phase19(dev, root, reach_entry, demo):
+    """Phase 19 → its kernel entries: K2 under the unfused panda loops (19a,
+    19b: the reach world's K2, timed in phase 18), K2 under the point_robot
+    prior loop (19c), K1 on the sharded path (19e, per rank)."""
+    t0 = time.perf_counter()
+    a = unfused_reach(dev)
+    b = arm_prior_reach(dev)
+    c = point_prior_loop(dev)
+    d = engine_world(dev, demo)
+    e = sharded_pick(dev, root)
+    src = "mppiisaac_tpu_torch/csrc/fused_rollout.cu"
+    k2 = "mppiisaac_tpu/ops/pallas/fused_rollout.py:533"
+    entries = [
+        dict(reach_entry, path="panda_reach_unfused_loops", launches=a["n2"] + b["n2"],
+             timed_on="panda_reach", unfused_ms_per_step=a["per_ms"],
+             unfused_ms_chunked=a["chunk_ms"], unfused_aten_ops_per_command=a["ops"],
+             unfused_graph_nodes_per_step=a["nodes"], arm_prior_success_step=b["success"],
+             engine_balls_ms_per_step=d["balls_ms"],
+             engine_balls_env_steps_per_s=d["balls_env_steps_per_s"]),
+        {"name": "fused_world_step_kernel", "path": "point_robot_nav_prior", "route": "cuda",
+         "source": src, "replaces": k2, "launches": c["n2"], "max_abs_err": c["err"],
+         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+         "bound_by": c["bound"][1], "library_ms": None, "success_step": c["success"]},
+        {"name": "fused_rollout_kernel", "path": f"panda_pick_sharded_{SHARD_RANKS}ranks_K{e['K']}",
+         "route": "cuda", "source": src, "replaces": "mppiisaac_tpu/ops/pallas/fused_rollout.py:367",
+         "launches": sum(e["r"]["k1_launches_per_rank"]), "max_abs_err": e["err"], "ms": e["ms"],
+         "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+         "library_ms": None, "plain_samples": PLAIN_K1_SAMPLES,
+         "sharded_command_ms": e["r"]["ms_sharded"], "one_device_command_ms": e["r"]["ms_one"],
+         "costs_bit_equal": e["r"]["costs_bit_equal"]},
+    ]
+    print(f"    phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
+
 def geometry_table():
     """Phase 1's launch geometry of K1 and K2 at each timed path's conf."""
     import ctypes
@@ -2354,6 +2778,9 @@ def main():
         "bench_env_steps_per_s": bench_run["rec"]["value"],
         "bench_latency_ms": bench_run["rec"]["latency_ms"]})
     print(f"    phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    reach_entry = next(e for e in entries if e["path"] == "panda_reach"
+                       and e["name"] == "fused_world_step_kernel")
+    entries += phase19(dev, root, reach_entry, batch["demo"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,

@@ -61,3 +61,10 @@ def normal_uniforms(key: np.ndarray, shape) -> np.ndarray:
     shape)` (the caller applies erfinv, in torch)."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     return uniform(key, shape, lo, 1.0)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)` for 0 ≤ data < 2³²: the key hashed
+    with the 32-bit seed words (0, data)."""
+    x0, x1 = threefry2x32(key, np.zeros(1, np.uint32), np.array([data & 0xFFFFFFFF], np.uint32))
+    return np.concatenate([x0, x1]).astype(np.uint32)

@@ -1,4 +1,4 @@
-"""The MPPI solver in torch: Halton-spline noise, one fused rollout, softmax
+"""The MPPI solver in torch: Halton-spline noise, the K-sample rollout, softmax
 update, Savitzky–Golay filter, shift.
 
 Counterpart of the JAX package's `mppi/solver.py` on one device: the same
@@ -17,10 +17,17 @@ Two notes on form:
   (`cholesky_ex`, `inv_ex`), no copy from host memory (the constants live
   on the device from `__init__` and `refresh_constants`), and the step clock
   `t0` is a 0-d int64 tensor on the device, advanced by the command;
-* the rollout is always the fused rollout (`ops/fused_rollout.FusedRollout`,
-  the CUDA kernel on CUDA tensors, its plain version on CPU tensors): the
-  port has no per-sample engine step to vmap, so of the two prior forms it
-  takes the tape prior only (see `MPPIPlanner`).
+* the rollout is the fused rollout (`ops/fused_rollout.FusedRollout`, the
+  CUDA kernel on CUDA tensors, its plain version on CPU tensors) when one is
+  given, else the unfused rollout: a Python loop over the horizon of
+  `dynamics`, `running_cost` and `vis_fn`, each batched over the K samples
+  (the JAX package's vmap-of-scan). Only the unfused rollout takes a
+  closed-loop prior. Its controls are not rounded through bf16, which only
+  the fused kernel does;
+* sharded over a process group (`parallel/sharding.py`), `group`, `rank`
+  and `n_shards` make β = min S an all-reduce MIN and η, Σ w ε and the
+  covariance update all-reduce SUMs, and put the special samples (null
+  action, tape or prior) on the last rank only.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import prng
 from .config import MPPIConfig
@@ -46,22 +54,43 @@ class MppiCarry:
 
 
 class MPPIPlanner:
-    """fused: the rollout, `fused.rollout(sim_state_K, params_K, V (K,H,nu))
-    → (costs (K,H), vis (H,K,3))`. device: where the solver's tensors live
-    ("cuda", the default, as every entry point of the port; "cpu" for the
-    plain versions). tape_prior: optional `(state0, t0) → (H, nu)` control
-    tape, evaluated once per command (with `use_priors`) from the K-wide
-    state0 and the world step clock, outside the rollout: one sample rolls
-    the tape, and with `prior_blend` a > 0 the sampling mean moves to
-    (1 − a)·U + a·tape.
+    """fused: the fused rollout, `fused.rollout(sim_state_K, params_K, V
+    (K,H,nu)) → (costs (K,H), vis (H,K,3))`, with state0 = (SimState_K,
+    ModelParams_K); or None for the unfused rollout over the K-batched
+    state0 through
+      dynamics: (state, u (K,nu), t) → state,
+      running_cost: (state, t) → (K,) costs,
+      vis_fn: optional (state) → (K,d) per-step visualization payload,
+      prior: optional closed-loop prior (state, t) → (K,nu) commands, of
+        which sample K−2's replaces its control at each step (with
+        `use_priors`).
+    device: where the solver's tensors live ("cuda", the default, as every
+    entry point of the port; "cpu" for the plain versions). tape_prior:
+    optional `(state0, t0) → (H, nu)` control tape, evaluated once per
+    command (with `use_priors`) from the K-wide state0 and the world step
+    clock, outside the rollout: one sample rolls the tape, and with
+    `prior_blend` a > 0 the sampling mean moves to (1 − a)·U + a·tape.
 
     `tape_injections` counts the commands into which a tape was injected."""
 
     tape_injections = 0
 
-    def __init__(self, cfg: MPPIConfig, nx: int, fused, device="cuda", tape_prior=None):
+    def __init__(self, cfg: MPPIConfig, nx: int, fused=None, device="cuda", tape_prior=None,
+                 dynamics=None, running_cost=None, prior=None, vis_fn=None):
+        if fused is None and (dynamics is None or running_cost is None):
+            raise ValueError("the unfused rollout (fused=None) needs dynamics and running_cost")
         self.fused = fused
         self.tape_prior = tape_prior
+        self.dynamics = dynamics
+        self.running_cost = running_cost
+        self.prior = prior
+        self.vis_fn = vis_fn
+        # sharding (parallel/sharding.py): the process group of the
+        # reductions, this rank and the number of ranks; the special samples
+        # go on the last rank
+        self.group = None
+        self.rank = 0
+        self.n_shards = 1
         self.nx = nx
         self.device = torch.device(device)
         nu = np.asarray(cfg.noise_sigma, dtype=np.float64).shape[0] if cfg.noise_sigma is not None else nx
@@ -92,6 +121,8 @@ class MPPIPlanner:
             if w >= 5:
                 self._sg = f32(savgol_matrix(savgol_coeffs(w, 2), H))
         self._eye = torch.eye(nu, dtype=torch.float32, device=dev)
+        # the closed-loop prior's sample
+        self._prior_row = torch.arange(K, device=dev) == K - 2
         self.refresh_constants()
         self.carry = self.init_carry()
         self.last_info: dict = {}
@@ -192,8 +223,11 @@ class MPPIPlanner:
         if eps is None:
             eps = self.noise(draw, carry.sigma)
         u_min, u_max = self._u_min, self._u_max
+        # the special samples (null action, tape or prior) occupy the last
+        # global sample slots: on the last rank only when sharded
+        edge = self.rank == self.n_shards - 1
         V = torch.clamp(carry.U[None] + eps, u_min, u_max)            # (K,H,nu)
-        if c.sample_null_action:
+        if c.sample_null_action and edge:
             V[K - 1] = 0.0
         if self.tape_prior is not None and c.use_priors:
             # one sample rolls the prior's full tape; eps_eff below uses the
@@ -204,15 +238,24 @@ class MPPIPlanner:
                 # the importance term still measures deviation from U
                 a = self._prior_blend
                 V = torch.clamp((1 - a) * carry.U[None] + a * tape[None] + eps, u_min, u_max)
-                if c.sample_null_action:
+                if c.sample_null_action and edge:
                     V[K - 1] = 0.0
-            V[K - 2] = tape
-            type(self).tape_injections += 1
+            if edge:
+                V[K - 2] = tape
+                type(self).tape_injections += 1
         eps_eff = V - carry.U[None]
         sigma_inv = torch.linalg.inv_ex(carry.sigma + self._eye * 1e-8).inverse
 
-        sim_state_K, params_K = state0
-        costs, vis = self.fused.rollout(sim_state_K, params_K, V * c.u_scale)
+        if self.fused is not None:
+            sim_state_K, params_K = state0
+            costs, vis = self.fused.rollout(sim_state_K, params_K, V * c.u_scale)
+        else:
+            use_prior = self.prior is not None and c.use_priors
+            costs, vis, u_seq = self._rollout(state0, V, use_prior and edge)
+            if use_prior:
+                # the prior sample applies closed-loop actions, not its drawn
+                # noise: the update uses the controls actually applied
+                eps_eff = u_seq - carry.U[None]
 
         # action (control-noise) cost — MPPI information-theoretic term
         if c.noise_abs_cost:
@@ -223,12 +266,12 @@ class MPPIPlanner:
             action_cost = torch.sum(carry.U[None] * act_cost, dim=(-1, -2))
 
         S = torch.sum(costs * self._gamma[None], dim=1) + action_cost      # (K,)
-        beta = torch.min(S)
+        beta = self._reduce(torch.min(S), dist.ReduceOp.MIN)
         scaled = -(S - beta) / torch.clamp(carry.lambda_, min=1e-6)
-        eta = torch.sum(torch.exp(scaled))
-        w = torch.exp(scaled) / eta
+        eta = self._reduce(torch.sum(torch.exp(scaled)))
+        w = torch.exp(scaled) / eta                                   # global weights
 
-        dU = torch.einsum("k,khn->hn", w, eps_eff)
+        dU = self._reduce(torch.einsum("k,khn->hn", w, eps_eff))
         U_new = carry.U + dU
         if self._sg is not None:
             # the Savitzky–Golay window over the edge-padded sequence, as
@@ -248,16 +291,47 @@ class MPPIPlanner:
 
         sigma = carry.sigma
         if c.update_cov:
-            weighted = torch.einsum("k,khi,khj->ij", w, eps_eff, eps_eff) / H
+            weighted = self._reduce(torch.einsum("k,khi,khj->ij", w, eps_eff, eps_eff) / H)
             sigma = 0.9 * sigma + 0.1 * weighted
             sigma = sigma + self._eye * 1e-5
 
         new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma, t0=carry.t0 + c.u_per_command,
                               key=key)
         info = {"costs": S, "weights": w, "eta": eta, "vis": vis, "best_cost": beta}
+        if self.fused is None:
+            info["applied"] = u_seq          # (K,H,nu) the controls each sample applied
         return action, new_carry, info
 
     # ------------------------------------------------------------------
+    def _reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """x reduced over the ranks of `group` (x itself on one device)."""
+        if self.group is not None:
+            x = x.contiguous()
+            dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def _rollout(self, state0, V: torch.Tensor, use_prior: bool):
+        """The unfused rollout of the K samples from state0 under controls V
+        (K,H,nu): → (costs (K,H), vis (H,K,d), the applied controls (K,H,nu)).
+        With use_prior, sample K−2 applies the clipped prior command of its
+        own state at each step."""
+        c = self.cfg
+        st = state0
+        costs, vis, applied = [], [], []
+        for t in range(c.horizon):
+            u_t = V[:, t]
+            if use_prior:
+                pu = torch.clamp(self.prior(st, t), self._u_min, self._u_max)
+                u_t = torch.where(self._prior_row[:, None], pu.to(u_t.dtype), u_t)
+            st = self.dynamics(st, u_t * c.u_scale, t)
+            costs.append(self.running_cost(st, t))
+            if self.vis_fn is not None:
+                vis.append(self.vis_fn(st))
+            applied.append(u_t)
+        K = V.shape[0]
+        vis = torch.stack(vis) if vis else V.new_zeros(c.horizon, K, 0)
+        return torch.stack(costs, 1), vis, torch.stack(applied, 1)
+
     def update_noise_sigma(self, sigma):
         """Online re-tuning: the covariance is one carry field."""
         self.cfg.noise_sigma = np.asarray(sigma, dtype=np.float64)

@@ -131,7 +131,7 @@ def psi_blocks(ks, bodies: List[int], S, Lc, v0: int, nv: int) -> Dict[int, torc
         cols = []
         for c6 in range(6):
             col = [S[j][:, c6] if j in sub else torch.zeros_like(ref[:, 0]) for j in range(nv)]
-            xs = cholesky_solve_factored(Lc, col)
+            xs = cholesky_solve_factored(Lc, torch.stack(col, -1)).unbind(-1)
             acc = torch.zeros_like(ref)
             for j in sub:
                 acc = acc + S[j] * xs[j][:, None]
@@ -322,7 +322,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
                     continue
                 for j in _sub_coords(ks, b, v0, nv):
                     rhsY[j] = rhsY[j] + (S[j] * Yb[b]).sum(-1)
-            dU = cholesky_solve_factored(ctx["L"], rhsY)
+            dU = cholesky_solve_factored(ctx["L"], torch.stack(rhsY, -1)).unbind(-1)
             ubys[aid] = [ubys[aid][j] + dU[j] for j in range(nv)]
 
     def v6_of(ubys):
@@ -449,8 +449,8 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         for b_free, A in A_by.items():
             a2 = body2actor[b_free]
             A_reg = A + 1e-4 * torch.eye(6, dtype=ref.dtype, device=ref.device)
-            xi = cholesky_solve_factored(cholesky_factor(A_reg), list(b_by[b_free].unbind(-1)))
-            xi = torch.clamp(torch.stack(xi, -1), -SNAP_CLIP, SNAP_CLIP)
+            xi = cholesky_solve_factored(cholesky_factor(A_reg), b_by[b_free])
+            xi = torch.clamp(xi, -SNAP_CLIP, SNAP_CLIP)
             rav[a2] = rav[a2] + xi[:, 0:3]
             rlv[a2] = rlv[a2] + xi[:, 3:6]
 

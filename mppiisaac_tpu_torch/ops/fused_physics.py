@@ -749,7 +749,7 @@ def _free_velocity(ks, ai, st, pos, quat, linv, angv, plk_n, plk_f, mass, dt):
     M = torch.triu(Iw) + torch.triu(Iw, 1).transpose(-1, -2)
     rhs = [(M[:, i] * vb).sum(-1) + dt * (0.0 - f[:, i]) for i in range(6)]
     Ms = M + 1e-8 * torch.eye(6, dtype=M.dtype, device=M.device)
-    u = cholesky_solve_factored(cholesky_factor(Ms), rhs)
+    u = cholesky_solve_factored(cholesky_factor(Ms), torch.stack(rhs, -1)).unbind(-1)
     w = torch.stack(u[0:3], -1)
     v = torch.stack(u[3:6], -1) + cross(w, st["root_pos"][:, ai])
     wcap, vcap = ks.max_root_angvel, ks.max_root_linvel
@@ -936,11 +936,12 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
             if ai in couple:
                 couple_terms(ks, couple[ai], S, v0, nv, pos, linv, angv, mass_scale, dt, rhs, Ms)
             Lc = cholesky_factor(Ms)
-            art_ctx[ai] = dict(S=S, L=Lc, u=cholesky_solve_factored(Lc, rhs), v0=v0, nv=nv,
+            u = list(cholesky_solve_factored(Lc, torch.stack(rhs, -1)).unbind(-1))
+            art_ctx[ai] = dict(S=S, L=Lc, u=u, v0=v0, nv=nv,
                                base=base, do=do, nd=nd, bodies=bodies,
                                psi=psi_blocks(ks, bodies, S, Lc, v0, nv))
             continue
-        u_new = cholesky_solve_factored(cholesky_factor(Ms), rhs)
+        u_new = cholesky_solve_factored(cholesky_factor(Ms), torch.stack(rhs, -1)).unbind(-1)
         if base:
             roots[ai] = _integrate_base(ks, st, ai, torch.stack(u_new[0:3], -1),
                                         torch.stack(u_new[3:6], -1), dt)

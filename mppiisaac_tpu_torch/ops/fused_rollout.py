@@ -412,7 +412,7 @@ class _DeviceTables:
         """Pack the tables anew (same scene, other constants) and copy the
         bytes into each device's buffer in place, in stream order."""
         self._bytes = pack_tables(ks, self.vis_body)
-        self._dev.refill("tables", self._host())
+        self._dev.refresh("tables")
 
 
 def _require_cuda(device: torch.device):

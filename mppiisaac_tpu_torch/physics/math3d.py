@@ -11,8 +11,6 @@ layout); Z-up.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
-
 import torch
 
 
@@ -243,42 +241,54 @@ def transform_inverse(p, q):
 
 
 # ---------------------------------------------------------------------------
-# small SPD solves, per sample: M is (..., n, n), unrolled over n like the
-# kernel's (lanes `cholesky_factor` / `cholesky_solve_factored`)
+# small SPD solves, batched: M is (..., n, n) with n static and small
 # ---------------------------------------------------------------------------
 
-def cholesky_factor(M: torch.Tensor, eps: float = 1e-9) -> List[List[torch.Tensor]]:
-    """Lower factor as nested lists of (...) tensors; the diagonal pivot is
-    clamped to eps before the root."""
+def cholesky_factor(M: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Lower factor L (..., n, n) of SPD M, each pivot clamped to eps before
+    its root as in the kernels' unrolled factor (`chol_factor`, lanes
+    `cholesky_factor`). Right-looking: column j is scaled by 1/L_jj and the
+    trailing block takes its rank-1 update, so every entry sees the same
+    subtractions in the same order as the unrolled factor, in a few tensor
+    ops per column over the whole batch.
+
+    Not `torch.linalg.cholesky`: it raises on a pivot that is not positive
+    where the kernels clamp, and its error check syncs with the host, which
+    a CUDA graph cannot capture."""
     n = M.shape[-1]
-    L: List[List[torch.Tensor]] = [[None] * n for _ in range(n)]
-    for j in range(n):
-        d = M[..., j, j]
-        for k in range(j):
-            d = d - L[j][k] * L[j][k]
-        Ljj = torch.sqrt(torch.clamp(d, min=eps))
-        L[j][j] = Ljj
-        inv = 1.0 / Ljj
-        for i in range(j + 1, n):
-            s = M[..., i, j]
-            for k in range(j):
-                s = s - L[i][k] * L[j][k]
-            L[i][j] = s * inv
-    return L
+    A = M
+    cols = []
+    for _ in range(n):
+        Ljj = torch.sqrt(torch.clamp(A[..., 0, 0], min=eps))
+        col = A[..., 1:, 0] * (1.0 / Ljj)[..., None]
+        cols.append(torch.cat([Ljj[..., None], col], -1))
+        A = A[..., 1:, 1:] - col[..., :, None] * col[..., None, :]
+    # column j holds rows j..n-1: pad its top with zeros
+    z = M.new_zeros(M.shape[:-2] + (n,))
+    return torch.stack([torch.cat([z[..., :j], c], -1) for j, c in enumerate(cols)], -1)
 
 
-def cholesky_solve_factored(L: List[List[torch.Tensor]], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    n = len(b)
-    y: List[torch.Tensor] = [None] * n
-    for i in range(n):
-        s = b[i]
-        for k in range(i):
-            s = s - L[i][k] * y[k]
-        y[i] = s / L[i][i]
-    x: List[torch.Tensor] = [None] * n
-    for i in range(n - 1, -1, -1):
-        s = y[i]
-        for k in range(i + 1, n):
-            s = s - L[k][i] * x[k]
-        x[i] = s / L[i][i]
-    return x
+def cholesky_solve_factored(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L Lᵀ) X = B with the factor of `cholesky_factor`: L (..., n, n),
+    B (..., n) or (..., n, m). Column-oriented: each solved entry is
+    subtracted from the rows still to solve at once. The forward pass
+    subtracts in the kernels' order; the back pass from the last row up,
+    the reverse of their dot products, so the two differ by roundings."""
+    vec = B.dim() == L.dim() - 1
+    X = B[..., None] if vec else B
+    n = L.shape[-1]
+    d = torch.diagonal(L, dim1=-2, dim2=-1)[..., None]          # (..., n, 1)
+    ys = []
+    s = X
+    for k in range(n):
+        yk = s[..., :1, :] / d[..., k:k + 1, :]
+        ys.append(yk)
+        s = s[..., 1:, :] - L[..., k + 1:, k:k + 1] * yk
+    t = torch.cat(ys, -2)
+    xs = [None] * n
+    for k in range(n - 1, -1, -1):
+        xk = t[..., k:k + 1, :] / d[..., k:k + 1, :]
+        xs[k] = xk
+        t = t[..., :k, :] - L[..., k:k + 1, :k].transpose(-1, -2) * xk
+    x = torch.cat(xs, -2)
+    return x[..., 0] if vec else x

@@ -1,9 +1,11 @@
 """MPPIisaacPlanner — the planner orchestrator (parity with the JAX package's
 `planner/mppi_isaac.py`).
 
-One command rolls the K samples out from a K-wide copy of the world state in
-one fused-rollout launch (`ops/fused_rollout.FusedRollout`) and applies the
-MPPI update (`mppi/solver.MPPIPlanner`). The entry points:
+One command rolls the K samples out from a K-wide copy of the world state —
+in one fused-rollout launch (`ops/fused_rollout.FusedRollout`), or through
+the unfused rollout (the engine's `Engine.step`, the objective's
+`compute_cost` and an optional closed-loop prior, step by step) — and
+applies the MPPI update (`mppi/solver.MPPIPlanner`). The entry points:
 
 * `compute_action_from_state(world_state)`: the in-process loop
   (runtime/loop.py) broadcasts the 1-env world state K-wide;
@@ -14,9 +16,16 @@ MPPI update (`mppi/solver.MPPIPlanner`). The entry points:
   dof and root states travel; the rollout sim keeps its own λ rows, as the
   JAX package's does;
 * online changes: `update_weights` and `update_objective` re-pack the cost
-  constants of the same FusedRollout; `update_mppi_params` rebuilds the
-  solver and the rollout on a structural key; `add_to_env` rebuilds both
-  over the scene with the new actors.
+  constants of the same FusedRollout (the unfused rollout reads the
+  objective at every command); `update_mppi_params` rebuilds the solver and
+  the rollout on a structural key; `add_to_env` rebuilds both over the
+  scene with the new actors.
+
+Which rollout (`use_fused`): None takes the fused rollout exactly when the
+objective has a `kernel_cost` and the prior is not closed-loop, on any
+device (the JAX package takes its XLA rollout on the CPU); False takes the
+unfused rollout; True with a closed-loop prior raises (the JAX package drops
+the prior there).
 """
 from __future__ import annotations
 
@@ -28,29 +37,37 @@ from ..ops.fused_rollout import FusedRollout
 from ..runtime.sim import Simulation, broadcast_state, sample_model_params
 from ..runtime.transport import bytes_to_torch, torch_to_bytes
 from ..utils.config_store import ExampleConfig
+from ..utils.device_cache import refresh_cached
 from .observables import SimView
 
 
 class MPPIisaacPlanner:
-    """prior: optional tape prior (`.tape(view, t0) → (H, nu)`, e.g.
-    planner/priors.QuadrupedGaitPrior), evaluated once per command on the
-    world state when `mppi.use_priors` is set."""
+    """prior: optional; a tape prior (`.tape(view, t0) → (H, nu)`, e.g.
+    planner/priors.QuadrupedGaitPrior) is evaluated once per command on the
+    world state, a closed-loop prior (`.compute_command(view) → (K, nu)`,
+    PointNavigationPrior, ArmJacobianPrior) at every rollout step for one
+    sample (unfused rollout only); both with `mppi.use_priors`. use_fused:
+    the rollout, as the module says."""
 
     def __init__(self, cfg: ExampleConfig, objective, prior=None, randomize: bool = True,
-                 device="cuda"):
-        if not hasattr(objective, "kernel_cost"):
-            raise NotImplementedError(
-                f"{type(objective).__name__} has no CUDA cost (kernel_cost)")
-        if prior is not None and not hasattr(prior, "tape"):
-            raise NotImplementedError(
-                f"{type(prior).__name__} is a closed-loop prior (compute_command per rollout "
-                f"step), which runs only inside the JAX package's XLA rollout; the fused "
-                f"kernels take tape priors (.tape) only")
+                 device="cuda", use_fused=None):
+        closed_loop = prior is not None and not hasattr(prior, "tape")
+        if use_fused and closed_loop:
+            raise ValueError(
+                f"use_fused=True with the closed-loop prior {type(prior).__name__}: a prior "
+                f"evaluated at every rollout step runs only in the unfused rollout "
+                f"(use_fused=None or False)")
+        if use_fused and not hasattr(objective, "kernel_cost"):
+            raise ValueError(f"use_fused=True, but {type(objective).__name__} has no kernel "
+                             f"cost (kernel_cost) for the fused rollout")
         self.cfg = cfg
         self.objective = objective
         self._prior = prior
         self._randomize = randomize
         self.device = torch.device(device)
+        if use_fused is None:
+            use_fused = hasattr(objective, "kernel_cost") and not closed_loop
+        self.use_fused = bool(use_fused)
         self.sim = self._rollout_sim()
         self._build_solver()
 
@@ -68,8 +85,9 @@ class MPPIisaacPlanner:
 
     def _build_solver(self):
         """(Re)build everything downstream of the rollout sim: the model
-        parameters, the FusedRollout and the solver; the K-wide sim too when
-        num_samples changed."""
+        parameters, the rollout (a FusedRollout, or the unfused rollout's
+        closures) and the solver; the K-wide sim too when num_samples
+        changed."""
         cfg = self.cfg
         K = cfg.mppi.num_samples
         if self.sim.num_envs != K:
@@ -77,26 +95,63 @@ class MPPIisaacPlanner:
         built, engine = self.sim.built, self.sim.engine
         self._params_K = self.sim.params if self._randomize else sample_model_params(
             built, engine, K, seed=cfg.mppi.seed_val, device=self.device)
-        fused = FusedRollout(
-            built, engine,
-            cost=self.objective.kernel_cost(built),
-            H=cfg.mppi.horizon, K=K,
-            vis_body=built.visualize_bodies[0] if built.visualize_bodies else None,
-            substeps=cfg.mppi.rollout_substeps,
-            impulse_sweeps=cfg.mppi.rollout_sweeps,
-            world_fidelity=cfg.mppi.rollout_fidelity != "fast",
-            manifold=cfg.mppi.rollout_manifold,
-        )
-        tape_fn = None
-        if self._prior is not None:
-            prior = self._prior
-
+        prior = self._prior
+        tape_fn = prior_fn = None
+        if prior is not None and hasattr(prior, "tape"):
             def tape_fn(state0, t0):
                 return prior.tape(SimView(built, state0[0].map(lambda x: x[0])), t0)
+        elif prior is not None:
+            def prior_fn(state, t):
+                return prior.compute_command(SimView(built, state[0]))
 
-        self.mppi = MPPIPlanner(cfg.mppi, cfg.nx, fused=fused, device=self.device,
-                                tape_prior=tape_fn)
+        rollout = {}
+        if self.use_fused:
+            rollout["fused"] = self.fused_factory()(K)
+        else:
+            # the rollout state is (SimState_K, ModelParams_K), so per-sample
+            # randomization rides along
+            def dynamics(state, u, t):
+                st, pr = state
+                st = st.replace(dof_target=built.cmd_map.apply(u, st.q))
+                return engine.step(st, pr), pr
+
+            def running_cost(state, t):
+                return self.objective.compute_cost(SimView(built, state[0]))
+
+            vis_fn = None
+            if built.visualize_bodies:
+                vb = built.visualize_bodies[0]
+
+                def vis_fn(state):
+                    return state[0].body_pos[:, vb]
+
+            rollout = dict(dynamics=dynamics, running_cost=running_cost, prior=prior_fn,
+                           vis_fn=vis_fn)
+        self.mppi = MPPIPlanner(cfg.mppi, cfg.nx, device=self.device, tape_prior=tape_fn,
+                                **rollout)
         self._last_vis = None
+
+    def fused_factory(self):
+        """``K_shard -> FusedRollout`` over this planner's scene, cost and
+        rollout settings (parallel/sharding.py gives every rank one over its
+        K/n samples); None when the objective has no kernel cost."""
+        if not hasattr(self.objective, "kernel_cost"):
+            return None
+        built, engine, cfg = self.sim.built, self.sim.engine, self.cfg
+
+        def make(K_shard: int) -> FusedRollout:
+            return FusedRollout(
+                built, engine,
+                cost=self.objective.kernel_cost(built),
+                H=cfg.mppi.horizon, K=K_shard,
+                vis_body=built.visualize_bodies[0] if built.visualize_bodies else None,
+                substeps=cfg.mppi.rollout_substeps,
+                impulse_sweeps=cfg.mppi.rollout_sweeps,
+                world_fidelity=cfg.mppi.rollout_fidelity != "fast",
+                manifold=cfg.mppi.rollout_manifold,
+            )
+
+        return make
 
     @property
     def built(self):
@@ -175,7 +230,8 @@ class MPPIisaacPlanner:
     def get_rollouts(self) -> bytes:
         """(H, K, 3) visualize-link trajectories of the last command, or a
         (1,1,1) zero tensor when there are none."""
-        if self._last_vis is None or self.mppi.fused.vis_body < 0:
+        if self._last_vis is None or self._last_vis.shape[-1] == 0 \
+                or (self.mppi.fused is not None and self.mppi.fused.vis_body < 0):
             return torch_to_bytes(torch.zeros(1, 1, 1))
         return torch_to_bytes(self._last_vis)
 
@@ -189,15 +245,21 @@ class MPPIisaacPlanner:
     def update_objective(self, objective):
         """Replace the objective: its cost constants go into the same
         FusedRollout's tables (the old objective's goal would stay there
-        otherwise)."""
+        otherwise); the unfused rollout reads `self.objective`, whose
+        device constants (a goal changed on the same objective) are written
+        anew in place."""
         self.objective = objective
-        self.mppi.fused.set_cost(objective.kernel_cost(self.built))
+        refresh_cached(objective)
+        if self.mppi.fused is not None:
+            self.mppi.fused.set_cost(objective.kernel_cost(self.built))
 
     def update_weights(self, weights):
         """Online re-tuning: new cost weights, re-packed into the tables of
-        the same FusedRollout."""
+        the same FusedRollout (read by the unfused rollout's cost)."""
         self.objective.weights = weights
-        self.mppi.fused.set_cost(self.objective.kernel_cost(self.built))
+        refresh_cached(self.objective)
+        if self.mppi.fused is not None:
+            self.mppi.fused.set_cost(self.objective.kernel_cost(self.built))
 
     # keys whose change rebuilds the solver and the rollout (shapes, static
     # sampling bases, kernel dims); as the JAX package's set

@@ -142,11 +142,13 @@ def run_task(
     device="cuda",
     device_steps: int = 1,
     chunk_observer: Optional[Callable] = None,
+    use_fused: Optional[bool] = None,
 ) -> LoopMetrics:
     """success_fn(world: Simulation) -> bool; observer(step, world, action);
-    prior: a tape prior for the planner (MPPIisaacPlanner). real_time: sleep
-    out each control period. device: "cuda" (the kernels; the default) or
-    "cpu" (their plain versions).
+    prior: a tape or closed-loop prior for the planner, use_fused: its
+    rollout (MPPIisaacPlanner). real_time: sleep out each control period.
+    device: "cuda" (the kernels; the default) or "cpu" (their plain
+    versions).
 
     device_steps > 1 runs up to that many control steps per host round trip
     (`DeviceChunk`), as the JAX package's chunked loop; success stays exact,
@@ -156,7 +158,8 @@ def run_task(
     as in the JAX package."""
     device = torch.device(device)
     world = goal_world(cfg, device)
-    planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device)
+    planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device,
+                               use_fused=use_fused)
     n = n_steps if n_steps is not None else cfg.n_steps
     if device_steps > 1 and observer is None and not real_time:
         return _run_chunked(DeviceChunk(world, planner, device_steps), n, cfg.isaacgym.dt,
@@ -178,6 +181,7 @@ def run_task_episodes(
     randomize: bool = True,
     verbose: bool = False,
     device="cuda",
+    use_fused: Optional[bool] = None,
 ) -> Dict[int, LoopMetrics]:
     """Seeded episodes on one build: the world, the planner (with their
     FusedRollout and FusedWorldStep) and, for device_steps > 1, the chunk
@@ -188,7 +192,8 @@ def run_task_episodes(
     device = torch.device(device)
     world = goal_world(cfg, device)
     initial = world.state
-    planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device)
+    planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device,
+                               use_fused=use_fused)
     chunk = DeviceChunk(world, planner, device_steps) if device_steps > 1 else None
     n = n_steps if n_steps is not None else cfg.n_steps
     results = {}
@@ -234,12 +239,17 @@ class DeviceChunk:
     no eager fallback. On CPU tensors (the caller asked for the CPU) the
     same step runs eagerly.
 
+    The step is the planner's, fused or unfused: the unfused rollout's
+    thousands of small launches (the engine's substeps over the horizon) are
+    captured into the same one graph.
+
     A replay makes no Python call, so the kernels' launch counters and the
     solver's tape injections are raised by the counts the capture recorded,
     once per replay. The tables of `update_weights` and `update_objective`
-    are written in place and seen by the graph; a changed solver config is
-    captured anew; a new solver or FusedRollout (a structural
-    `update_mppi_params`, `add_to_env`) makes `run` raise."""
+    are written in place and seen by the graph; a changed solver config, and
+    for the unfused rollout a changed objective or weights (its cost reads
+    them as constants), are captured anew; a new solver or FusedRollout (a
+    structural `update_mppi_params`, `add_to_env`) makes `run` raise."""
 
     def __init__(self, world, planner: MPPIisaacPlanner, device_steps: int):
         if int(device_steps) < 1:
@@ -344,6 +354,9 @@ class DeviceChunk:
         self._slot.zero_()
         if self.device.type == "cuda":
             sig = repr(mppi.cfg)
+            if mppi.fused is None:
+                obj = planner.objective
+                sig += f"|{id(obj)}|{getattr(obj, 'weights', None)!r}"
             todo, info = k, self._info
             if self._graph is None or sig != self._signature:
                 info = self._capture()

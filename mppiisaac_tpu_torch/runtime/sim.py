@@ -3,10 +3,13 @@
 
 State is one batched SimState attribute; every mutator replaces it, and each
 setter refreshes the body caches (`Engine.refresh`). `step` advances all
-num_envs envs in one launch of the fused world-step kernel (K2, one warp per
-env; its plain version on the CPU), each env with its own row of `params`
-and its own contact_lam. The planner's K-env instance is its scene holder
-and is never stepped.
+num_envs envs, each with its own row of `params` and its own contact_lam:
+in one launch of the fused world-step kernel (K2, one warp per env; its
+plain version on the CPU) when `SimConfig.fused_world` is None or True, or
+through the engine's `Engine.step` batched over the envs when it is False.
+(The JAX package's None means K2 for one env only and its XLA engine for
+more; the port takes K2 for any N.) The planner's K-env instance is its
+scene holder and is stepped only by the unfused rollout.
 """
 from __future__ import annotations
 
@@ -90,11 +93,6 @@ class Simulation:
         return specs
 
     def start_sim(self):
-        if self.cfg.fused_world is False:
-            raise NotImplementedError(
-                "SimConfig.fused_world=False selects the JAX package's XLA engine "
-                "(Engine.step under vmap), which is not ported: the port steps every world "
-                "through the fused world-step kernel (fused_world None or True)")
         self.built = build_scene(
             self.env_cfg, self.cfg, self._init_positions,
             seed=self._seed if self._randomize else None,
@@ -109,8 +107,11 @@ class Simulation:
                 torch.ones(self.num_envs, s.nbody, dtype=torch.float32, device=self.device),
                 torch.ones(self.num_envs, s.ngeom, dtype=torch.float32, device=self.device),
             )
-        self._world_step = FusedWorldStep(
-            self.built, self.engine, impulse_sweeps=self.cfg.fused_world_sweeps)
+        if self.cfg.fused_world is False:
+            self._world_step = self.engine          # Engine.step(state, params)
+        else:
+            self._world_step = FusedWorldStep(
+                self.built, self.engine, impulse_sweeps=self.cfg.fused_world_sweeps)
         self.state = broadcast_state(
             self.built.initial_state(self.engine, self.device), self.num_envs
         ).map(torch.Tensor.contiguous)
@@ -118,7 +119,7 @@ class Simulation:
         self.saved_root_state = None
 
     def stop_sim(self):
-        """Drop the world-step kernel wrapper (start_sim builds a new one)."""
+        """Drop the world stepper (start_sim builds a new one)."""
         self._world_step = None
 
     def add_to_envs(self, additions: List[dict]):
@@ -189,8 +190,9 @@ class Simulation:
         self.state = self.stepped(self.state)
 
     def stepped(self, state: SimState) -> SimState:
-        """`state` (num_envs envs) one control dt later: one launch of the
-        world-step kernel over all envs, each with its own params row."""
+        """`state` (num_envs envs) one control dt later, each env with its
+        own params row: one launch of the world-step kernel over all envs,
+        or `Engine.step` over them (fused_world=False)."""
         if self._world_step is None:
             raise RuntimeError("the simulation was stopped (stop_sim): start_sim builds it anew")
         return self._world_step.step(state, self.params)

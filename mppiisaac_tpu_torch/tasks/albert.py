@@ -16,7 +16,7 @@ from ..ops.fused_physics import TASK_ALBERT, CostSpec
 from ..physics.math3d import quat_to_euler_zyx
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import norm, split_cli
+from .common import fused_opt, norm, split_cli
 
 EE_LINK = "mmrobot_link7"
 
@@ -68,5 +68,6 @@ def run(overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "device": "cuda"})
+    print(run(rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

@@ -17,7 +17,7 @@ import torch
 from ..ops.fused_physics import TASK_ANYMAL, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import norm, split_cli
+from .common import fused_opt, norm, split_cli
 
 LEGS = ("LF", "RF", "LH", "RH")
 BODY_LINKS = ("base", "face_front", "face_rear")
@@ -93,5 +93,6 @@ def run(overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "device": "cuda"})
+    print(run(rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

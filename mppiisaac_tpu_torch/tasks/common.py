@@ -4,6 +4,15 @@ from __future__ import annotations
 import torch
 
 from ..physics.math3d import quat_to_euler_zyx, quat_to_yaw
+from ..utils.device_cache import cached
+
+
+def const(owner, name: str, make, like: torch.Tensor) -> torch.Tensor:
+    """The host value `make()` as a tensor of `like`'s dtype on its device,
+    made once and cached on `owner` (an objective): a cost evaluated inside
+    a captured control step copies nothing from the host. The planner's
+    `update_objective`/`update_weights` write it anew from `make()`."""
+    return cached(owner, name, make, like.dtype, like.device)
 
 
 def norm(x, dim=-1):
@@ -49,3 +58,11 @@ def split_cli(argv, defaults):
         else:
             rest.append(a)
     return rest, opts
+
+
+def fused_opt(val):
+    """The planner's `use_fused` from a command-line value: true, false or
+    none (the planner's choice)."""
+    if val is None or isinstance(val, bool):
+        return val
+    return {"true": True, "false": False, "none": None}[str(val).lower()]

@@ -14,7 +14,7 @@ import torch
 from ..ops.fused_physics import TASK_MOBILE_PUSH, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import contact_force_mag, norm, push_align_cost, split_cli, yaw_of
+from .common import const, contact_force_mag, fused_opt, norm, push_align_cost, split_cli, yaw_of
 
 EE_LINK = {"boxer": "ee_link", "heijn": "front_link"}
 
@@ -52,7 +52,7 @@ class MobilePushObjective(Objective):
         block_vel = view.actor_linvel("block")
         block_yaw = yaw_of(view.actor_orientation("block"))
         robot_to_block = r_pos - block[..., :2]
-        block_to_goal = self.goal.to(block.device) - block[..., :2]
+        block_to_goal = const(self, "goal", lambda: self.goal, block) - block[..., :2]
         coll = contact_force_mag(view, "obst1", dims=2) + contact_force_mag(view, "obst2", dims=2)
         w = self.weights
         return (
@@ -114,5 +114,7 @@ def run(robot="heijn", overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"robot": "heijn", "device": "cuda"})
-    print(run(opts["robot"], rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "robot": "heijn",
+                                           "device": "cuda"})
+    print(run(opts["robot"], rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

@@ -13,7 +13,7 @@ import torch
 from ..ops.fused_physics import TASK_MOBILE_REACH, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import contact_force_mag, norm, split_cli
+from .common import const, contact_force_mag, fused_opt, norm, split_cli
 
 
 class MobileReachObjective(Objective):
@@ -30,7 +30,7 @@ class MobileReachObjective(Objective):
 
     def compute_cost(self, view: SimView) -> torch.Tensor:
         xy = self._robot_xy(view)
-        dist = norm(xy - self.goal.to(xy.device))
+        dist = norm(xy - const(self, "goal", lambda: self.goal, xy))
         wall_f = contact_force_mag(view, "wall", dims=2)
         return self.weights["goal"] * dist + self.weights["collision"] * wall_f
 
@@ -82,5 +82,6 @@ def run(robot="boxer", overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"robot": "boxer", "device": "cuda"})
-    print(run(opts["robot"], rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "robot": "boxer", "device": "cuda"})
+    print(run(opts["robot"], rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

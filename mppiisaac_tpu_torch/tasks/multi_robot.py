@@ -18,7 +18,7 @@ import torch
 from ..ops.fused_physics import TASK_MULTI_ROBOT, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import split_cli
+from .common import const, fused_opt, split_cli
 
 
 class _MultiRobotObjective(Objective):
@@ -40,8 +40,9 @@ class _MultiRobotObjective(Objective):
         w = self.weights
         xys = self._xys(view)
         cost = 0.0
-        for xy, g in zip(xys, self.goals):
-            cost = cost + w["nav"] * torch.linalg.norm(xy - torch.as_tensor(g, device=xy.device), dim=-1)
+        for i, xy in enumerate(xys):
+            goal = const(self, f"goal{i}", lambda i=i: self.goals[i], xy)
+            cost = cost + w["nav"] * torch.linalg.norm(xy - goal, dim=-1)
         for i in range(len(xys)):
             for j in range(i + 1, len(xys)):
                 d = torch.linalg.norm(xys[i] - xys[j], dim=-1)
@@ -125,5 +126,7 @@ def run(overrides=None, task="multi_pointbot", device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"task": "multi_pointbot", "device": "cuda"})
-    print(run(rest, task=opts["task"], device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "task": "multi_pointbot",
+                                           "device": "cuda"})
+    print(run(rest, task=opts["task"], device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

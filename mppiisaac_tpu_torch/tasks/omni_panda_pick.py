@@ -15,7 +15,7 @@ import torch
 from ..ops.fused_physics import TASK_OMNI_PICK, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import contact_force_mag, ee_upright_cost, norm, split_cli
+from .common import const, contact_force_mag, ee_upright_cost, fused_opt, norm, split_cli
 
 COMFY_ARM_POSE = (-1.57, -0.94, 0.0, -2.8, 0.0, 1.8675, 0.75)
 COMFY_GRIPPER_STATE = (0.025, 0.025)
@@ -44,8 +44,8 @@ class OmniPandaPickObjective(Objective):
         goal = view.actor_position("goal")
         q = view.actor_q("omnipanda")
         qd = view.actor_qd("omnipanda")
-        arm = torch.tensor(COMFY_ARM_POSE, dtype=q.dtype, device=q.device)
-        grip = torch.tensor(COMFY_GRIPPER_STATE, dtype=q.dtype, device=q.device)
+        arm = const(self, "arm", lambda: COMFY_ARM_POSE, q)
+        grip = const(self, "grip", lambda: COMFY_GRIPPER_STATE, q)
         w = self.weights
         return (
             w["robot_to_block"] * norm(r[..., 0:3] - block)
@@ -106,5 +106,6 @@ def run(overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "device": "cuda"})
+    print(run(rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

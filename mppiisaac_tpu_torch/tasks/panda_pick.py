@@ -14,7 +14,7 @@ import torch
 from ..ops.fused_physics import TASK_PANDA_PICK, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import contact_force_mag, ee_upright_cost, norm, split_cli
+from .common import contact_force_mag, ee_upright_cost, fused_opt, norm, split_cli
 
 
 class PandaPickObjective(Objective):
@@ -83,5 +83,6 @@ def run(overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "device": "cuda"})
+    print(run(rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

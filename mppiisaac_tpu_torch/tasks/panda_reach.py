@@ -14,7 +14,7 @@ import torch
 from ..ops.fused_physics import TASK_PANDA_REACH, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import ee_upright_cost, norm, split_cli
+from .common import ee_upright_cost, fused_opt, norm, split_cli
 
 
 class PandaReachObjective(Objective):
@@ -66,5 +66,6 @@ def run(overrides=None, task="panda", device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"task": "panda", "device": "cuda"})
-    print(run(rest, task=opts["task"], device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "task": "panda", "device": "cuda"})
+    print(run(rest, task=opts["task"], device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

@@ -15,7 +15,8 @@ import torch
 from ..ops.fused_physics import TASK_STICK_PUSH, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import contact_force_mag, ee_upright_cost, norm, push_align_cost, split_cli
+from .common import (contact_force_mag, ee_upright_cost, fused_opt, norm, push_align_cost,
+                     split_cli)
 
 
 class PandaStickPushObjective(Objective):
@@ -89,5 +90,6 @@ def run(overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "device": "cuda"})
+    print(run(rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

@@ -14,7 +14,7 @@ import torch
 from ..ops.fused_physics import TASK_POINT_ROBOT, CostSpec
 from ..planner.objective import Objective
 from ..planner.observables import SimView
-from .common import split_cli
+from .common import const, fused_opt, split_cli
 
 
 class PointRobotObjective(Objective):
@@ -26,7 +26,7 @@ class PointRobotObjective(Objective):
 
     def compute_cost(self, view: SimView) -> torch.Tensor:
         pos = view.actor_q("point_robot")[..., :2]
-        nav = torch.linalg.norm(pos - self.nav_goal.to(pos.device), dim=-1)
+        nav = torch.linalg.norm(pos - const(self, "nav_goal", lambda: self.nav_goal, pos), dim=-1)
         obstacle = torch.zeros_like(nav)
         for name in self.obstacle_names:
             d = torch.linalg.norm(pos - view.actor_position(name)[..., :2], dim=-1)
@@ -78,5 +78,6 @@ def run(overrides=None, device="cuda", **kw):
 if __name__ == "__main__":
     import sys
 
-    rest, opts = split_cli(sys.argv[1:], {"device": "cuda"})
-    print(run(rest, device=opts["device"], verbose=True).summary())
+    rest, opts = split_cli(sys.argv[1:], {"use_fused": None, "device": "cuda"})
+    print(run(rest, device=opts["device"], use_fused=fused_opt(opts["use_fused"]),
+              verbose=True).summary())

@@ -7,7 +7,7 @@ command maps) is copied to its device at its first use and kept there.
 tables."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ class DeviceCache:
 
     def __init__(self):
         self._t: Dict[Tuple[str, torch.dtype, torch.device], torch.Tensor] = {}
+        self._make: Dict[str, Callable] = {}
 
     def get(self, name: str, make: Callable, dtype: torch.dtype, device) -> torch.Tensor:
         """The host array `make()` as a tensor of `dtype` on `device`."""
@@ -25,11 +26,31 @@ class DeviceCache:
         t = self._t.get(key)
         if t is None:
             t = self._t[key] = torch.as_tensor(make(), dtype=dtype, device=device)
+            self._make.setdefault(name, make)
         return t
 
-    def refill(self, name: str, value):
-        """Write the host array `value` into every copy of `name` in place,
-        in stream order: a captured graph that reads the copy sees it."""
+    def refresh(self, name: Optional[str] = None):
+        """Make every copy (of `name`, or of all) anew from its host array
+        and write it in place, in stream order: a captured graph that reads
+        the copy sees the new value."""
         for (n, dtype, _), t in self._t.items():
-            if n == name:
-                t.copy_(torch.as_tensor(value, dtype=dtype))
+            if name is None or n == name:
+                t.copy_(torch.as_tensor(self._make[n](), dtype=dtype))
+
+
+def cached(owner, name: str, make: Callable, dtype: torch.dtype, device) -> torch.Tensor:
+    """`make()` as a tensor of `dtype` on `device`, kept in the DeviceCache
+    that `owner` (a scene's tables, an objective) holds as `_dev`, made at
+    the first call."""
+    cache = owner.__dict__.get("_dev")
+    if cache is None:
+        cache = owner.__dict__["_dev"] = DeviceCache()
+    return cache.get(name, make, dtype, device)
+
+
+def refresh_cached(owner):
+    """Write `owner`'s cached tensors anew from their host values, in place
+    (after the owner's attributes changed)."""
+    cache = owner.__dict__.get("_dev")
+    if cache is not None:
+        cache.refresh()

@@ -720,3 +720,57 @@ def test_simulation_steps_every_env_in_one_launch(panda):
     torch.testing.assert_close(z, z[:1].expand_as(z), rtol=0.0, atol=1e-4)
     sim.restore_state(snap)
     assert torch.equal(sim.state.root_pos, snap.root_pos)
+
+
+def test_unfused_command_replays_from_a_cuda_graph(panda):
+    """The unfused command (Engine.step over H × substeps, the objective's
+    compute_cost, the MPPI update) at K=64, H=4 from the panda state:
+    captured once as a CUDA graph after a warm-up on a side stream, a replay
+    gives the eager command's action and costs bit for bit; and run_task
+    with use_fused=False at device_steps=4 equals the per-step loop over 4
+    steps, K2 once per step and K1 never."""
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+
+    cfg = load_config("tasks/panda", ["mppi.num_samples=64", "mppi.horizon=4"])
+    world = panda[1]
+    planner = MPPIisaacPlanner(cfg, PandaReachObjective(cfg), device="cuda", use_fused=False)
+    assert planner.mppi.fused is None
+    planner.reset_rollout_from_state(world.state)
+    carry = planner.mppi.carry
+    _, d = planner.mppi.draws(carry.key, 1)
+    draw = torch.as_tensor(d[0], device="cuda")
+    state0 = (planner.sim.state, planner._params_K)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a0, _, i0 = planner.mppi._command_impl(carry, state0, draw=draw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a, _, info = planner.mppi._command_impl(carry, state0, draw=draw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, a0) and torch.equal(info["costs"], i0["costs"])
+    assert torch.isfinite(a).all() and a.abs().max() > 1e-3
+
+    runs = {}
+    for n in (1, 4):
+        seen = []
+
+        def record(w, seen=seen):
+            seen.append(w.state.map(lambda x: x.detach().cpu().clone()))
+            return False
+
+        FusedRollout.launches = FusedWorldStep.launches = 0
+        m = run_task(cfg, PandaReachObjective(cfg), n_steps=4, success_fn=record, device="cuda",
+                     device_steps=n, use_fused=False)
+        torch.cuda.synchronize()
+        assert (FusedRollout.launches, FusedWorldStep.launches) == (0, 4), n
+        runs[n] = seen
+    for i, (x, y) in enumerate(zip(runs[1], runs[4])):
+        for f in SIM_STATE_FIELDS:
+            if getattr(x, f) is not None:
+                assert torch.equal(getattr(x, f), getattr(y, f)), (i, f)

@@ -106,16 +106,22 @@ def test_transforms():
 
 
 def test_cholesky_matches_lanes():
-    """The twin's per-sample Cholesky solve against the lanes one (the TPU
-    kernel's unrolled factor), batched over samples."""
+    """The batched Cholesky solve against the lanes one (the TPU kernel's
+    unrolled factor), batched over samples; the factor bit for bit."""
     from mppiisaac_tpu.ops.pallas import lanes
 
     rng = np.random.RandomState(3)
     A = rng.randn(5, 7, 7).astype(np.float32)
     M = A @ A.transpose(0, 2, 1) + 7 * np.eye(7, dtype=np.float32)
     b = rng.randn(5, 7).astype(np.float32)
-    x_t = tm.cholesky_solve_factored(tm.cholesky_factor(_t(M)), [_t(b[:, i]) for i in range(7)])
+    x_t = tm.cholesky_solve_factored(tm.cholesky_factor(_t(M)), _t(b))
     Mj = [[jnp.asarray(M[:, i, j]) for j in range(7)] for i in range(7)]
     x_j = lanes.cholesky_solve(Mj, [jnp.asarray(b[:, i]) for i in range(7)])
-    _close(torch.stack(x_t, -1), np.stack([np.asarray(x) for x in x_j], -1))
-    _close(torch.stack(x_t, -1), np.linalg.solve(M.astype(np.float64), b[..., None])[..., 0], atol=1e-5)
+    # the factor: the same subtractions in the same order as the lanes one
+    L_t = tm.cholesky_factor(_t(M)).numpy()
+    L_j = lanes.cholesky_factor(Mj)
+    for i in range(7):
+        for j in range(i + 1):
+            np.testing.assert_array_equal(L_t[:, i, j], np.asarray(L_j[i][j]))
+    _close(x_t, np.stack([np.asarray(x) for x in x_j], -1))
+    _close(x_t, np.linalg.solve(M.astype(np.float64), b[..., None])[..., 0], atol=1e-5)

@@ -125,8 +125,10 @@ def test_command_with_tape_prior_matches_jax(overrides):
 
 
 def test_closed_loop_prior_is_refused():
-    """A `compute_command` prior runs only inside the JAX package's XLA
-    rollout; the port's planner refuses it by that reason."""
+    """A `compute_command` prior runs only inside the unfused rollout: the
+    port's planner refuses it with use_fused=True by that reason (the JAX
+    package drops the prior there), and takes the unfused rollout for it
+    under use_fused=None (tests/test_torch_unfused.py holds that rollout)."""
     from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
     from mppiisaac_tpu_torch.tasks.anymal import AnymalObjective
 
@@ -135,5 +137,7 @@ def test_closed_loop_prior_is_refused():
             return None
 
     cfg = t_load("tasks/anymal", ["mppi.num_samples=8", "mppi.horizon=2"])
-    with pytest.raises(NotImplementedError, match="closed-loop prior"):
-        MPPIisaacPlanner(cfg, AnymalObjective(cfg), ClosedLoop(), device="cpu")
+    with pytest.raises(ValueError, match="closed-loop prior"):
+        MPPIisaacPlanner(cfg, AnymalObjective(cfg), ClosedLoop(), device="cpu", use_fused=True)
+    planner = MPPIisaacPlanner(cfg, AnymalObjective(cfg), ClosedLoop(), device="cpu")
+    assert planner.mppi.fused is None and planner.mppi.prior is not None
