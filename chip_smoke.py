@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the seconds,
+  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the seconds
+     (the ablation and section libraries of phase 20 compile at the same
+     time, each nvcc in a thread of its own),
      ptxas's register and stack-frame lines, and each kernel's launch
      geometry at every timed path's conf: one warp per sample, W warps per
      block, the blocks at the path's K, the shared memory per block (the
@@ -154,8 +156,10 @@ Phases (any failure exits non-zero before the result line):
  17f. the bench twin (`python -m mppiisaac_tpu_torch.bench`: pick K=1000,
      H=30, world fidelity, 1 sweep; its JSON line is printed on an earlier
      line) with its K1 launches counted, then its K1 on a command's inputs
-     against the plain version on the first BENCH_PLAIN_SAMPLES samples,
-     within 10× that plain version's own float32-vs-float64 drift;
+     against the plain version on the first BENCH_PLAIN_SAMPLES samples, by
+     the largest difference, the first step's and the median over samples,
+     each within 10× that plain version's own float32-vs-float64 drift in
+     the same measure;
  18. time K1 and K2 on the reach, pick, boxer_push, panda_stick_push,
      omni_panda_pick, multi_jackal, albert, anymal, fast-pick and box-pair
      paths against their plain versions (CUDA events). To keep the run
@@ -207,6 +211,25 @@ Phases (any failure exits non-zero before the result line):
      is not exercised (one card). Phase 19 adds three kernel entries: K2 under
      19a-19b (timed in phase 18 on the reach), K2 under 19c, K1 per rank in
      19e.
+ 20. the kernels' profiling ablations (ops/native.py ABLATE, csrc AB_*):
+ 20a. the ablation library's nvcc seconds and registers (one nvcc run for
+     every mask) and the section build's;
+ 20b. at phase 6's held grasp, ABLATE_K samples at H=ABLATE_H: K1 nocost,
+     nocontact, fkonly and oneway (two_way_sweeps=False), and K2 oneway over
+     ABLATE_K2_STEPS world steps, against their ablated plain versions, each
+     measure within 10× that plain version's own float32-vs-float64 drift
+     there (floor 1e-6), the costs and, under zero_cost (nocost, fkonly),
+     vis (the sum of the actors' root positions); fkonly from the grasp with
+     every root given a seeded velocity, and its vis shown to move from the
+     input's; K1 and K2 with the broadphase gate off bit for bit the
+     default kernels;
+ 20c. the ablation profiler (`python -m mppiisaac_tpu_torch.profile_kernel`:
+     the bench twin's pick at K=1000, H=30) with the launch counts zeroed
+     before it and read after it, every ablated kernel launched there, its
+     BREAKDOWN printed beside the clock64() split of the full K1 by section
+     on the same inputs, with the card's name and power limit. Each ablated
+     kernel is a kernel entry of its own (its time the profiler's, its
+     error and plain time those of 20b).
 Each kernel's bound — the least time the card could take for the same work —
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s; the operations are
@@ -545,19 +568,28 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _function_switches(profile):
+    """The ablations of a wrapper's profile that change the function it
+    computes: broadphase_gate=False gives the gated function, so its bound
+    is the gated one's (the gate's live share applies)."""
+    return {k: v for k, v in profile.items() if k not in ("zero_cost", "broadphase_gate")}
+
+
 def k1_bound(fr, k1_in):
     """(bound ms, bound_by, flops, bytes, live share) of K1 on these inputs."""
     from mppiisaac_tpu_torch.ops import fused_physics as fp
 
     rows, V, mass, fric = k1_in
+    sw = _function_switches(fr.profile)
     with torch.no_grad(), OpCount() as c:
         st = fp.rows_to_state(fr.ks, rows)
         tgt = fp.command_targets(fr.ks, V[0].T.float(), st["q"])
         st = fp.substep(fr.ks, st, tgt, mass.T, fric.T, fr.dt_sub, fr.impulse_sweeps,
-                        fr.world_fidelity)
+                        fr.world_fidelity, **sw)
         sub = c.flops
-        pos, quat, _, _, _ = fp.fk(fr.ks, st)
-        fp.task_cost(fr.ks, st, pos, quat)
+        if not fr.profile["zero_cost"]:
+            pos, quat, _, _, _ = fp.fk(fr.ks, st)
+            fp.task_cost(fr.ks, st, pos, quat)
     flops = sub * fr.substeps * fr.H + (c.flops - sub) * fr.H
     nbytes = _nbytes(rows, V, mass, fric) + len(fr._tables._bytes) + fr.K * fr.H * 4 * 4
     return _bound(flops, nbytes) + (c.live_share,)
@@ -571,7 +603,8 @@ def k2_bound(fw, k2_in):
     rows, tgt, mass, fric = (x if x.dim() == 2 else x[:, None] for x in k2_in)
     with torch.no_grad(), OpCount() as c:
         st = fp.rows_to_state(fw.ks, rows)
-        fp.substep(fw.ks, st, tgt.T, mass.T, fric.T, fw.dt_sub, fw.impulse_sweeps)
+        fp.substep(fw.ks, st, tgt.T, mass.T, fric.T, fw.dt_sub, fw.impulse_sweeps,
+                   **_function_switches(fw.profile))
     flops = c.flops * fw.substeps
     nbytes = 2 * _nbytes(rows) + _nbytes(tgt, mass, fric) + len(fw._tables._bytes)
     return _bound(flops, nbytes) + (c.live_share,)
@@ -2180,14 +2213,29 @@ def batched_paths(dev):
 BENCH_PLAIN_SAMPLES = 32     # phase 17f: the plain K1 at H=30 on this many samples
 
 
+def three_measures(d, dd):
+    """A (samples, steps) difference d held as the paths are: its largest,
+    the first step's, and the median over samples of each sample's largest,
+    each within 10x the plain version's own float32-vs-float64 drift dd in
+    the same measure (floor 1e-6). → (errs, all within, printed line)."""
+    errs, bounds = {}, {}
+    for k, f in (("max", lambda x: x.max()), ("first", lambda x: x[:, 0].max()),
+                 ("median", lambda x: x.max(1).values.median())):
+        errs[k], bounds[k] = f(d).item(), max(10 * f(dd).item(), 1e-6)
+    line = ", ".join(f"{k} {errs[k]:.3e} (bound {bounds[k]:.3g}: 10x drift {bounds[k] / 10:.3g})"
+                     for k in errs)
+    return errs, all(errs[k] <= bounds[k] for k in errs), line
+
+
 def bench_path(dev):
     """Phase 17f: the bench twin (`python -m mppiisaac_tpu_torch.bench`, its
     defaults: pick K=1000, H=30) with its K1 launches counted (warm-up batch
     and command, ITERS batches of CHUNK, the latency calls), then K1 on a
     command's inputs of its rollout (the initial state, V drawn as the
     solver draws it) against the plain version on BENCH_PLAIN_SAMPLES
-    samples, within 10× that plain version's own float32-vs-float64 drift
-    (floor 1e-6). → the timed path (phase 18)."""
+    samples, by the largest difference, the first step's and the median over
+    samples, each within 10× that plain version's own float32-vs-float64
+    drift in the same measure (floor 1e-6). → the timed path (phase 18)."""
     from mppiisaac_tpu_torch import bench
     from mppiisaac_tpu_torch.ops.fused_rollout import rollout_plain
 
@@ -2218,17 +2266,17 @@ def bench_path(dev):
                                       fr.impulse_sweeps, fr.world_fidelity)
         ms[dt] = t.ms
     plain_ms = ms[torch.float32]
-    err = (costs[:n].double() - plain[torch.float32][0].double()).abs().max().item()
-    drift = (plain[torch.float32][0].double() - plain[torch.float64][0]).abs().max().item()
-    bound = max(10 * drift, 1e-6)
+    errs, held, line = three_measures(
+        (costs[:n].double() - plain[torch.float32][0].double()).abs(),
+        (plain[torch.float32][0].double() - plain[torch.float64][0]).abs())
+    err = errs["max"]
     print(f"  bench K1 (K={fr.K}, H={fr.H}) costs of the first {n} samples against the plain "
-          f"version: max|d| {err:.3e} (bound {bound:.3g}: 10x drift {drift:.3g}); the plain K1 on "
-          f"{n} samples {plain_ms / 1e3:.1f} s; phase 17f {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    if not bool(torch.isfinite(costs).all()) or err > bound:
+          f"version: {line}; the plain K1 on {n} samples {plain_ms / 1e3:.1f} s; phase 17f "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not bool(torch.isfinite(costs).all()) or not held:
         fail("bench twin: K1 disagrees with its plain version")
     within("bench vis", vis[:, :n], plain[torch.float32][1], VIS_ATOL, 0.0)
-    return dict(fr=fr, k1_in=k1_in, n1=n1, err=err, plain_ms=plain_ms, rec=rec)
+    return dict(fr=fr, k1_in=k1_in, n1=n1, err=err, errs=errs, plain_ms=plain_ms, rec=rec)
 
 
 # ---------------------------------------------------------------------------
@@ -2619,6 +2667,265 @@ def phase19(dev, root, reach_entry, demo):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the kernels' profiling ablations (the ablation library) and the
+# ablation profiler
+# ---------------------------------------------------------------------------
+
+ABLATE_K, ABLATE_H = 8, 12      # 20b: the holds' samples and steps at the held grasp
+ABLATE_K2_STEPS = 5
+ABLATED = {4: ("nocost", {"zero_cost": True}), 1: ("nocontact", {"skip_contacts": True}),
+           7: ("fkonly", {"skip_contacts": True, "skip_dynamics": True, "zero_cost": True}),
+           8: ("oneway", {"two_way_sweeps": False}), 16: ("nogate", {"broadphase_gate": False})}
+
+
+def start_builds(variants):
+    """nvcc for each library variant, all started now, each in a thread of
+    its own. → {variant: thread}; join_build(thread) → (path, nvcc s, ptxas)."""
+    import threading
+
+    from mppiisaac_tpu_torch.ops import native
+
+    out = {}
+    for v in variants:
+        res = {}
+
+        def run(v=v, res=res):
+            try:
+                res["r"] = native.build(v)
+            except Exception as e:  # noqa: BLE001 — re-raised by join_build
+                res["e"] = e
+
+        th = threading.Thread(target=run, daemon=True)
+        th.res = res
+        th.start()
+        out[v] = th
+    return out
+
+
+def join_build(th):
+    th.join()
+    if "e" in th.res:
+        fail(f"a kernel library did not build: {th.res['e']}")
+    return th.res["r"]
+
+
+def ablation_holds(dev, pick):
+    """20b: each ablated K1 (nocost, nocontact, fkonly, oneway) at the held
+    grasp of phase 6 on ABLATE_K samples at H=ABLATE_H, and the oneway K2 over
+    ABLATE_K2_STEPS world steps, against their ablated plain versions, each
+    measure within 10× that plain version's own float32-vs-float64 drift
+    there (floor 1e-6): the costs, and under zero_cost also vis (the sum of
+    the roots). fkonly keeps every dof, so it starts with every root given a
+    seeded velocity and its vis must move. The gate off (nogate) bit for bit
+    the default kernels, K1 and K2. → {mask: (K1 or K2 errors, plain ms)}
+    by kernel."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import (FusedRollout, FusedWorldStep,
+                                                       rollout_plain, world_step_plain)
+    from mppiisaac_tpu_torch.physics.types import ModelParams
+    from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
+    from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    held = pick["states"]["held grasp"]
+    pcfg = load_config("tasks/panda_pick")
+    world = Simulation(pcfg.isaacgym, pcfg.actors, pcfg.initial_actor_positions, device=dev)
+    pb, engine = world.built, world.engine
+    cost = PandaPickObjective(pcfg).kernel_cost(pb)
+    g = torch.Generator().manual_seed(SEED)
+    V = (torch.rand(ABLATE_K, ABLATE_H, pb.cmd_map.nu, generator=g) * 0.6 - 0.3).to(dev)
+    pm = ModelParams(torch.ones(ABLATE_K, pb.scene.nbody, device=dev),
+                     torch.ones(ABLATE_K, pb.scene.ngeom, device=dev))
+
+    def rollout(profile):
+        return FusedRollout(pb, engine, cost, ABLATE_H, ABLATE_K, vis_body=pb.visualize_bodies[0],
+                            impulse_sweeps=pcfg.mppi.rollout_sweeps, profile=profile)
+
+    base = rollout(None)
+    k1_in = base.pack(broadcast_state(held, ABLATE_K), pm, V)
+    c_ref, v_ref = base.run(*k1_in)
+    out = {"k1": {}, "k2": {}}
+    for mask in (4, 1, 7, 8, 16):
+        name, profile = ABLATED[mask]
+        fr = rollout(profile)
+        inp = k1_in
+        if mask == 7:
+            # fkonly keeps every dof, so of what it computes only the roots'
+            # drift reaches its output (vis, the sum of the roots): every
+            # root gets a seeded velocity
+            rows = k1_in[0].clone()
+            lin = rows[: 13 * fr.ks.nactor].view(fr.ks.nactor, 13, -1)[:, 7:10]
+            gv = torch.Generator().manual_seed(SEED + 7)
+            lin.copy_((torch.rand(lin.shape, generator=gv) - 0.5).to(dev))
+            inp = (rows,) + tuple(k1_in[1:])
+        costs, vis = fr.run(*inp)
+        torch.cuda.synchronize()
+        if mask == 16:
+            same = torch.equal(costs, c_ref) and torch.equal(vis, v_ref)
+            print(f"  [20b] K1 {name} (mask {mask}) at the held grasp, K={ABLATE_K}, "
+                  f"H={ABLATE_H}: bit for bit the gated kernel: {same}", flush=True)
+            if not same:
+                fail("K1 with the broadphase gate off differs from the gated kernel")
+        plain, ms = {}, {}
+        for dt in (torch.float32, torch.float64):
+            with Timer() as t:
+                plain[dt] = rollout_plain(fr.ks, *(x.to(dt) for x in inp), fr.H, fr.substeps,
+                                          fr.dt_sub, fr.vis_body, fr.impulse_sweeps,
+                                          fr.world_fidelity, **fr.profile)
+            ms[dt] = t.ms
+        (c32, v32), (c64, v64) = plain[torch.float32], plain[torch.float64]
+        errs, ok, line = three_measures((costs.double() - c32.double()).abs(),
+                                          (c32.double() - c64).abs())
+        print(f"  [20b] K1 {name} (mask {mask}) vs its plain version: {line}; the plain K1 "
+              f"{ms[torch.float32] / 1e3:.1f} s", flush=True)
+        if not bool(torch.isfinite(costs).all()) or not ok:
+            fail(f"K1 {name} disagrees with its ablated plain version")
+        err = errs["max"]
+        if fr.profile["zero_cost"]:
+            # vis is the sum of the roots, unrounded: held as the costs are
+            verrs, ok, line = three_measures((vis.double() - v32.double()).abs().amax(2).T,
+                                               (v32.double() - v64).abs().amax(2).T)
+            print(f"  [20b] K1 {name} (mask {mask}) vis vs its plain version: {line}", flush=True)
+            if not bool(torch.isfinite(vis).all()) or not ok:
+                fail(f"K1 {name}: vis disagrees with its ablated plain version")
+            err = max(err, verrs["max"])
+        else:
+            dv = (vis.double() - v32.double()).abs().max().item()
+            if dv > VIS_ATOL:
+                fail(f"K1 {name}: vis disagrees with its ablated plain version ({dv:.3e})")
+        if mask == 7:
+            r0 = inp[0][: 13 * fr.ks.nactor].view(fr.ks.nactor, 13, -1)[:, :3].sum(0).T
+            moved = (vis[-1] - r0).abs().max().item()
+            print(f"  [20b] K1 {name}: the roots moved {moved:.3e} from the input state",
+                  flush=True)
+            if moved <= 1e3 * max(err, 1e-6):
+                fail(f"K1 {name}: its output did not move from the input state")
+        out["k1"][mask] = (err, ms[torch.float32])
+    # K2 from the held grasp, targets as phase 6 draws them
+    st = held
+    ones_b = torch.ones(pb.scene.nbody, device=dev)
+    ones_g = torch.ones(pb.scene.ngeom, device=dev)
+    tgts = []
+    for _ in range(ABLATE_K2_STEPS):
+        t_ = st.q + (torch.rand(pb.scene.ndof, generator=g) * 0.4 - 0.2).to(dev)
+        t_[7:9] = st.dof_target[7:9]
+        tgts.append(t_.contiguous())
+    sweeps = pcfg.isaacgym.fused_world_sweeps
+    ref_fw = FusedWorldStep(pb, engine, impulse_sweeps=sweeps)
+    rows0 = ref_fw.pack(st).contiguous()
+    r_ref = rows0
+    for t_ in tgts:
+        r_ref = ref_fw.step_rows(r_ref, t_, ones_b, ones_g)
+    for mask in (8, 16):
+        name, profile = ABLATED[mask]
+        fw = FusedWorldStep(pb, engine, impulse_sweeps=sweeps, profile=profile)
+        r = rows0
+        rp = {torch.float32: rows0, torch.float64: rows0.double()}
+        plain_ms = 0.0
+        for t_ in tgts:
+            r = fw.step_rows(r, t_, ones_b, ones_g)
+            for dt in rp:
+                with Timer() as t:
+                    rp[dt] = world_step_plain(fw.ks, rp[dt], t_.to(dt), ones_b.to(dt),
+                                              ones_g.to(dt), fw.substeps, fw.dt_sub,
+                                              fw.impulse_sweeps, **fw.profile)
+                if dt == torch.float32:
+                    plain_ms += t.ms / len(tgts)
+        torch.cuda.synchronize()
+        if mask == 16:
+            same = torch.equal(r, r_ref)
+            print(f"  [20b] K2 {name} (mask {mask}) over {len(tgts)} steps from the held grasp: "
+                  f"bit for bit the gated kernel: {same}", flush=True)
+            if not same:
+                fail("K2 with the broadphase gate off differs from the gated kernel")
+        e = _groups(fw.ks, (r.double() - rp[torch.float32].double()).abs())
+        dr = _groups(fw.ks, (rp[torch.float32].double() - rp[torch.float64]).abs())
+        print(f"  [20b] K2 {name} (mask {mask}) vs its plain version over {len(tgts)} steps: "
+              + ", ".join(f"{k} {e[k]:.3e} (bound {max(10 * dr[k], 1e-6):.3g})" for k in e),
+              flush=True)
+        if not bool(torch.isfinite(r).all()) or any(e[k] > max(10 * dr[k], 1e-6) for k in e):
+            fail(f"K2 {name} disagrees with its ablated plain version")
+        out["k2"][mask] = (max(e.values()), plain_ms)
+    return out
+
+
+def phase20(dev, builds, pick):
+    """Phase 20 → the ablated kernels' entries: 20a the ablation library
+    (started with the others in phase 1) and the section build; 20b the
+    holds (ablation_holds); 20c the ablation profiler
+    (`python -m mppiisaac_tpu_torch.profile_kernel`, its defaults: the bench
+    twin's pick at K=1000, H=30) with the counts zeroed before it and read
+    after it, every ablated instantiation launched there, its BREAKDOWN
+    printed beside the clock64() split of the full K1 on the same inputs."""
+    from mppiisaac_tpu_torch import profile_kernel
+    from mppiisaac_tpu_torch.ops import native
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+
+    t0 = time.perf_counter()
+    for v, th in builds.items():
+        path, nvcc_s, ptxas = join_build(th)
+        print(f"[20a] build {v}: nvcc {nvcc_s:.1f} s (started in phase 1 beside the main build) -> "
+              f"{os.path.relpath(path, os.path.dirname(os.path.abspath(__file__)))}", flush=True)
+        for line in ptxas.splitlines():
+            if v == native.ABLATE and ("registers" in line or "Compiling entry" in line):
+                print("    ptxas:", line.strip())
+    holds = ablation_holds(dev, pick)
+    print(f"    phase 20b: {time.perf_counter() - t0:.1f} s", flush=True)
+    FusedRollout.launches = FusedWorldStep.launches = 0
+    FusedRollout.ablated_launches.clear()
+    FusedWorldStep.ablated_launches.clear()
+    prof = profile_kernel.main(["sections"])
+    torch.cuda.synchronize()
+    n1, n2 = dict(FusedRollout.ablated_launches), dict(FusedWorldStep.ablated_launches)
+    print(f"[20c] the profiler's launches: K1 default {FusedRollout.launches}, ablated {n1}; "
+          f"K2 default {FusedWorldStep.launches}, ablated {n2}", flush=True)
+    from mppiisaac_tpu_torch.ops.fused_rollout import K1_MASKS, K2_MASKS
+
+    if any(n1.get(m, 0) == 0 for m in K1_MASKS) or any(n2.get(m, 0) == 0 for m in K2_MASKS):
+        fail("an ablated kernel was not launched on the profiler's path")
+    sec = prof["sections"]
+    b = prof["breakdown"]
+    print("[20c] BREAKDOWN beside the clock64 split of the full K1 (the same inputs): cost "
+          f"{b['cost_section_ms']:.3f} ms ({b['cost_section_ms'] / b['full_ms']:.3f} of full; "
+          f"sections: command map and cost {sec['command map and cost']:.3f}), sweeps "
+          f"{b['gs_sweeps_ms']:.3f} ms ({b['gs_sweeps_ms'] / b['full_ms']:.3f}; warm start + "
+          f"sweeps + snap {sec['warm start'] + sec['sweeps'] + sec['snap']:.3f}), contacts "
+          f"{b['contacts_ms']:.3f} ms ({b['contacts_ms'] / b['full_ms']:.3f}; "
+          f"{sec['contacts']:.3f}), articulated solve {b['artic_solve_ms']:.3f} ms "
+          f"({b['artic_solve_ms'] / b['full_ms']:.3f}; solves "
+          f"{sum(sec[k] for k in profile_kernel.SECTIONS if k.startswith('solves')):.3f}), "
+          f"FK/integrate base {b['fk_integrate_base_ms']:.3f} ms "
+          f"({b['fk_integrate_base_ms'] / b['full_ms']:.3f}; fk {sec['fk']:.3f}); "
+          f"{b['device']}, {b['power_limit']}", flush=True)
+    src = "mppiisaac_tpu_torch/csrc/fused_rollout.cu"
+    entries = []
+    for mask in K1_MASKS:
+        name, profile = ABLATED[mask]
+        r = prof["k1"][name]
+        bnd = k1_bound(r["fr"], r["inputs"])
+        entries.append({
+            "name": f"fused_rollout_kernel[{name}]", "path": f"profile_kernel_pick_K{r['fr'].K}_H"
+            f"{r['fr'].H}", "route": "cuda", "source": src,
+            "replaces": "mppiisaac_tpu/ops/pallas/fused_rollout.py:367", "launches": n1[mask],
+            "max_abs_err": holds["k1"][mask][0], "ms": r["ms"], "plain_ms": holds["k1"][mask][1],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, "ablation_mask": mask,
+            "profile": profile, "sweeps": r["fr"].impulse_sweeps, "plain_samples": ABLATE_K,
+            "plain_H": ABLATE_H, "max_abs_err_at": "held grasp"})
+    for mask in K2_MASKS:
+        name, profile = ABLATED[mask]
+        r = prof["k2"][name]
+        bnd = k2_bound(r["fw"], r["inputs"])
+        entries.append({
+            "name": f"fused_world_step_kernel[{name}]", "path": "profile_kernel_pick_world",
+            "route": "cuda", "source": src, "replaces": "mppiisaac_tpu/ops/pallas/fused_rollout.py:533",
+            "launches": n2[mask], "max_abs_err": holds["k2"][mask][0], "ms": r["ms"],
+            "plain_ms": holds["k2"][mask][1], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "ablation_mask": mask, "profile": profile,
+            "max_abs_err_at": "held grasp"})
+    print(f"    phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries, b
+
+
 
 def geometry_table():
     """Phase 1's launch geometry of K1 and K2 at each timed path's conf."""
@@ -2672,6 +2979,8 @@ def main():
 
     # ---- 1. build ----
     t0 = time.perf_counter()
+    # the ablation and section libraries (phase 20) compile beside the main one
+    builds = start_builds((native.ABLATE, "sections"))
     path, nvcc_s, ptxas = native.build()
     native.load_library()
     print(f"[1] build: nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s -> "
@@ -2775,12 +3084,16 @@ def main():
         "plain_ms": bench_run["plain_ms"], "bound_ms": b1[0], "bound_by": b1[1],
         "library_ms": None, "warps_per_block": W, "smem_bytes": tables + W * fr.warp_bytes,
         "plain_samples": BENCH_PLAIN_SAMPLES,
+        "first_step_max_abs_err": bench_run["errs"]["first"],
+        "median_max_abs_err": bench_run["errs"]["median"],
         "bench_env_steps_per_s": bench_run["rec"]["value"],
         "bench_latency_ms": bench_run["rec"]["latency_ms"]})
     print(f"    phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
     reach_entry = next(e for e in entries if e["path"] == "panda_reach"
                        and e["name"] == "fused_world_step_kernel")
     entries += phase19(dev, root, reach_entry, batch["demo"])
+    ablated, _ = phase20(dev, builds, pick)
+    entries += ablated
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,

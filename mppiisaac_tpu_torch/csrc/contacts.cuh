@@ -204,15 +204,16 @@ __device__ __forceinline__ void penalty(float kn_base, float tau_c, float mu, fl
 // each; each block's force and torque sums on its two sides are segmented
 // scans over its lanes (bsum: 12 per block), added to the bodies by lanes
 // over the bodies, each over its own blocks in block order (cb_start).
-__device__ void contacts(const SceneTables& sc, const Kin& k, const float* fric, int K, float dt_sub,
-                         float plk_n[][3], float plk_f[][3], float ncf[][3], Swept& sw,
-                         float (*bsum)[12], int lane) {
+AB_TEMPLATE __device__ void contacts(const SceneTables& sc, const Kin& k, const float* fric, int K,
+                                     float dt_sub, float plk_n[][3], float plk_f[][3],
+                                     float ncf[][3], Swept& sw, float (*bsum)[12], int lane) {
   const float tau_c = fmaxf(2.f * dt_sub, 1e-3f);
   for (int b = lane; b < sc.nbody; b += 32)
     for (int i = 0; i < 3; ++i) { plk_n[b][i] = 0.f; plk_f[b][i] = 0.f; ncf[b][i] = 0.f; }
   for (int bi = lane; bi < sc.nblk; bi += 32) {
     const int fl = sc.blk_flags[bi];
-    sw.live[bi] = (fl & (F_EMIT_A | F_EMIT_B | F_SWEPT)) ? (int)block_gate(sc, k, bi) : 0;
+    sw.live[bi] = (fl & (F_EMIT_A | F_EMIT_B | F_SWEPT))
+                      ? (int)AB_OR(AB_NO_GATE, block_gate(sc, k, bi)) : 0;
   }
   __syncwarp();
   for (int ch = 0; ch < sc.n_ck; ++ch) {

@@ -7,7 +7,11 @@
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and returns cudaGetLastError(). With -DFUSED_EMU the C interface is
 // left out and g++ compiles the device code against the CPU emulation in
-// emu/ (tests/test_torch_device_emu.py).
+// emu/ (tests/test_torch_device_emu.py). With -DABLATE (ops/native.py's
+// ablation library, _build/ablate/) the kernels are templates on the
+// profiling ablations' mask (AB_* in scene_tables.cuh), the launchers
+// fused_rollout_launch_ablate / fused_world_step_launch_ablate take the mask
+// first, and the default launchers are left out.
 //
 // Both kernels run the same device code, one physics substep, by ONE WARP
 // PER SAMPLE:
@@ -244,10 +248,13 @@ struct Dyn {
 // the rows of each composite-inertia sum, over its coordinate pairs (CRBA),
 // its coordinates (drives), the rows of each Cholesky column and the
 // (link, column) pairs of Ψ; each entry keeps the serial order of its sums.
-__device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const float (*plk_n)[3],
-                         const float (*plk_f)[3], const float* tgt, const float* mass,
-                         const float* fric, int K, float dt, const Swept& sw, int sweeps,
-                         bool world, Ctx& c, const Warp& W) {
+// Without contacts (AB_SKIP_CONTACTS) there are no couple terms, no Ψ and no
+// impulse pass, and the λ rows stay as they are.
+AB_TEMPLATE __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k,
+                                     const float (*plk_n)[3], const float (*plk_f)[3],
+                                     const float* tgt, const float* mass, const float* fric, int K,
+                                     float dt, const Swept& sw, int sweeps, bool world, Ctx& c,
+                                     const Warp& W) {
   const int lane = W.lane, ld = sc.nv;
   SEC_BEGIN;
   float* new_q = W.f(sc, L_NEWQ);
@@ -419,14 +426,15 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
     for (int bi = 0; bi < sc.nblk; ++bi)
       couple |= is_couple(sc, bi) && sc.body_actor[art_body_of(sc, bi)] == a;
     for (int b = bo; b < bo + nb; ++b) deferred |= sc.body_psi[b] >= 0;
-    if (couple) couple_terms(sc, k, sw, a, mass, K, dt, c, d.rhs, d.col, d.coef, lane);
+    if (AB_UNLESS(AB_SKIP_CONTACTS, couple))
+      couple_terms(sc, k, sw, a, mass, K, dt, c, d.rhs, d.col, d.coef, lane);
     SEC_MARK(c.kid, SEC_COUPLE);
     chol_factor_warp(c.L, v0, nv, ld, lane);
     const float ui = chol_solve_warp(c.L, v0, nv, ld, lane < nv ? d.rhs[lane] : 0.f, lane);
     if (lane < nv) c.u[v0 + lane] = ui;
     __syncwarp();
     SEC_MARK(c.kid, SEC_CHOL);
-    if (deferred) {
+    if (AB_UNLESS(AB_SKIP_CONTACTS, deferred)) {
       psi_blocks(sc, a, c, d.col, lane);
       if (lane == 0) c.deferred[a] = 1;
       any_deferred = true;
@@ -438,14 +446,14 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
 
   bool any_swept = false;
   for (int bi = 0; bi < sc.nblk; ++bi) any_swept |= (sc.blk_flags[bi] & F_SWEPT) != 0;
-  if (any_swept && sweeps > 0 && (any_free || any_deferred)) {
+  if (AB_UNLESS(AB_SKIP_CONTACTS, any_swept && sweeps > 0 && (any_free || any_deferred))) {
     Imp m{W.f(sc, L_INVM), rows_of<9>(W.f(sc, L_INVIW)), W.f(sc, L_CNTB), W.f(sc, L_CNTA),
           W.f(sc, L_ACT), W.f(sc, L_MUB), rows_of<6>(W.f(sc, L_KC)), W.f(sc, L_KNC),
           W.f(sc, L_FLOOR), W.f(sc, L_NEFF), rows_of<3>(W.f(sc, L_DP)), rows_of<3>(W.f(sc, L_DT)),
           rows_of<6>(W.f(sc, L_Y)), rows_of<6>(W.f(sc, L_V6)),
           rows_of<36>(W.f(sc, L_SA)), rows_of<6>(W.f(sc, L_SB)), W.i(sc, L_USED),
           rows_of<12>(W.f(sc, L_BSUM)), rows_of<27>(W.f(sc, L_SSUM))};
-    impulse_pass(sc, s, k, mass, fric, K, dt, sw, sweeps, world, c, m, lane);
+    impulse_pass AB_ARG(sc, s, k, mass, fric, K, dt, sw, sweeps, world, c, m, lane);
   }
   SEC_RESET;
   if (lane < sc.nactor) {
@@ -474,10 +482,14 @@ __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k, const f
 }
 
 // One substep: FK → contacts → velocity solves → impulse pass →
-// integration, at world fidelity (world) or fast fidelity.
-__device__ void substep(const SceneTables& sc, Sample& s, const Kin& k, Swept& sw, Ctx& c,
-                        const Warp& W, const float* tgt, const float* mass, const float* fric, int K,
-                        float dt, int sweeps, bool world) {
+// integration, at world fidelity (world) or fast fidelity. The ablations
+// AB_SKIP_CONTACTS and AB_SKIP_DYNAMICS leave out the contacts (zero forces,
+// no swept block) and the velocity solves (every root drifts by its
+// velocity; dofs, velocities and λ rows stay) as fused_physics.substep_lanes
+// does.
+AB_TEMPLATE __device__ void substep(const SceneTables& sc, Sample& s, const Kin& k, Swept& sw,
+                                    Ctx& c, const Warp& W, const float* tgt, const float* mass,
+                                    const float* fric, int K, float dt, int sweeps, bool world) {
   // the finger force gate: a velocity-driven finger stops closing once its
   // link's net contact force (the last substep's report, which contacts()
   // overwrites) exceeds grip_force_gate
@@ -494,9 +506,24 @@ __device__ void substep(const SceneTables& sc, Sample& s, const Kin& k, Swept& s
   SEC_MARK(c.kid, SEC_FK);
   float (*plk_n)[3] = rows_of<3>(W.f(sc, L_PLKN));
   float (*plk_f)[3] = rows_of<3>(W.f(sc, L_PLKF));
-  contacts(sc, k, fric, K, dt, plk_n, plk_f, s.ncf, sw, rows_of<12>(W.f(sc, L_BSUM)), lane);
+#ifdef ABLATE
+  if (AB_ON(AB_SKIP_CONTACTS)) {
+    for (int b = lane; b < sc.nbody; b += 32)
+      for (int i = 0; i < 3; ++i) { plk_n[b][i] = 0.f; plk_f[b][i] = 0.f; s.ncf[b][i] = 0.f; }
+    __syncwarp();
+  } else
+#endif
+  contacts AB_ARG(sc, k, fric, K, dt, plk_n, plk_f, s.ncf, sw, rows_of<12>(W.f(sc, L_BSUM)), lane);
   SEC_MARK(c.kid, SEC_CONTACTS);
-  dynamics(sc, s, k, plk_n, plk_f, tg, mass, fric, K, dt, sw, sweeps, world, c, W);
+#ifdef ABLATE
+  if (AB_ON(AB_SKIP_DYNAMICS)) {
+    if (lane < sc.nactor)
+      for (int i = 0; i < 3; ++i) s.root[lane][i] = s.root[lane][i] + s.root[lane][7 + i] * dt;
+    __syncwarp();
+    return;
+  }
+#endif
+  dynamics AB_ARG(sc, s, k, plk_n, plk_f, tg, mass, fric, K, dt, sw, sweeps, world, c, W);
 }
 
 // ---------------------------------------------------------------------------
@@ -674,7 +701,7 @@ __device__ __forceinline__ int state_rows(const SceneTables& sc) {
 // use (a warp per sample).
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256, 1)
+AB_TEMPLATE __global__ void __launch_bounds__(256, 1)
 fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __restrict__ rows,
                      const __nv_bfloat16* __restrict__ V, const float* __restrict__ mass,
                      const float* __restrict__ fric, float* __restrict__ costs,
@@ -725,7 +752,25 @@ fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __rest
     __syncwarp();
     SEC_MARK(0, SEC_COST);
     for (int it = 0; it < substeps; ++it)
-      substep(sc, s, kin, sw, c, W, tgt, mass + k, fric + k, K, dt_sub, sweeps, world != 0);
+      substep AB_ARG(sc, s, kin, sw, c, W, tgt, mass + k, fric + k, K, dt_sub, sweeps, world != 0);
+#ifdef ABLATE
+    if (AB_ON(AB_ZERO_COST)) {
+      // no post-step FK and no cost, but values that depend on the physics
+      // (a constant would let the compiler drop the substeps): the cost is
+      // q[0], and vis the sum of the actors' root positions, which every
+      // substep's integration reaches
+      if (lane == 0) {
+        costs[k * H + t] = sc.ndof > 0 ? s.q[0] : s.root[0][0];
+        for (int i = 0; i < 3; ++i) {
+          float v = 0.f;
+          for (int a = 0; a < sc.nactor; ++a) v += s.root[a][i];
+          vis[(t * K + k) * 3 + i] = v;
+        }
+      }
+      __syncwarp();
+      continue;
+    }
+#endif
     SEC_RESET;
     fk(sc, s, kin, lane);
     if (lane == 0) {
@@ -757,7 +802,7 @@ fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __rest
 // like K1, by the latency of one env's chain; the warp's lanes shorten it.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256, 1)
+AB_TEMPLATE __global__ void __launch_bounds__(256, 1)
 fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __restrict__ rows_in,
                         const float* __restrict__ tgt_in, const float* __restrict__ mass,
                         const float* __restrict__ fric, float* __restrict__ rows_out, int N,
@@ -781,7 +826,7 @@ fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __r
   for (int d = lane; d < sc.ndof; d += 32) tgt[d] = tgt_in[d * N + e];
   __syncwarp();
   for (int it = 0; it < substeps; ++it)
-    substep(sc, s, kin, sw, c, W, tgt, mass + e, fric + e, N, dt_sub, sweeps, world != 0);
+    substep AB_ARG(sc, s, kin, sw, c, W, tgt, mass + e, fric + e, N, dt_sub, sweeps, world != 0);
   for (int r = lane; r < n_rows; r += 32) rows_out[r * N + e] = W.w[r];
 }
 
@@ -825,6 +870,7 @@ int read_sections(unsigned long long* out) {
 }
 #endif
 
+#ifndef ABLATE
 // warps: samples per block; warp_bytes: one sample's region
 int fused_rollout_launch(const void* tables, const void* rows, const void* V, const void* mass,
                          const void* fric, void* costs, void* vis, int K, int H, int substeps,
@@ -857,6 +903,73 @@ int fused_world_step_launch(const void* tables, const void* rows, const void* tg
       (const float*)fric, (float*)out, N, substeps, dt_sub, sweeps, 1);
   return (int)cudaGetLastError();
 }
+#endif  // !ABLATE
 
 }  // extern "C"
+
+#ifdef ABLATE
+// The ablation library: the launchers take the mask first and pick its
+// instantiation; a mask that is not instantiated returns AB_NO_VARIANT.
+#define AB_NO_VARIANT 1000
+
+template <int AB>
+static int rollout_launch(const void* tables, const void* rows, const void* V, const void* mass,
+                          const void* fric, void* costs, void* vis, int K, int H, int substeps,
+                          float dt_sub, int sweeps, int world, int warps, int warp_bytes,
+                          void* stream) {
+  const int blocks = (K + warps - 1) / warps;
+  const int smem = (int)sizeof(SceneTables) + warps * warp_bytes;
+  int rc = set_smem((const void*)fused_rollout_kernel<AB>, smem);
+  if (rc != 0) return rc;
+  fused_rollout_kernel<AB><<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const SceneTables*)tables, (const float*)rows, (const __nv_bfloat16*)V,
+      (const float*)mass, (const float*)fric, (float*)costs, (float*)vis, K, H, substeps, dt_sub,
+      sweeps, world);
+  return (int)cudaGetLastError();
+}
+
+template <int AB>
+static int world_step_launch(const void* tables, const void* rows, const void* tgt,
+                             const void* mass, const void* fric, void* out, int N, int substeps,
+                             float dt_sub, int sweeps, int warps, int warp_bytes, void* stream) {
+  const int blocks = (N + warps - 1) / warps;
+  const int smem = (int)sizeof(SceneTables) + warps * warp_bytes;
+  int rc = set_smem((const void*)fused_world_step_kernel<AB>, smem);
+  if (rc != 0) return rc;
+  fused_world_step_kernel<AB><<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const SceneTables*)tables, (const float*)rows, (const float*)tgt, (const float*)mass,
+      (const float*)fric, (float*)out, N, substeps, dt_sub, sweeps, 1);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int fused_rollout_launch_ablate(int mask, const void* tables, const void* rows, const void* V,
+                                const void* mass, const void* fric, void* costs, void* vis, int K,
+                                int H, int substeps, float dt_sub, int sweeps, int world,
+                                int warps, int warp_bytes, void* stream) {
+#define AB_CASE(m)                                                                             \
+  case (m):                                                                                    \
+    return rollout_launch<(m)>(tables, rows, V, mass, fric, costs, vis, K, H, substeps, dt_sub, \
+                               sweeps, world, warps, warp_bytes, stream);
+  switch (mask) { AB_K1_MASKS(AB_CASE) }
+#undef AB_CASE
+  return AB_NO_VARIANT;
+}
+
+int fused_world_step_launch_ablate(int mask, const void* tables, const void* rows, const void* tgt,
+                                   const void* mass, const void* fric, void* out, int N,
+                                   int substeps, float dt_sub, int sweeps, int warps,
+                                   int warp_bytes, void* stream) {
+#define AB_CASE(m)                                                                           \
+  case (m):                                                                                  \
+    return world_step_launch<(m)>(tables, rows, tgt, mass, fric, out, N, substeps, dt_sub,   \
+                                  sweeps, warps, warp_bytes, stream);
+  switch (mask) { AB_K2_MASKS(AB_CASE) }
+#undef AB_CASE
+  return AB_NO_VARIANT;
+}
+
+}  // extern "C"
+#endif  // ABLATE
 #endif  // FUSED_EMU

@@ -199,8 +199,10 @@ __device__ __forceinline__ void contrib(const SceneTables& sc, const Sample& s0,
 // scans) into the pass's accumulators, each over its own blocks in block
 // order: lanes 0-7 over the free actors' impulse and angular impulse
 // (ab_start), lanes 8-23 over the Ψ slots' Plücker impulses (pb_start).
-// Blocks with `only_live` set and a gate off add nothing.
-__device__ void accumulate(const SceneTables& sc, const Swept& sw, Imp& m, bool only_live, int lane) {
+// Blocks with `only_live` set and a gate off add nothing. With the sweeps
+// one-way (AB_ONE_WAY_SWEEPS) no Plücker impulse reaches the Ψ slots.
+AB_TEMPLATE __device__ void accumulate(const SceneTables& sc, const Swept& sw, Imp& m, bool only_live,
+                                       int lane) {
   if (lane < sc.nactor) {
     const int a = lane;
     float p[3] = {0.f, 0.f, 0.f}, t[3] = {0.f, 0.f, 0.f};
@@ -217,7 +219,7 @@ __device__ void accumulate(const SceneTables& sc, const Swept& sw, Imp& m, bool 
   } else if (lane >= MAX_ACTORS && lane - MAX_ACTORS < sc.n_psi) {
     const int slot = lane - MAX_ACTORS;
     float y[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int e = sc.pb_start[slot]; e < sc.pb_start[slot + 1]; ++e) {
+    for (int e = sc.pb_start[slot]; AB_UNLESS(AB_ONE_WAY_SWEEPS, e < sc.pb_start[slot + 1]); ++e) {
       const int bi = sc.pb_ent[e] >> 1;
       if (only_live && !sw.live[bi]) continue;
       const float* b = m.bsum[bi];
@@ -289,9 +291,10 @@ __device__ __forceinline__ void vel_at(const SceneTables& sc, const Sample& s0, 
 // Jacobi sweeps, the stiction snap. Updates c.fv, c.u and s.lam. At fast
 // fidelity (world == false) the sweeps start from zero λ and there is no
 // snap (fused_physics.py:1395-1443).
-__device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, const float* mass,
-                             const float* fric, int K, float dt, const Swept& sw, int sweeps,
-                             bool world, Ctx& c, Imp& m, int lane) {
+AB_TEMPLATE __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k,
+                                         const float* mass, const float* fric, int K, float dt,
+                                         const Swept& sw, int sweeps, bool world, Ctx& c, Imp& m,
+                                         int lane) {
   SEC_BEGIN;
   const float dcap = sc.max_depth;
   const float tau_c = fmaxf(2.f * dt, 1e-3f);
@@ -390,7 +393,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
         for (int y = x; y < 3; ++y) Km[x][y] += sk[i1][x] * T[i1][y] + sk[i2][x] * T[i2][y];
       }
     }
-    if (is_two_way(sc, bi)) {
+    if (AB_UNLESS(AB_ONE_WAY_SWEEPS, is_two_way(sc, bi))) {
       const float* P_ = c.psi[sc.body_psi[art_body_of(sc, bi)]];
       const float P[3][3] = {{0.f, -pt[2], pt[1]}, {pt[2], 0.f, -pt[0]}, {-pt[1], pt[0], 0.f}};
       float V[6][3];
@@ -439,7 +442,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
   }
   __syncwarp();
   if (world) {
-    accumulate(sc, sw, m, true, lane);
+    accumulate AB_ARG(sc, sw, m, true, lane);
     commit(sc, m, c, lane);
   }
   SEC_MARK(c.kid, SEC_WARM);
@@ -490,7 +493,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
         if (sta) {
           const float knc = sc.blk_kn[bi] / (tau_c * tau_c);
           seed = fmaxf(knc * fmaxf(depth, 0.f) - (2.f * sc.blk_kn[bi] / tau_c) * vn, 0.f);
-        } else if (fl & (F_A_ART | F_B_ART)) {
+        } else if (AB_UNLESS(AB_ONE_WAY_SWEEPS, fl & (F_A_ART | F_B_ART))) {
           const float knc = sc.blk_kn[bi] / (tau_c * tau_c);
           const float kdc = kd_couple(sc, bi, mass, K, dt, tau_c);
           seed = fmaxf(knc * fmaxf(depth, 0.f) - (kdc + dt * knc) * vn, 0.f);
@@ -514,7 +517,7 @@ __device__ void impulse_pass(const SceneTables& sc, Sample& s, const Kin& k, con
         for (int i = 0; i < 12; ++i) m.bsum[bi][i] = v[i];
     }
     __syncwarp();
-    accumulate(sc, sw, m, true, lane);
+    accumulate AB_ARG(sc, sw, m, true, lane);
     commit(sc, m, c, lane);
   }
   SEC_MARK(c.kid, SEC_SWEEPS);

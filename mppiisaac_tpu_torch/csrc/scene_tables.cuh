@@ -191,6 +191,39 @@ __device__ unsigned long long g_sections[2 * N_SEC];
 #define SEC_MARK(kid, id) do {} while (0)
 #endif
 
+// Profiling ablations, the counterparts of the JAX package's FusedRollout
+// profile flags and its TWO_WAY_SWEEPS / BROADPHASE_GATE switches. Timing
+// only: all but AB_NO_GATE give physically wrong states on purpose. They
+// exist only in the library built with -DABLATE (ops/native.py VARIANT
+// "ablate", its own directory under _build/): there the kernels and the
+// device functions that branch on them are templates on the mask AB, and the
+// launchers instantiate the masks of AB_K1_MASKS / AB_K2_MASKS. In the
+// default build nothing is a template and every macro below leaves the
+// source as it is without the ablations (the compiler sees the same tokens,
+// so the default kernels compile to the same code): AB_UNLESS(bit, x) is x,
+// AB_OR(bit, x) is x, and the ablations' own blocks sit in #ifdef ABLATE.
+#define AB_SKIP_CONTACTS 1    // no contacts: zero Plücker forces and net forces, no swept block
+#define AB_SKIP_DYNAMICS 2    // no velocity solve: free roots drift ballistically
+#define AB_ZERO_COST 4        // no post-step FK or cost: the cost is q[0] (root x of actor 0),
+                              // vis the sum of the actors' root positions
+#define AB_ONE_WAY_SWEEPS 8   // the sweeps leave the articulated side out (TWO_WAY_SWEEPS off)
+#define AB_NO_GATE 16         // every block live (BROADPHASE_GATE off): no numerics change
+#define AB_K1_MASKS(X) X(AB_ZERO_COST) X(AB_SKIP_CONTACTS) \
+  X(AB_SKIP_CONTACTS | AB_SKIP_DYNAMICS | AB_ZERO_COST) X(AB_ONE_WAY_SWEEPS) X(AB_NO_GATE)
+#define AB_K2_MASKS(X) X(AB_ONE_WAY_SWEEPS) X(AB_NO_GATE)
+#ifdef ABLATE
+#define AB_TEMPLATE template <int AB>
+#define AB_ARG <AB>
+#define AB_ON(bit) ((AB & (bit)) != 0)
+#define AB_UNLESS(bit, x) ((x) && !AB_ON(bit))
+#define AB_OR(bit, x) (AB_ON(bit) || (x))
+#else
+#define AB_TEMPLATE
+#define AB_ARG
+#define AB_UNLESS(bit, x) x
+#define AB_OR(bit, x) x
+#endif
+
 // ---------------------------------------------------------------------------
 // one sample's state and temporaries: views into its warp's region
 // ---------------------------------------------------------------------------

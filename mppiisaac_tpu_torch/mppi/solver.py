@@ -171,6 +171,16 @@ class MPPIPlanner:
         """A fresh carry from the config (the JAX solver's `reset`)."""
         self.carry = self.init_carry()
 
+    def command(self, state0):
+        """The stateful call of mppi_torch's contract (`.command(state)`, the
+        JAX solver's `command`): one command from the planner's carry, which
+        it advances, and its info in `last_info`. → the (u_per_command, nu)
+        action, or (nu,) when u_per_command is 1."""
+        action, self.carry, self.last_info = self._command_impl(self.carry, state0)
+        if self.cfg.u_per_command == 1:
+            return action[0]
+        return action
+
     # ------------------------------------------------------------------
     def _draw_np(self, key: np.ndarray) -> np.ndarray:
         """The host draw of one command from `key`: the Cranley–Patterson

@@ -153,11 +153,13 @@ def _point_vel(linv, angv, pos, point):
     return linv[:, None] + cross(angv[:, None], point - pos[:, None])
 
 
-def contacts(ks, pos, quat, linv, angv, fric, dt_sub):
+def contacts(ks, pos, quat, linv, angv, fric, dt_sub, broadphase_gate: bool = True):
     """Broadphase gate, narrowphase and the side-asymmetric penalty law of
     every block (contacts_lanes). fric: (K,G) geom friction scale.
     → per-body lists of Plücker torque, force and reported net contact force
-    (K,3), and the swept blocks' geometry ([SweptGeo]) for the impulse pass."""
+    (K,3), and the swept blocks' geometry ([SweptGeo]) for the impulse pass.
+    broadphase_gate=False (a profiling ablation, the JAX package's
+    BROADPHASE_GATE off) keeps every block live; the outputs stay the same."""
     B = ks.nbody
     zero3 = torch.zeros_like(pos[0])
     plk_n: List = [zero3] * B
@@ -174,7 +176,8 @@ def contacts(ks, pos, quat, linv, angv, fric, dt_sub):
             continue
         ba, bb = int(ks.blk_ba[bi]), int(ks.blk_bb[bi])
         has_b = bool(flags & F_HAS_B)
-        live = block_gate(ks, bi, pos, quat)
+        live = block_gate(ks, bi, pos, quat) if broadphase_gate else \
+            torch.ones(pos[0].shape[0], dtype=torch.bool, device=pos[0].device)
         point, normal, depth = block_geometry(ks, bi, pos, quat)
         lv = live[:, None]
         if emit_a or emit_b:

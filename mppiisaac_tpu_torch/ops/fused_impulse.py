@@ -156,7 +156,8 @@ def _quad(Kc, floor, d):
 
 
 def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt: float,
-                 sweeps: int, free_vel: Dict[int, list], art_ctx: Dict[int, dict], lam):
+                 sweeps: int, free_vel: Dict[int, list], art_ctx: Dict[int, dict], lam,
+                 two_way_sweeps: bool = True):
     """The in-kernel impulse pass of one substep.
 
     st: the substep's input state (root poses of the free bodies before
@@ -166,7 +167,12 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
     place);
     lam (K, n_fc, 4) the warm-start λ rows, or None at fast fidelity: the
     sweeps start from zero and the stiction snap is left out. → λ rows
-    after the sweeps (None at fast fidelity)."""
+    after the sweeps (None at fast fidelity).
+
+    two_way_sweeps=False (a profiling ablation, the JAX package's
+    TWO_WAY_SWEEPS off) leaves the articulated side out of the sweeps: no Ψ
+    in the inverse masses, the free-side friction seed on couple blocks, no
+    impulse folded back into the articulation."""
     dcap = ks.max_depth
     tau_c = max(2.0 * dt, 1e-3)
     ref = pos[0]
@@ -233,7 +239,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
                     i1, i2 = [i for i in range(3) if i != a_]
                     Kc[a_][b3] = Kc[a_][b3] + (sk[i1][a_] * T[i1][b3] + sk[i2][a_] * T[i2][b3])
             floor = floor + inv_m[b]
-        if _two_way(ks, bi):
+        if _two_way(ks, bi) and two_way_sweeps:
             b2 = _art_body(ks, bi)
             psi = art_ctx[body_art[b2]]["psi"][b2][:, None]        # (K,1,6,6)
             P = _skew(pt)
@@ -273,7 +279,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
         if _is_sta(ks, bi):
             return torch.clamp((kn / (tau_c * tau_c)) * torch.clamp(depth, min=0.0)
                                - (2.0 * kn / tau_c) * vn, min=0.0)
-        if _is_couple(ks, bi):
+        if _is_couple(ks, bi) and two_way_sweeps:
             kn_c = kn / (tau_c * tau_c)
             kd_c = _kd_couple(ks, bi, mass, dt, tau_c)[:, None]
             return torch.clamp(kn_c * torch.clamp(depth, min=0.0) - (kd_c + dt * kn_c) * vn, min=0.0)
@@ -293,7 +299,7 @@ def impulse_pass(ks, swept: List[SweptGeo], st, pos, linv, angv, mass, fric, dt:
             r = pt - st["root_pos"][:, a, None]
             fr.append((a, block_live_or(live, si3.sum(1)), block_live_or(live, cross(r, si3).sum(1))))
         art = None
-        if _two_way(ks, bi):
+        if _two_way(ks, bi) and two_way_sweeps:
             si3 = imp * (1.0 if int(ks.blk_flags[bi]) & (F_A_ART | F_A_STA) else -1.0)
             Y = torch.cat([cross(pt, si3).sum(1), si3.sum(1)], -1)
             art = (_art_body(ks, bi), block_live_or(live, Y))

@@ -237,6 +237,11 @@ def free_cand_indices(scene, tables) -> np.ndarray:
     return np.asarray(out, np.int64)
 
 
+def n_free_cands(scene, tables) -> int:
+    """Impulse-pass candidates of the scene: its λ rows per sample / 4."""
+    return len(free_cand_indices(scene, tables))
+
+
 # ---------------------------------------------------------------------------
 # kernel scene tables
 # ---------------------------------------------------------------------------
@@ -792,12 +797,13 @@ def _unit6(k: int, like: torch.Tensor) -> torch.Tensor:
 
 def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
              tgt, mass_scale, fric, dt, swept: List[SweptGeo] = (), sweeps: int = 2,
-             world_fidelity: bool = True):
+             world_fidelity: bool = True, two_way_sweeps: bool = True):
     """Implicit velocity update of every dynamic actor, the impulse pass, and
     the integration (dynamics_lanes). tgt (K,D), mass_scale (K,B), fric
     (K,G). At world fidelity the impulse pass starts from st["lam"] and
     returns the λ rows in the new state; at fast fidelity it starts from
-    zero and keeps no λ. → the new state dict."""
+    zero and keeps no λ. two_way_sweeps: see `impulse_pass`. → the new
+    state dict."""
     new_q = st["q"].clone()
     new_qd = st["qd"].clone()
     ref = st["root_pos"][:, 0]
@@ -950,7 +956,8 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
     out = dict(st)
     if swept and sweeps > 0 and (free_vel or art_ctx):
         lam = impulse_pass(ks, list(swept), st, pos, linv, angv, mass_scale, fric, dt, sweeps,
-                           free_vel, art_ctx, st["lam"] if world_fidelity else None)
+                           free_vel, art_ctx, st["lam"] if world_fidelity else None,
+                           two_way_sweeps)
         if world_fidelity:
             out["lam"] = lam
     for ai, ctx in art_ctx.items():
@@ -972,19 +979,37 @@ def dynamics(ks: KernelScene, st, pos, quat, linv, angv, axis_w, plk_n, plk_f,
 
 
 def substep(ks: KernelScene, st, tgt, mass_scale, fric, dt, sweeps: int = 2,
-            world_fidelity: bool = True):
+            world_fidelity: bool = True, skip_contacts: bool = False,
+            skip_dynamics: bool = False, two_way_sweeps: bool = True,
+            broadphase_gate: bool = True):
     """One substep of the twin: FK → contacts → velocity solves → impulse
     pass → integration. Returns the new state dict with this substep's
     reported net contact forces (and, at world fidelity, λ rows). Fast
     fidelity (world_fidelity False: the rollout's `rollout_fidelity: fast`)
-    leaves out the λ warm start, the λ rows and the stiction snap."""
+    leaves out the λ warm start, the λ rows and the stiction snap.
+
+    The profiling ablations of the JAX package's `substep_lanes` and of its
+    module switches TWO_WAY_SWEEPS and BROADPHASE_GATE, off by default, timing only (the kernels' ablation
+    library, csrc/scene_tables.cuh AB_*): skip_contacts (zero forces, no
+    swept block, no impulse pass: the λ rows stay), skip_dynamics (no
+    velocity solve: every root moves by its velocity, dofs and velocities
+    stay), two_way_sweeps=False (`impulse_pass`), broadphase_gate=False
+    (`contacts`: every block live, the same outputs)."""
     pos, quat, linv, angv, axis_w = fk(ks, st)
-    plk_n, plk_f, net_cf, swept = contacts(ks, pos, quat, linv, angv, fric, dt)
+    if skip_contacts:
+        zero3 = torch.zeros_like(pos[0])
+        plk_n, plk_f, net_cf, swept = [zero3] * ks.nbody, [zero3] * ks.nbody, [zero3] * ks.nbody, []
+    else:
+        plk_n, plk_f, net_cf, swept = contacts(ks, pos, quat, linv, angv, fric, dt,
+                                               broadphase_gate)
     if swept and world_fidelity and "lam" not in st:
         st = dict(st, lam=torch.zeros(pos[0].shape[0], ks.n_fc, 4, dtype=pos[0].dtype,
                                       device=pos[0].device))
-    out = dynamics(ks, st, pos, quat, linv, angv, axis_w, plk_n, plk_f, tgt, mass_scale, fric,
-                   dt, swept, sweeps, world_fidelity)
+    if skip_dynamics:
+        out = dict(st, root_pos=st["root_pos"] + st["root_linvel"] * dt)
+    else:
+        out = dynamics(ks, st, pos, quat, linv, angv, axis_w, plk_n, plk_f, tgt, mass_scale,
+                       fric, dt, swept, sweeps, world_fidelity, two_way_sweeps)
     out["net_cf"] = torch.stack(net_cf, 1)
     return out
 

@@ -17,6 +17,16 @@ from and scattered back to `SimState.contact_lam`.
 Each wrapper class keeps a plain integer `launches`, raised by one where it
 launches its kernel and nowhere else.
 
+`profile={...}` (as the JAX wrappers take it) turns on the profiling
+ablations: `skip_contacts`, `skip_dynamics`, `zero_cost` (K1 only) and
+`two_way_sweeps=False`, `broadphase_gate=False` (K1 and K2). Timing only:
+all but the last give physically wrong states on purpose. On the card such a
+wrapper launches its mask's instantiation in the ablation library
+(ops/native.py `ABLATE`), counted per mask in `ablated_launches`; a mask the
+library does not instantiate, or a failed build or launch, raises. On the CPU
+the plain versions take the same switches. No entry point of the port passes
+`profile`; `mppiisaac_tpu_torch.profile_kernel` does.
+
 The kernels run one warp per sample (K2: one warp for the world's sample).
 `pack_tables` appends to the scene tables the lane orders the warp needs
 (bodies by tree level, 32-lane chunks of whole pair blocks, the block of each
@@ -80,6 +90,31 @@ BOUNDS = (MAX_ACTORS, MAX_BODIES, MAX_DOFS, MAX_NU, MAX_GEOMS, MAX_BLK, MAX_CAND
           MAX_PSI, MAX_BIN, MAX_S, MAX_V, MAX_CHUNKS, len(LAYOUT))
 SMEM_BYTES = 227 * 1024    # shared memory a block can use on the H100
 MAX_WARPS = 8
+
+# the profiling ablations (csrc/scene_tables.cuh AB_*): switch → (its value
+# when the ablation is on, mask bit)
+ABLATIONS = {"skip_contacts": (True, 1), "skip_dynamics": (True, 2), "zero_cost": (True, 4),
+             "two_way_sweeps": (False, 8), "broadphase_gate": (False, 16)}
+# the masks the ablation library instantiates (AB_K1_MASKS, AB_K2_MASKS):
+# nocost, nocontact, fkonly, one-way sweeps, no gate
+K1_MASKS = (4, 1, 1 | 2 | 4, 8, 16)
+K2_MASKS = (8, 16)
+K2_SWITCHES = ("two_way_sweeps", "broadphase_gate")
+
+
+def ablation(profile: Optional[dict], switches=tuple(ABLATIONS)):
+    """profile → (every switch's value, the kernels' mask). A switch the
+    profile leaves out is not ablated: only `profile` turns an ablation on."""
+    profile = dict(profile or {})
+    unknown = set(profile) - set(switches)
+    if unknown:
+        raise ValueError(f"profile: unknown switches {sorted(unknown)}; known {list(switches)}")
+    values = {k: bool(profile.get(k, not ABLATIONS[k][0])) for k in switches}
+    mask = 0
+    for k, v in values.items():
+        if v == ABLATIONS[k][0]:
+            mask |= ABLATIONS[k][1]
+    return values, mask
 
 
 def _arr(ctype, n):
@@ -362,10 +397,10 @@ def pack_tables(ks: KernelScene, vis_body: int = -1) -> bytes:
     return bytes(t)
 
 
-def _library():
+def _library(variant=None):
     from .native import load_library
 
-    lib = load_library()
+    lib = load_library(variant)
     size = lib.scene_tables_size()
     if size != ctypes.sizeof(_SceneTablesC):
         raise RuntimeError(
@@ -435,21 +470,37 @@ def _lam_rows(ks: KernelScene, dev_tables: _DeviceTables, lam: Optional[torch.Te
 # ---------------------------------------------------------------------------
 
 def rollout_plain(ks: KernelScene, rows, V, mass, fric, H: int, substeps: int,
-                  dt_sub: float, vis_body: int, sweeps: int, world_fidelity: bool = True):
+                  dt_sub: float, vis_body: int, sweeps: int, world_fidelity: bool = True,
+                  skip_contacts: bool = False, skip_dynamics: bool = False,
+                  zero_cost: bool = False, two_way_sweeps: bool = True,
+                  broadphase_gate: bool = True):
     """Plain version of the rollout kernel (K1).
 
     rows (NS + 4·n_fc, K) state and λ rows (λ carried across the whole
     H × substeps trajectory), or at fast fidelity (NS, K) state rows alone;
     V (H,nu,K) controls (already rounded through bf16); mass (B,K), fric
     (G,K). → costs (K,H), vis (H,K,3) rounded through bf16 (-1 vis_body:
-    zeros)."""
+    zeros). The ablations: `substep`'s, and zero_cost (no post-step FK or
+    cost: the cost is q[0], or the root x of actor 0 without dofs, and vis
+    is the sum of the actors' root positions, unrounded, where the JAX
+    kernel writes zeros: an output that every substep's integration reaches,
+    so that a hold of the ablated kernel sees the substeps)."""
     st = rows_to_state(ks, rows)
     mass_k, fric_k = mass.T, fric.T
     costs, vis = [], []
     for t in range(H):
         tgt = command_targets(ks, V[t].T, st["q"])
         for _ in range(substeps):
-            st = substep(ks, st, tgt, mass_k, fric_k, dt_sub, sweeps, world_fidelity)
+            st = substep(ks, st, tgt, mass_k, fric_k, dt_sub, sweeps, world_fidelity,
+                         skip_contacts, skip_dynamics, two_way_sweeps, broadphase_gate)
+        if zero_cost:
+            costs.append(st["q"][:, 0] if ks.ndof else st["root_pos"][:, 0, 0])
+            root = st["root_pos"]
+            v = root[:, 0]
+            for a in range(1, ks.nactor):           # the device code's order
+                v = v + root[:, a]
+            vis.append(v)
+            continue
         pos, quat, _, _, _ = fk(ks, st)
         costs.append(task_cost(ks, st, pos, quat))
         if vis_body >= 0:
@@ -460,17 +511,19 @@ def rollout_plain(ks: KernelScene, rows, V, mass, fric, H: int, substeps: int,
 
 
 def world_step_plain(ks: KernelScene, rows, tgt, mass, fric, substeps: int, dt_sub: float,
-                     sweeps: int):
+                     sweeps: int, two_way_sweeps: bool = True, broadphase_gate: bool = True):
     """Plain version of the world-step kernel (K2): rows (NS + 4·n_fc,) state
     and λ rows of one env, tgt (D,), mass (B,), fric (G,) → rows one control
     dt later. Envs side by side (rows (NS + 4·n_fc, N), tgt (N, D), mass
-    (N, B), fric (N, G)) step together, each on its own."""
+    (N, B), fric (N, G)) step together, each on its own. The ablations:
+    `substep`'s two_way_sweeps and broadphase_gate."""
     one = rows.dim() == 1
     if one:
         rows, tgt, mass, fric = rows[:, None], tgt[None], mass[None], fric[None]
     st = rows_to_state(ks, rows)
     for _ in range(substeps):
-        st = substep(ks, st, tgt, mass, fric, dt_sub, sweeps)
+        st = substep(ks, st, tgt, mass, fric, dt_sub, sweeps, two_way_sweeps=two_way_sweeps,
+                     broadphase_gate=broadphase_gate)
     out = state_dict_to_rows(st)
     return out[:, 0] if one else out
 
@@ -488,12 +541,15 @@ class FusedRollout:
     corner samples per box–box direction."""
 
     launches = 0
+    ablated_launches: Dict[int, int] = {}   # mask → launches of the ablation library
 
     def __init__(self, built, engine, cost: CostSpec, H: int, K: int,
                  vis_body: Optional[int] = None, substeps: Optional[int] = None,
-                 impulse_sweeps: int = 2, world_fidelity: bool = True, manifold: str = "full"):
+                 impulse_sweeps: int = 2, world_fidelity: bool = True, manifold: str = "full",
+                 profile: Optional[dict] = None):
         if cost is None or cost.task not in TASKS:
             raise NotImplementedError(f"no CUDA cost for task spec {cost}")
+        self.profile, self.mask = ablation(profile)
         if manifold not in ("full", "reduced"):
             raise ValueError(f"rollout manifold {manifold!r}: 'full' or 'reduced'")
         # the reduced manifold only serves fast fidelity: at world fidelity the
@@ -565,7 +621,7 @@ class FusedRollout:
         self._check_inputs(rows, V, mass, fric)
         return rollout_plain(self.ks, rows, V.to(torch.float32), mass, fric, self.H,
                              self.substeps, self.dt_sub, self.vis_body, self.impulse_sweeps,
-                             self.world_fidelity)
+                             self.world_fidelity, **self.profile)
 
     def run(self, rows, V, mass, fric):
         """Packed inputs → (costs (K,H), vis (H,K,3)): the CUDA kernel on CUDA
@@ -574,20 +630,28 @@ class FusedRollout:
             return self.plain(rows, V, mass, fric)
         _require_cuda(rows.device)
         self._check_inputs(rows, V, mass, fric)
-        lib = _library()
+        if self.mask and self.mask not in K1_MASKS:
+            raise NotImplementedError(f"profile {self.profile}: mask {self.mask} is not one of "
+                                      f"the ablation library's K1 masks {K1_MASKS}")
+        lib = _library("ablate" if self.mask else None)
         costs = torch.empty(self.K, self.H, dtype=torch.float32, device=rows.device)
         vis = torch.empty(self.H, self.K, 3, dtype=torch.float32, device=rows.device)
-        with torch.cuda.device(rows.device):
-            rc = lib.fused_rollout_launch(
-                self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), V.data_ptr(),
+        args = (self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), V.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), costs.data_ptr(), vis.data_ptr(),
                 self.K, self.H, self.substeps, self.dt_sub, self.impulse_sweeps,
                 int(self.world_fidelity), self.warps(rows.device), self.warp_bytes,
-                torch.cuda.current_stream(rows.device).cuda_stream,
-            )
+                torch.cuda.current_stream(rows.device).cuda_stream)
+        with torch.cuda.device(rows.device):
+            rc = (lib.fused_rollout_launch_ablate(self.mask, *args) if self.mask
+                  else lib.fused_rollout_launch(*args))
         if rc != 0:
-            raise RuntimeError(f"fused_rollout_kernel launch failed: cudaError {rc}")
-        type(self).launches += 1
+            raise RuntimeError(f"fused_rollout_kernel (ablation mask {self.mask}) launch "
+                               f"failed: error {rc}")
+        if self.mask:
+            n = FusedRollout.ablated_launches
+            n[self.mask] = n.get(self.mask, 0) + 1
+        else:
+            type(self).launches += 1
         return costs, vis
 
 
@@ -598,8 +662,10 @@ class FusedWorldStep:
     back, and refreshes the body caches with the engine's torch refresh."""
 
     launches = 0
+    ablated_launches: Dict[int, int] = {}   # mask → launches of the ablation library
 
-    def __init__(self, built, engine, impulse_sweeps: int = 16):
+    def __init__(self, built, engine, impulse_sweeps: int = 16, profile: Optional[dict] = None):
+        self.profile, self.mask = ablation(profile, K2_SWITCHES)
         self.engine = engine
         self.ks = KernelScene.build(built, engine, None)
         self.fc_idx = free_cand_indices(built.scene, engine.tables)
@@ -640,7 +706,7 @@ class FusedWorldStep:
         if rows.dim() == 2:                     # world_step_plain takes envs first
             tgt, mass, fric = tgt.T, mass.T, fric.T
         return world_step_plain(self.ks, rows, tgt, mass, fric, self.substeps, self.dt_sub,
-                                self.impulse_sweeps).contiguous()
+                                self.impulse_sweeps, **self.profile).contiguous()
 
     def step_rows(self, rows, tgt, mass, fric):
         """rows (NS + 4·n_fc, N), tgt (D, N), mass (B, N), fric (G, N) → rows
@@ -649,18 +715,26 @@ class FusedWorldStep:
             return self.plain(rows, tgt, mass, fric)
         _require_cuda(rows.device)
         N = self._check_inputs(rows, tgt, mass, fric)
-        lib = _library()
+        if self.mask and self.mask not in K2_MASKS:
+            raise NotImplementedError(f"profile {self.profile}: mask {self.mask} is not one of "
+                                      f"the ablation library's K2 masks {K2_MASKS}")
+        lib = _library("ablate" if self.mask else None)
         out = torch.empty_like(rows)
-        with torch.cuda.device(rows.device):
-            rc = lib.fused_world_step_launch(
-                self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
+        args = (self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
                 mass.data_ptr(), fric.data_ptr(), out.data_ptr(), N, self.substeps, self.dt_sub,
                 self.impulse_sweeps, self.warps(rows.device, N), self.warp_bytes,
-                torch.cuda.current_stream(rows.device).cuda_stream,
-            )
+                torch.cuda.current_stream(rows.device).cuda_stream)
+        with torch.cuda.device(rows.device):
+            rc = (lib.fused_world_step_launch_ablate(self.mask, *args) if self.mask
+                  else lib.fused_world_step_launch(*args))
         if rc != 0:
-            raise RuntimeError(f"fused_world_step_kernel launch failed: cudaError {rc}")
-        type(self).launches += 1
+            raise RuntimeError(f"fused_world_step_kernel (ablation mask {self.mask}) launch "
+                               f"failed: error {rc}")
+        if self.mask:
+            n = FusedWorldStep.ablated_launches
+            n[self.mask] = n.get(self.mask, 0) + 1
+        else:
+            type(self).launches += 1
         return out
 
     def pack(self, state: SimState) -> torch.Tensor:

@@ -9,6 +9,13 @@ its functions take raw device pointers and the stream as `c_void_p`.
 scripts/profile_torch_step.py --sections) builds the same sources with
 `-DSECTION_CLOCKS` into `_build/sections/`: the kernels then count clock64()
 cycles per section, read back by `read_sections`.
+
+`load_library("ablate")` builds, beside whichever library the wrappers use,
+the profiling ablations (`-DABLATE`, into `_build/ablate/`): one nvcc run
+instantiates the kernels for every mask of AB_K1_MASKS and AB_K2_MASKS
+(csrc/scene_tables.cuh), launched by `fused_rollout_launch_ablate` and
+`fused_world_step_launch_ablate` with the mask first. It has no default
+launchers; only the wrappers built with `profile=` reach it.
 """
 from __future__ import annotations
 
@@ -40,27 +47,31 @@ def _nvcc() -> str:
 
 
 VARIANT = None          # None: the main build; "sections": the section counters
-_DEFINES = {None: [], "sections": ["-DSECTION_CLOCKS"]}
+ABLATE = "ablate"       # the profiling ablations' library
+_DEFINES = {None: [], "sections": ["-DSECTION_CLOCKS"], ABLATE: ["-DABLATE"]}
 
 
-def _flags():
-    return NVCC_FLAGS + _DEFINES[VARIANT]
+def _flags(variant):
+    return NVCC_FLAGS + _DEFINES[variant]
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(_flags()).encode())
+def library_path(variant=None) -> str:
+    """The library of `variant` (None: VARIANT's)."""
+    variant = variant or VARIANT
+    h = hashlib.sha256(" ".join(_flags(variant)).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(name.encode() + f.read())
     digest = h.hexdigest()[:16]
-    return os.path.join(BUILD_DIR, VARIANT or "", f"libfused_rollout_{digest}.so")
+    return os.path.join(BUILD_DIR, variant or "", f"libfused_rollout_{digest}.so")
 
 
-def build() -> tuple:
-    """Compile the library if its hashed file is missing.
-    → (path, seconds spent compiling, ptxas report)."""
-    out = library_path()
+def build(variant=None) -> tuple:
+    """Compile the library of `variant` (None: VARIANT's) if its hashed file
+    is missing. → (path, seconds spent compiling, ptxas report)."""
+    variant = variant or VARIANT
+    out = library_path(variant)
     report = out + ".ptxas.txt"
     if os.path.exists(out):
         with open(report) as f:
@@ -69,7 +80,7 @@ def build() -> tuple:
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *_flags(), "-o", tmp, SOURCE],
+        [_nvcc(), *_flags(variant), "-o", tmp, SOURCE],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
@@ -81,21 +92,32 @@ def build() -> tuple:
     return out, seconds, proc.stderr
 
 
+def load_library(variant=None) -> ctypes.CDLL:
+    """The built kernels of `variant` (None: VARIANT's) with their ctypes
+    signatures, built at first use."""
+    return _load(variant or VARIANT)
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built kernels with their ctypes signatures (built at first use)."""
-    path, _, _ = build()
+def _load(variant) -> ctypes.CDLL:
+    path, _, _ = build(variant)
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.scene_tables_size.argtypes = []
     lib.scene_tables_size.restype = I
     lib.max_bounds.argtypes = [P]
     lib.max_bounds.restype = I
+    if variant == ABLATE:
+        lib.fused_rollout_launch_ablate.argtypes = [I, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
+        lib.fused_rollout_launch_ablate.restype = I
+        lib.fused_world_step_launch_ablate.argtypes = [I, P, P, P, P, P, P, I, I, F, I, I, I, P]
+        lib.fused_world_step_launch_ablate.restype = I
+        return lib
     lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
     lib.fused_rollout_launch.restype = I
     lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, I, F, I, I, I, P]
     lib.fused_world_step_launch.restype = I
-    if VARIANT == "sections":
+    if variant == "sections":
         lib.read_sections.argtypes = [P]
         lib.read_sections.restype = I
         lib.set_rollout_threads.argtypes = [I]

@@ -12,6 +12,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 SIM_STATE_FIELDS = (
@@ -94,6 +95,15 @@ class ModelParams:
 
     body_mass_scale: torch.Tensor    # (B,)
     geom_friction: torch.Tensor      # (G,) friction scale per geom
+
+    @staticmethod
+    def default(nbody: int, ngeom: int, geom_friction, device="cuda") -> "ModelParams":
+        """Unit mass scales and the given per-geom friction (the JAX
+        package's `ModelParams.default`), float32 on `device`."""
+        return ModelParams(
+            body_mass_scale=torch.ones(nbody, dtype=torch.float32, device=device),
+            geom_friction=torch.as_tensor(np.asarray(geom_friction, np.float32), device=device),
+        )
 
     def map(self, fn) -> "ModelParams":
         return ModelParams(fn(self.body_mass_scale), fn(self.geom_friction))

@@ -66,12 +66,15 @@ class Simulation:
         actors: Sequence[Union[str, ActorSpec, dict]] = (),
         init_positions: Optional[List[List[float]]] = None,
         num_envs: int = 1,
+        viewer: bool = False,
         device="cuda",
         conf_dir: Optional[str] = None,
         randomize: bool = False,
         seed: int = 0,
     ):
         self.cfg = cfg or SimConfig()
+        if viewer:
+            self.cfg.viewer = True
         self.num_envs = num_envs
         self.device = torch.device(device)
         self._conf_dir = conf_dir or actors_conf_dir()

@@ -285,3 +285,11 @@ def mesh_fit(path: str, scale, origin_pos, origin_quat) -> UrdfGeom:
         # wheels and feet stay round: a box's corners would catch the ground
         return UrdfGeom(GEOM_SPHERE, np.array([fit["params"][0], 0.0, 0.0]), p, q)
     return UrdfGeom(GEOM_BOX, np.asarray(fit["params"]), p, q)
+
+
+def load_urdf_file(path: str):
+    """Parse a user URDF file with mesh fitting on (the JAX package's
+    `load_urdf_file`)."""
+    from ..physics.urdf import parse_urdf
+
+    return parse_urdf(path, mesh_fit=mesh_fit)

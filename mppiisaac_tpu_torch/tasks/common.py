@@ -44,6 +44,17 @@ def yaw_of(quat):
     return quat_to_yaw(quat)
 
 
+def run_objective_task(task_name, objective_cls, overrides=None, success_fn=None, **kw):
+    """One episode of conf/tasks/<task_name> with objective_cls(cfg) (the
+    JAX package's `run_objective_task`); kw goes to `run_task` (device=,
+    n_steps=, device_steps=, ...)."""
+    from ..runtime.loop import run_task
+    from ..utils.config_store import load_config
+
+    cfg = load_config(f"tasks/{task_name}", overrides)
+    return run_task(cfg, objective_cls(cfg), success_fn=success_fn, **kw)
+
+
 def split_cli(argv, defaults):
     """Hydra-style `key=value` arguments → (the config overrides, the values
     of the keys in `defaults`, each defaulting to its entry there)."""

@@ -123,6 +123,11 @@ def run(overrides=None, task="multi_pointbot", device="cuda", **kw):
     return run_task(cfg, obj, success_fn=success_fn(task, obj), device=device, **kw)
 
 
+def run_jackal(overrides=None, **kw):
+    """multi_jackal's episode (the JAX package's suite entry)."""
+    return run(overrides, task="multi_jackal", **kw)
+
+
 if __name__ == "__main__":
     import sys
 

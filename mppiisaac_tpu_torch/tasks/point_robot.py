@@ -66,11 +66,17 @@ def success_fn(goal, tol: float = 0.1):
     return success
 
 
-def run(overrides=None, device="cuda", **kw):
-    from ..runtime.loop import run_task
+def make_config(overrides=None):
+    """conf/tasks/point_robot with CLI-style overrides."""
     from ..utils.config_store import load_config
 
-    cfg = load_config("tasks/point_robot", overrides)
+    return load_config("tasks/point_robot", overrides)
+
+
+def run(overrides=None, device="cuda", **kw):
+    from ..runtime.loop import run_task
+
+    cfg = make_config(overrides)
     obj = PointRobotObjective(cfg)
     return run_task(cfg, obj, success_fn=success_fn(obj.nav_goal), device=device, **kw)
 

@@ -12,10 +12,17 @@ Subcommands:
                                  gait tape prior or without (default 3, tape)
   jackal [n_seeds]               multi_jackal within the conf's 200 steps
   suite                          one episode of every other task, each at its
-                                 conf's seed
+                                 conf's seed; a task that raises is recorded
+                                 with its error and counted as a failure, the
+                                 others still run, and the suite then raises
+  one <task> [key=value ...]     one episode of any task at its conf's seed
+                                 (a module of tasks/, or panda, panda_effort,
+                                 boxer_reach, boxer_push, heijn_reach,
+                                 heijn_push, multi_pointbot, multi_jackal)
 Options: device=cuda|cpu (default cuda), n_steps=N (cap each episode),
 device_steps=N (control steps per host round trip, default 16 as in the JAX
-package's sweeps; 1 runs the per-step loop), results=PATH (default
+package's sweeps; 1 runs the per-step loop), use_fused=true|false|none (the
+planner's rollout, default none: its own choice), results=PATH (default
 chiprun_out/validate_torch.json at the repo root); any other key=value is a
 config override (e.g. mppi.num_samples=16).
 
@@ -35,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from .tasks.common import fused_opt
 from .utils.profiling import card
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,12 +92,13 @@ def _episodes(key, cfg, obj, seeds, opts, prior=None, success_fn=None, n_steps=N
     t0 = time.perf_counter()
     ds = int(opts["device_steps"])
     results = run_task_episodes(cfg, obj, seeds, prior=prior, n_steps=n_steps,
-                                success_fn=success_fn, device=opts["device"], device_steps=ds)
+                                success_fn=success_fn, device=opts["device"], device_steps=ds,
+                                use_fused=fused_opt(opts["use_fused"]))
     for s, m in results.items():
         print(json.dumps({"key": key, "seed": s, **m.summary(),
                           "finite": m.final_state_finite}), flush=True)
-    summ = {**_summ(results), **extra, "device_steps": ds, "wall_s": time.perf_counter() - t0,
-            **_card(opts["device"])}
+    summ = {**_summ(results), **extra, "device_steps": ds, "use_fused": opts["use_fused"],
+            "wall_s": time.perf_counter() - t0, **_card(opts["device"])}
     print("SUMMARY " + json.dumps(summ), flush=True)
     print(f"SUCCESS {summ['successes']}/{summ['episodes']}", flush=True)
     _record(opts["results"], key, summ)
@@ -140,12 +149,12 @@ def jackal(opts, overrides, n_seeds=5):
                      overrides=overrides)
 
 
-def suite(opts, overrides):
-    """One episode of every task the other subcommands leave out."""
+def suite_plan():
+    """The suite's tasks: (name, run function, its keywords)."""
     from .tasks import (albert, mobile_push, mobile_reach, multi_robot, panda_reach,
                         panda_stick_push, point_robot)
 
-    plan = [
+    return [
         ("point_robot", point_robot.run, {}),
         ("multi_pointbot", multi_robot.run, {}),
         ("panda", panda_reach.run, {}),
@@ -160,23 +169,69 @@ def suite(opts, overrides):
         ("panda_effort", panda_reach.run, {"task": "panda_effort", "n_steps": 500}),
         ("multi_jackal", multi_robot.run, {"task": "multi_jackal"}),
     ]
+
+
+def _episode(fn, opts, overrides, **kw):
+    """One episode of a task's run function → its summary entry."""
+    if opts["n_steps"] is not None:
+        kw["n_steps"] = int(opts["n_steps"])
+    t0 = time.perf_counter()
+    m = fn(overrides=list(overrides) or None, device=opts["device"],
+           device_steps=int(opts["device_steps"]), use_fused=fused_opt(opts["use_fused"]), **kw)
+    return {"success_step": m.success_step, "steps": m.steps, "finite": m.final_state_finite,
+            "median_control_ms": float(np.median([1e3 / f for f in m.fps])),
+            "wall_s": time.perf_counter() - t0}
+
+
+def suite(opts, overrides):
+    """One episode of every task the other subcommands leave out. A task
+    that raises is recorded with its error and counted as a failure; the
+    others run on, and the suite raises once the results are recorded."""
     out = {}
-    for name, fn, kw in plan:
-        if opts["n_steps"] is not None:
-            kw["n_steps"] = int(opts["n_steps"])
-        t0 = time.perf_counter()
-        m = fn(overrides=list(overrides) or None, device=opts["device"],
-               device_steps=int(opts["device_steps"]), **kw)
-        out[name] = {"success_step": m.success_step, "steps": m.steps,
-                     "finite": m.final_state_finite,
-                     "median_control_ms": float(np.median([1e3 / f for f in m.fps])),
-                     "wall_s": time.perf_counter() - t0}
+    for name, fn, kw in suite_plan():
+        try:
+            out[name] = _episode(fn, opts, overrides, **kw)
+        except Exception as e:  # noqa: BLE001 — recorded, counted, raised below
+            out[name] = {"error": repr(e)[:300]}
         print(f"TASK {name}: {json.dumps(out[name])}", flush=True)
-    n_ok = sum(1 for v in out.values() if v["success_step"] is not None)
+    n_ok = sum(1 for v in out.values() if v.get("success_step") is not None)
     print("SUMMARY " + json.dumps(out), flush=True)
     print(f"SUCCESS {n_ok}/{len(out)}", flush=True)
     _record(opts["results"], "suite", {**out, "device_steps": int(opts["device_steps"]),
                                        **_card(opts["device"])})
+    failed = [name for name, v in out.items() if "error" in v]
+    if failed:
+        raise RuntimeError(f"suite: {len(failed)} of {len(out)} tasks raised: {failed}")
+    return out
+
+
+# task names of `one` that are not a module of tasks/: (module, keywords)
+ONE_ALIASES = {
+    "panda": ("panda_reach", {}),
+    "panda_effort": ("panda_reach", {"task": "panda_effort"}),
+    "boxer_reach": ("mobile_reach", {"robot": "boxer"}),
+    "heijn_reach": ("mobile_reach", {"robot": "heijn"}),
+    "boxer_push": ("mobile_push", {"robot": "boxer"}),
+    "heijn_push": ("mobile_push", {"robot": "heijn"}),
+    "multi_pointbot": ("multi_robot", {"task": "multi_pointbot"}),
+    "multi_jackal": ("multi_robot", {"task": "multi_jackal"}),
+}
+
+
+def one(opts, overrides, task=None):
+    """One episode of any task with CLI-style overrides (the JAX
+    validator's `one`)."""
+    import importlib
+
+    if task is None:
+        raise SystemExit("usage: python -m mppiisaac_tpu_torch.validate one <task> [key=value ...]")
+    modname, kw = ONE_ALIASES.get(task, (task, {}))
+    mod = importlib.import_module(f"{__package__}.tasks.{modname}")
+    out = {"task": task, "overrides": list(overrides), **_episode(mod.run, opts, overrides, **kw),
+           "device_steps": int(opts["device_steps"]), "use_fused": opts["use_fused"],
+           **_card(opts["device"])}
+    print("ONE " + json.dumps(out), flush=True)
+    _record(opts["results"], f"one:{task}" + (":" + ",".join(overrides) if overrides else ""), out)
     return out
 
 
@@ -186,6 +241,7 @@ SUBCOMMANDS = {
     "anymal": anymal,
     "jackal": jackal,
     "suite": suite,
+    "one": one,
 }
 
 
@@ -200,7 +256,7 @@ def main(argv=None, device="cuda"):
     positional = [a for a in rest if "=" not in a]
     overrides, opts = split_cli(
         [a for a in rest if "=" in a],
-        {"device": device, "n_steps": None, "device_steps": 16,
+        {"device": device, "n_steps": None, "device_steps": 16, "use_fused": None,
          "results": os.path.join(REPO, "chiprun_out", "validate_torch.json")})
     return SUBCOMMANDS[sub](opts, overrides, *positional)
 

@@ -6,7 +6,9 @@ box–box manifold (bbA/bbB), and on the mini-gripper grasp scenes (a ball held
 by fingers with the gripper map or with effort fingers, and velocity fingers
 closing on a post through the finger force gate), and K2 over a grid of
 envs (a randomized point-robot batch, the 1080-ball demo through
-`Simulation.step`). Marked `cuda`: they skip without an
+`Simulation.step`), and every instantiation of the ablation library (its
+kernels against their ablated plain versions, the gate off bit for bit the
+default kernels, a mask it lacks refused). Marked `cuda`: they skip without an
 NVIDIA GPU and run on the card (whose machine has no JAX, which
 tests/conftest.py imports) with
 
@@ -774,3 +776,98 @@ def test_unfused_command_replays_from_a_cuda_graph(panda):
         for f in SIM_STATE_FIELDS:
             if getattr(x, f) is not None:
                 assert torch.equal(getattr(x, f), getattr(y, f)), (i, f)
+
+
+def _gripper_beside_far_ball(dev):
+    """The mini-gripper closed on its ball beside a far ball (whose blocks
+    the gate turns off), its cost, and K1's inputs from the grasp."""
+    from mppiisaac_tpu_torch.ops import fused_physics as tfp
+    from mppiisaac_tpu_torch.physics.step import Engine
+    from mppiisaac_tpu_torch.scene.actor import ActorSpec
+    from mppiisaac_tpu_torch.scene.builder import build_scene
+
+    built = build_scene([
+        ActorSpec(type="robot", name="mini_gripper", fixed=True, gripper_binarize=True,
+                  init_pos=[0.0, 0.0, 0.5]),
+        ActorSpec(type="sphere", name="ball", size=[0.02], mass=0.005, init_pos=[0.0, 0.0, 0.53],
+                  friction=1.0),
+        ActorSpec(type="sphere", name="far_ball", size=[0.05], mass=0.1, init_pos=[5.0, 5.0, 0.05],
+                  friction=0.5)], SimConfig(dt=0.05, substeps=2))
+    engine = Engine(built.scene)
+    st = built.initial_state(engine, dev)
+    st = engine.refresh(st.replace(q=torch.full_like(st.q, 0.034)))
+    ball = built.scene.actor_index("ball")
+    spec = tfp.CostSpec(task=tfp.TASK_PANDA_PICK, ee_body=built.scene.body_offset[ball] - 1,
+                        goal_actor=0, w_dist=1.0, w_ori=0.5, block_actor=ball,
+                        force_body0=built.scene.body_offset[ball], force_nbody=1, w_block=2.0,
+                        w_force=0.01)
+    return built, engine, st, spec
+
+
+ABLATED = {4: {"zero_cost": True}, 1: {"skip_contacts": True},
+           7: {"skip_contacts": True, "skip_dynamics": True, "zero_cost": True},
+           8: {"two_way_sweeps": False}, 16: {"broadphase_gate": False}}
+
+
+def test_ablation_variants_build_launch_and_match_plain(panda):
+    """Every instantiated mask of the ablation library (ops/native.py
+    ABLATE) launches, is counted per mask, and agrees with its ablated plain
+    version; the gate off is bit for bit the default kernels."""
+    from mppiisaac_tpu_torch.ops import fused_rollout as fro
+
+    built, engine, st, spec = _gripper_beside_far_ball("cuda")
+    K, H = 64, 4
+    g = torch.Generator().manual_seed(12)
+    V = (torch.rand(K, H, 2, generator=g) * 2 - 1).cuda()
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    ref = FusedRollout(built, engine, spec, H, K)
+    inputs = ref.pack(broadcast_state(st, K), pm, V)
+    c_ref, v_ref = ref.run(*inputs)
+    FusedRollout.ablated_launches.clear()
+    for mask in fro.K1_MASKS:
+        fr = FusedRollout(built, engine, spec, H, K, profile=ABLATED[mask])
+        inp = inputs
+        if mask == 7:      # fkonly keeps every dof: only the roots' drift reaches its output
+            sK = broadcast_state(st, K)
+            sK = sK.replace(root_linvel=(torch.rand(sK.root_linvel.shape, generator=g) - 0.5).cuda())
+            inp = fr.pack(sK, pm, V)
+        costs, vis = fr.run(*inp)
+        torch.cuda.synchronize()
+        costs_p, vis_p = fr.plain(*inp)
+        torch.testing.assert_close(costs, costs_p, rtol=COST_TOL, atol=COST_TOL)
+        if fr.profile["zero_cost"]:      # vis: the sum of the roots, unrounded
+            torch.testing.assert_close(vis, vis_p, rtol=COST_TOL, atol=COST_TOL)
+        else:
+            torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
+        if mask == 7:
+            assert float((vis[-1] - sK.root_pos.sum(1)).abs().max()) > 10 * COST_TOL
+        if mask == 16:
+            assert torch.equal(costs, c_ref) and torch.equal(vis, v_ref)
+    assert FusedRollout.ablated_launches == {m: 1 for m in fro.K1_MASKS}
+    ones_b = torch.ones(built.scene.nbody, device="cuda")
+    ones_g = torch.ones(built.scene.ngeom, device="cuda")
+    tgt = built.cmd_map.apply(torch.full((2,), -1.0, device="cuda"), st.q)
+    w_ref = FusedWorldStep(built, engine)
+    r_ref = w_ref.pack(st).contiguous()
+    for _ in range(3):
+        r_ref = w_ref.step_rows(r_ref, tgt, ones_b, ones_g)
+    for mask in fro.K2_MASKS:
+        fw = FusedWorldStep(built, engine, profile=ABLATED[mask])
+        rows = rows_p = fw.pack(st).contiguous()
+        for _ in range(3):
+            rows, rows_p = fw.step_rows(rows, tgt, ones_b, ones_g), fw.plain(rows_p, tgt, ones_b, ones_g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
+        if mask == 16:
+            assert torch.equal(rows, r_ref)
+
+
+def test_ablation_masks_not_instantiated_raise(panda):
+    built, engine, st, spec = _gripper_beside_far_ball("cuda")
+    fr = FusedRollout(built, engine, spec, 2, 8, profile={"skip_dynamics": True})
+    pm = ModelParams(torch.ones(8, built.scene.nbody, device="cuda"),
+                     torch.ones(8, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(broadcast_state(st, 8), pm, torch.zeros(8, 2, 2, device="cuda"))
+    with pytest.raises(NotImplementedError):
+        fr.run(*inputs)

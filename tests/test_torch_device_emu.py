@@ -2,20 +2,21 @@
 kernels' plain versions.
 
 g++ (C++20) compiles the kernels with the stub CUDA headers of
-csrc/emu/ (each block one warp of 32 std::threads, __syncwarp a
-std::barrier, the shuffles through an exchange array) and csrc/emu/launch.cpp
-into a library in a temporary directory; the tests run K1 (one warp per
-sample, block by block) and K2 through it on panda reach (K=4, H=2), on the
-boxer of boxer_push resting on its wheels, on pick's block settled on the
-table, on the mini-gripper holding a ball (the couple contacts) and at the
-stick's first touch of the block in the panda_stick_push loop, plus K2 over
-a grid of 3 envs (a randomized point robot pushing a block), and hold
-them against `FusedRollout.plain` / `FusedWorldStep.plain`
+csrc/emu/ (each block one warp of 32 cooperative fibers on one thread,
+__syncwarp a yield to the scheduler, which resumes the lanes in order once
+all 32 have arrived; the shuffles through an exchange array) and
+csrc/emu/launch.cpp into a library in a temporary directory; the tests run
+K1 (one warp per sample, block by block) and K2 through it on panda reach
+(K=4, H=2), on the boxer of boxer_push resting on its wheels, on pick's block
+settled on the table, on the mini-gripper holding a ball (the couple
+contacts), plus K2 over a grid of 3 envs (a randomized point robot pushing a
+block), and hold them against `FusedRollout.plain` / `FusedWorldStep.plain`
 with the tolerances of tests/test_torch_cuda.py (chip_smoke.py's bounds for
-the boxer, the settled block and the stick's touch). The build decides inside the fixture
-whether g++ is there, and skips without it. No kernel wrapper loads this
-library: on the card they launch the nvcc build, on the CPU they run the
-plain versions.
+the boxer and the settled block). The stick's first touch of the block has a
+file of its own, tests/test_torch_device_emu_stick.py. The build decides
+inside the fixture whether g++ is there, and skips without it. No kernel
+wrapper loads this library: on the card they launch the nvcc build, on the
+CPU they run the plain versions.
 
 Also, without g++: the lane orders and the per-warp layout that
 `pack_tables` appends to the scene tables, and the launch geometry of every
@@ -34,13 +35,12 @@ import chip_smoke
 from mppiisaac_tpu_torch.ops import fused_physics as tfp
 from mppiisaac_tpu_torch.ops import fused_rollout as fro
 from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
-from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
+from mppiisaac_tpu_torch.physics.types import ModelParams
 from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
 from mppiisaac_tpu_torch.scene.builder import SimConfig
 from mppiisaac_tpu_torch.tasks.mobile_push import MobilePushObjective
 from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
 from mppiisaac_tpu_torch.tasks.panda_reach import PandaReachObjective
-from mppiisaac_tpu_torch.tasks.panda_stick_push import PandaStickPushObjective
 from mppiisaac_tpu_torch.utils.config_store import load_config
 
 torch.set_num_threads(1)
@@ -50,31 +50,38 @@ K, H = 4, 2
 COST_TOL = STATE_TOL = 1e-4
 VIS_ATOL = 1e-2
 PICK_COST_ATOL, PICK_STATE_ATOL = 5e-4, 2e-3
-# the stick's first touch of the block in chip_smoke.py phase 11's
-# panda_stick_push loop on the card (step 73), as that run saved it
-STICK_TOUCH = os.path.join(os.path.dirname(__file__), "data", "panda_stick_push_first_touch.pt")
-N_TOUCH = 32
 SHIPPED = ("panda", "panda_pick", "boxer_push", "boxer_reach", "heijn_push", "heijn_reach",
            "point_robot", "multi_pointbot", "panda_effort", "panda_stick_push", "omni_panda_pick",
            "multi_jackal", "albert", "anymal")
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def build_emu(tmp_path_factory, *defines):
+    """The emulation library (with -D`defines`), or a skip without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ with C++20 to build the CPU emulation of the device code")
     out = str(tmp_path_factory.mktemp("emu") / "libfused_emu.so")
-    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", EMU,
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                           *[f"-D{d}" for d in defines], "-I", EMU,
                            "-o", out, os.path.join(EMU, "launch.cpp")],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(out)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if "ABLATE" in defines:
+        lib.emu_rollout_ablate.argtypes = [I] + [P] * 7 + [I, I, I, F, I, I, I]
+        lib.emu_world_step_ablate.argtypes = [I] + [P] * 6 + [I, I, F, I, I]
     lib.emu_rollout.argtypes = [P] * 7 + [I, I, I, F, I, I, I]
     lib.emu_world_step.argtypes = [P] * 6 + [I, I, F, I, I]
+    lib.emu_stack_high_water.restype = ctypes.c_long
+    lib.emu_lane_stack_size.restype = ctypes.c_long
     assert lib.emu_scene_tables_size() == ctypes.sizeof(fro._SceneTablesC)
     return lib
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    return build_emu(tmp_path_factory)
 
 
 def _bytes(tables):
@@ -226,50 +233,28 @@ def test_grasp_scene_kernels_match_plain(emu):
     torch.testing.assert_close(vis, vis_p, rtol=0.0, atol=VIS_ATOL)
 
 
-def _row_groups(ks, d):
-    """max |d| of a rows vector by chip_smoke.py's row groups."""
-    A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
-    root = d[: 13 * A].reshape(A, 13)
-    return dict(pose=max(root[:, :7].max().item(), d[13 * A:13 * A + D].max().item()),
-                vel=max(root[:, 7:].max().item(), d[13 * A + D:NS].max().item()),
-                lam=d[NS:].max().item())
+def test_lane_stacks_stay_small(emu):
+    """Every lane's stack stays well inside its size: the deepest path of the
+    device code (the mini-gripper's grasp: couple terms, Ψ, the sweeps and
+    the stiction snap) run once here, after whatever this file ran before,
+    and the deepest use of any lane since the stacks were painted at most a
+    quarter of a lane's stack (an overflow would fault on the guard page)."""
+    from mppiisaac_tpu_torch.physics.step import Engine
+    from mppiisaac_tpu_torch.scene.actor import ActorSpec
+    from mppiisaac_tpu_torch.scene.builder import build_scene
 
-
-def test_stick_first_touch_kernels_match_plain(emu):
-    """The stick's first touch of the block (STICK_TOUCH): K1 on the first
-    N_TOUCH samples of chip_smoke.py's hold controls and K2 over 5 world
-    steps with its hold targets, under STICK_BOUNDS["touching"] (K1 by the
-    first step and the median over samples, as chip_smoke.py holds it).
-    At this impact the plain version's own float32-vs-float64 drift is
-    about 14× the median bound on the CPU: the bounds hold the device code's
-    summation orders against the plain version's in the same float32
-    arithmetic (g++ contracts no multiply-add here)."""
-    cfg, w = world("panda_stick_push")
-    b = w.built
-    st = SimState(**torch.load(STICK_TOUCH))
-    bound = chip_smoke.STICK_BOUNDS["touching"]
-    fr = chip_smoke.rollout_for(cfg, PandaStickPushObjective(cfg), b, w.engine, K=N_TOUCH)
-    g = torch.Generator().manual_seed(chip_smoke.SEED)
-    V = chip_smoke.hold_controls("panda_stick_push", cfg, g,
-                                 (cfg.mppi.num_samples, cfg.mppi.horizon, fr.nu))[:N_TOUCH]
-    pm = ModelParams(torch.ones(N_TOUCH, b.scene.nbody), torch.ones(N_TOUCH, b.scene.ngeom))
-    inputs = fr.pack(broadcast_state(st, N_TOUCH), pm, V)
-    assert float(inputs[0][fr.ks.n_state_rows:].abs().max()) > 0.0, "no stick–block impulse"
-    (costs, vis), (costs_p, vis_p) = emu_rollout(emu, fr, *inputs), fr.plain(*inputs)
-    d = (costs - costs_p).abs()
-    assert d[:, 0].max() <= bound["k1_first"], d[:, 0].max()
-    assert d.max(1).values.median() <= bound["k1_median"], d.max(1).values.median()
-    dv = (vis - vis_p).abs().amax(2)
-    assert dv[0].max() <= VIS_ATOL and dv.amax(0).median() <= VIS_ATOL
-    fw = FusedWorldStep(b, w.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
-
-    def tgt():
-        u = chip_smoke.hold_controls("panda_stick_push", cfg, g, (fr.nu,))
-        return b.cmd_map.apply(u[None], st.q[None])[0]
-
-    rows, rows_p = emu_world_steps(emu, fw, b, st, tgt, 5)
-    for k, e in _row_groups(fw.ks, (rows - rows_p).abs()).items():
-        assert e <= bound[k], (k, e)
+    built = build_scene([
+        ActorSpec(type="robot", name="mini_gripper", fixed=True, gripper_binarize=True,
+                  init_pos=[0.0, 0.0, 0.5]),
+        ActorSpec(type="sphere", name="ball", size=[0.02], mass=0.005, init_pos=[0.0, 0.0, 0.53],
+                  friction=1.0)], SimConfig(dt=0.05, substeps=2))
+    engine = Engine(built.scene)
+    st = built.initial_state(engine, "cpu")
+    st = engine.refresh(st.replace(q=torch.full_like(st.q, 0.034)))
+    tgt = built.cmd_map.apply(torch.full((2,), -1.0), st.q)
+    emu_world_steps(emu, FusedWorldStep(built, engine), built, st, lambda: tgt, 1)
+    used, size = emu.emu_stack_high_water(), emu.emu_lane_stack_size()
+    assert size >= 256 * 1024 and 0 < used <= size // 4, (used, size)
 
 
 def emu_world_step_envs(lib, fw, rows, tgt, mass, fric):
