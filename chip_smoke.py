@@ -60,8 +60,9 @@ Phases (any failure exits non-zero before the result line):
  11. panda_stick_push (K=1000, H=12) for 200 steps, launch counters checked:
      fails unless a stick–block λ row carried an impulse, and prints ‖block −
      goal‖ at the start and the end; K1 and K2 against their plain versions
-     from the initial state and the first touching state (STICK_BOUNDS; at
-     the touching state a K1 bound is 10× the plain K1's own
+     from the initial state, the first touching state of seed 1's episode
+     (STICK_TOUCH_SEED1) and the loop's first touching state (STICK_BOUNDS;
+     at a touching state a K1 bound is 10× the plain K1's own
      float32-vs-float64 drift there where that is larger: touch_bounds);
  12. omni_panda_pick (K=750, H=6, 8 sweeps in K1, effort drives with the
      finger motor) for 150 steps, launch counters checked: fails on a
@@ -156,10 +157,12 @@ Phases (any failure exits non-zero before the result line):
  17f. the bench twin (`python -m mppiisaac_tpu_torch.bench`: pick K=1000,
      H=30, world fidelity, 1 sweep; its JSON line is printed on an earlier
      line) with its K1 launches counted, then its K1 on a command's inputs
-     against the plain version on the first BENCH_PLAIN_SAMPLES samples, by
+     against the plain version on the first BENCH_PLAIN_SAMPLES samples
+     (run on the host CPU beside the card's phases 18: PLAIN_WORKERS), by
      the largest difference, the first step's and the median over samples,
-     each within 10× that plain version's own float32-vs-float64 drift in
-     the same measure;
+     each within BENCH_BOUNDS: 10× that plain version's own
+     float32-vs-float64 drift in the same measure, measured on these inputs
+     (`scripts/profile_torch_step.py --task bench --drift -`);
  18. time K1 and K2 on the reach, pick, boxer_push, panda_stick_push,
      omni_panda_pick, multi_jackal, albert, anymal, fast-pick and box-pair
      paths against their plain versions (CUDA events). To keep the run
@@ -167,7 +170,9 @@ Phases (any failure exits non-zero before the result line):
      samples of the same packed inputs (samples are independent: the
      kernel's first costs are held against them); each path's plain K1 runs
      once over its hold states' samples side by side, and its plain K2
-     steps those states as one batch (hold_k1s, hold_k2s); and the plain
+     steps those states as one batch (hold_k1s, hold_k2s); the plain K1 of
+     phases 12-16 runs on the host CPU's workers beside the card's next
+     phases, and its holds close here, before the timing; and the plain
      versions of every path but reach are timed once, in their holds
      (Python loops of small torch ops, seconds each); each path's phases
      print their seconds. The earlier paths keep their depth. Each kernel
@@ -214,15 +219,17 @@ Phases (any failure exits non-zero before the result line):
  20. the kernels' profiling ablations (ops/native.py ABLATE, csrc AB_*):
  20a. the ablation library's nvcc seconds and registers (one nvcc run for
      every mask) and the section build's;
- 20b. at phase 6's held grasp, ABLATE_K samples at H=ABLATE_H: K1 nocost,
-     nocontact, fkonly and oneway (two_way_sweeps=False), and K2 oneway over
-     ABLATE_K2_STEPS world steps, against their ablated plain versions, each
-     measure within 10× that plain version's own float32-vs-float64 drift
-     there (floor 1e-6), the costs and, under zero_cost (nocost, fkonly),
-     vis (the sum of the actors' root positions); fkonly from the grasp with
-     every root given a seeded velocity, and its vis shown to move from the
-     input's; K1 and K2 with the broadphase gate off bit for bit the
-     default kernels;
+ 20b. at phase 6's held grasp (committed as HELD_GRASP), ABLATE_K samples
+     at H=ABLATE_H: K1 nocost, nocontact, fkonly, oneway
+     (two_way_sweeps=False) and nogate, and K2 oneway and nogate over
+     ABLATE_K2_STEPS world steps, against their ablated plain versions (run
+     on the host CPU from the start of the run: ablation_plain), each
+     measure within ABLATE_BOUNDS (10× that plain version's own
+     float32-vs-float64 drift there, floor 1e-6), the costs and, under
+     zero_cost (nocost, fkonly), vis (the sum of the actors' root
+     positions); fkonly from the grasp with every root given a seeded
+     velocity, and its vis shown to move from the input's; K1 and K2 with
+     the broadphase gate off bit for bit the default kernels;
  20c. the ablation profiler (`python -m mppiisaac_tpu_torch.profile_kernel`:
      the bench twin's pick at K=1000, H=30) with the launch counts zeroed
      before it and read after it, every ablated kernel launched there, its
@@ -230,6 +237,18 @@ Phases (any failure exits non-zero before the result line):
      on the same inputs, with the card's name and power limit. Each ablated
      kernel is a kernel entry of its own (its time the profiler's, its
      error and plain time those of 20b).
+ 21. multi_jackal's recorded control steps (JACKAL_RECORDS: seed 42's
+     initial state and states along seeds 0-4's episodes on the card,
+     stalls among them): from each record's carry and world state the
+     card's command (K1 at K=300, H=12) and from its state and action K2,
+     launch counters zeroed before and read after, held against the JAX
+     package's outputs stored beside the record (its Pallas K1 and K2 in
+     interpret mode on the CPU, scripts/jackal_commands_jax.py): the
+     rollout's costs (largest, first step's, median over samples), S, the
+     new U, the action and the state after K2 by row group, each within 10×
+     the port plain's own rounding at that record: the larger of its
+     float32-vs-float64 drift and its envelope under one float32 rounding of
+     the state.
 Each kernel's bound — the least time the card could take for the same work —
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s; the operations are
@@ -237,8 +256,9 @@ counted on the plain version's first substep from the same inputs (one per
 element of each arithmetic op, 2mnk per matrix product; the work of contact
 blocks scaled by the share of (sample, block) pairs whose gate is on, which
 is what the kernel computes), times the substeps and steps.
-Prints the card's name and power limit, one JSON line describing the
-kernels on each path, and as its last line `{"ok": true, "device": {...}}`.
+Prints the whole run's seconds, the card's name and power limit, one JSON
+line describing the kernels on each path, and as its last line
+`{"ok": true, "device": {...}}`.
 """
 import dataclasses
 import json
@@ -637,6 +657,48 @@ class Timer:
         self.ms = self.a.elapsed_time(self.b)
 
 
+# the plain versions of phases 17f, 20b and the K1 holds of 12-16 run on the
+# card's host CPU, in worker processes that overlap the card's phases (the
+# card's machine has 8 cores; a plain version is launch-bound on the card:
+# 20b's nocost K1 on 8 samples at H=12 took 24.5 s there and takes 6.5-9.9 s
+# on the host's CPU)
+PLAIN_WORKERS, PLAIN_THREADS = 2, 2
+
+
+def _plain_worker_init(root, threads):
+    sys.path.insert(0, root)
+    torch.set_num_threads(threads)
+
+
+def plain_pool(root):
+    """The host CPU's worker processes for plain versions (spawned: they
+    import torch and the port afresh, and touch no CUDA)."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_plain_worker_init, initargs=(root, PLAIN_THREADS))
+
+
+def stop_pool(pool):
+    """Stop the workers whatever they are doing."""
+    procs = list(getattr(pool, "_processes", {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    for p in procs:
+        p.join(timeout=10)
+
+
+def timed_plain(fn, *args, **kw):
+    """fn(*args, **kw) on the host CPU → (its output, its ms)."""
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def hold_k2s(fw, cases, n):
     """K2 against its plain version over n world steps from each case's
     state: cases [(name, s0, tgt_of, bound)]. The kernel steps each state on
@@ -687,7 +749,7 @@ def hold_k2s(fw, cases, n):
     return out
 
 
-def hold_k1s(fr, cases, n_plain=None):
+def hold_k1s(fr, cases, n_plain=None, pool=None):
     """K1 against its plain version from each case's inputs: cases [(name,
     k1_in, bound)]. The kernel runs on each case's packed inputs (the main
     path's shapes); the plain version runs once, on the cases' samples side
@@ -695,7 +757,9 @@ def hold_k1s(fr, cases, n_plain=None):
     and each case's kernel samples are held against theirs: max, first-step
     and median-over-samples cost differences, checked against the k1_*
     entries of its bound. → {name: errors, with "plain_ms" the one plain
-    call's}."""
+    call's}; with a `pool`, the plain version runs on the host CPU's
+    workers and the holds when the returned function is called (→ the
+    same)."""
     from mppiisaac_tpu_torch.ops.fused_rollout import rollout_plain
 
     outs = [fr.run(*k1_in) for _, k1_in, _ in cases]
@@ -703,10 +767,22 @@ def hold_k1s(fr, cases, n_plain=None):
     n = n_plain or fr.K
     cat = [torch.cat([k1_in[i][..., :n] for _, k1_in, _ in cases], -1).contiguous()
            for i in range(4)]
+    args = (fr.H, fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps, fr.world_fidelity)
+    if pool is not None:
+        host = [x.cpu() for x in cat]
+        plain = pool.submit(timed_plain, rollout_plain, fr.ks, host[0], host[1].float(),
+                            host[2], host[3], *args)
+        outs = [(c[:n].cpu(), v[:, :n].cpu()) for c, v in outs]
+        return lambda: _k1_checks(cases, outs, *plain.result(), n, " on the host CPU")
     with Timer() as t:
-        cp_all, vp_all = rollout_plain(fr.ks, cat[0], cat[1].float(), cat[2], cat[3], fr.H,
-                                       fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps,
-                                       fr.world_fidelity)
+        out = rollout_plain(fr.ks, cat[0], cat[1].float(), cat[2], cat[3], *args)
+    return _k1_checks(cases, outs, out, t.ms, n, "")
+
+
+def _k1_checks(cases, outs, plain, ms, n, where):
+    """hold_k1s' holds of each case's kernel outputs against its samples of
+    the plain version's `plain` (costs, vis) → {name: errors}."""
+    cp_all, vp_all = plain
     errs = {}
     for j, ((name, _, bound), (c, v)) in enumerate(zip(cases, outs)):
         c, v = c[:n], v[:, :n]
@@ -715,7 +791,7 @@ def hold_k1s(fr, cases, n_plain=None):
             fail(f"{name}: K1 costs are not finite")
         d = (c.double() - cp.double()).abs()
         err = dict(max=d.max().item(), first=d[:, 0].max().item(),
-                   median=d.max(1).values.median().item(), plain_ms=t.ms)
+                   median=d.max(1).values.median().item(), plain_ms=ms)
         checks = [(k, err[k[3:]], b) for k, b in bound.items() if k.startswith("k1_")]
         print(f"  {name}: K1 costs {tuple(c.shape)} max|d| {err['max']:.3e}, first step "
               f"{err['first']:.3e}, median over samples {err['median']:.3e} (bounds "
@@ -736,7 +812,8 @@ def hold_k1s(fr, cases, n_plain=None):
               flush=True)
         if not bool(torch.isfinite(v).all()) or max(vis_first, vis_median) > VIS_ATOL:
             fail(f"{name}: vis disagrees with its plain version")
-    print(f"    the plain K1 ran once on {len(cases)} × {n} samples: {t.ms / 1e3:.1f} s", flush=True)
+    print(f"    the plain K1 ran once on {len(cases)} × {n} samples{where}: {ms / 1e3:.1f} s",
+          flush=True)
     return errs
 
 
@@ -1059,12 +1136,13 @@ def describe(fr, fw=None, n_plain=None):
           flush=True)
 
 
-def hold_states(key, cfg, obj, dev, root, named, bounds, n_plain=None):
+def hold_states(key, cfg, obj, dev, root, named, bounds, n_plain=None, pool=None):
     """K1 and K2 of the scene of `cfg` against their plain versions, with the
     hold controls of `key`, from each (name, state) of `named` (None: the
     conf's initial state); the states are first saved to
     chiprun_out/<key>_states.pt. → (fr, fw, the last state's K1 and K2
-    inputs, {state: (K1 errors, K2 error, K2 plain ms)})."""
+    inputs, {state: (K1 errors, K2 error, K2 plain ms)}); with a `pool`
+    (hold_k1s) the last is a function that holds K1 and returns it."""
     from mppiisaac_tpu_torch.ops.fused_rollout import FusedWorldStep
     from mppiisaac_tpu_torch.physics.types import ModelParams
     from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
@@ -1094,10 +1172,13 @@ def hold_states(key, cfg, obj, dev, root, named, bounds, n_plain=None):
             return b.cmd_map.apply(u[None], s0.q[None])[0].contiguous()
 
         k2_cases.append((f"{key} {name}", s0, tgt_of, bounds[name]))
-    e1s, e2s = hold_k1s(fr, k1_cases, n_plain), hold_k2s(fw, k2_cases, 5)
-    errs = {name: (e1s[f"{key} {name}"], *e2s[f"{key} {name}"][::2]) for name in states}
+    e1s, e2s = hold_k1s(fr, k1_cases, n_plain, pool), hold_k2s(fw, k2_cases, 5)
+
+    def errs_of(e1s):
+        return {name: (e1s[f"{key} {name}"], *e2s[f"{key} {name}"][::2]) for name in states}
+
     k2_in = e2s[k2_cases[-1][0]][1]
-    return fr, fw, k1_in, k2_in, errs
+    return fr, fw, k1_in, k2_in, (lambda: errs_of(e1s())) if callable(e1s) else errs_of(e1s)
 
 
 def point_paths(dev, root):
@@ -1155,6 +1236,11 @@ def point_paths(dev, root):
         print(f"    holds: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 11's second first touch: the stick's first touching state of seed 1's
+# episode on the card (`validate.py one panda_stick_push mppi.seed_val=1
+# record=`, `scripts/profile_torch_step.py --first-touch`), held as the
+# loop's own first touch is (touch_bounds)
+STICK_TOUCH_SEED1 = "tests/data/panda_stick_push_first_touch_seed1.pt"
 # phases 10-12: (task, loop steps, the JAX package's result there, the second
 # hold state, its bounds)
 ARM_PATHS = {
@@ -1179,7 +1265,7 @@ def pair_rows(scene, tables, actor_a, actor_b, dev):
                             for r in b["rows"]], device=dev)
 
 
-def arm_path(task, dev, root):
+def arm_path(task, dev, root, pool):
     """Phases 10-12: one loop of `task` with its launch counters, then K1 and
     K2 against their plain versions from two states. → its timed path."""
     from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
@@ -1248,16 +1334,26 @@ def arm_path(task, dev, root):
               f"{float((block1 - block0).norm()):.4f} m", flush=True)
         if "touching" not in seen:
             fail("the stick never touched the block (no stick–block λ row carried an impulse)")
-        bounds = dict(bounds, touching=touch_bounds(task, cfg, obj, dev, seen["touching"],
-                                                    bounds["touching"]))
+        # the first touch of another episode (seed 1), recorded on the card
+        from mppiisaac_tpu_torch.physics.types import SimState
+
+        seen["touching seed 1"] = SimState(**torch.load(os.path.join(root, STICK_TOUCH_SEED1)))\
+            .map(lambda x: x[None].to(dev))
+        bounds = dict(bounds, **{k: touch_bounds(task, cfg, obj, dev, seen[k], bounds["touching"])
+                                 for k in ("touching", "touching seed 1")})
     if task == "omni_panda_pick":
         print(f"    the finger dofs moved by up to {seen['finger_move']:.4f} m", flush=True)
         if seen["finger_move"] < 1e-3:
             fail("omni_panda_pick's finger dofs never moved")
 
     # (a loop that ends before step 20 holds its last state instead)
-    return held_path(task, cfg, obj, dev, root,
-                     [("initial", None), (second, seen.get(second, seen["last"]))], bounds, n1, n2)
+    named = [("initial", None), (second, seen.get(second, seen["last"]))]
+    if "touching seed 1" in seen:
+        named.insert(1, ("touching seed 1", seen["touching seed 1"]))
+    # the touching states' bounds are the card's own drift there (touch_bounds),
+    # so the stick's holds stay against the card's plain version
+    return held_path(task, cfg, obj, dev, root, named, bounds, n1, n2,
+                     pool if task == "omni_panda_pick" else None)
 
 
 def touch_bounds(key, cfg, obj, dev, st, bound):
@@ -1295,24 +1391,35 @@ def touch_bounds(key, cfg, obj, dev, st, bound):
     return out
 
 
-def held_path(key, cfg, obj, dev, root, named, bounds, n1, n2):
-    """The holds of a loop's path from its two named states (hold_states,
-    the plain K1 on PLAIN_K1_SAMPLES samples) → its timed path: the first
-    state's errors as max_abs_err, the second's beside them."""
+def held_path(key, cfg, obj, dev, root, named, bounds, n1, n2, pool=None):
+    """The holds of a loop's path from its named states (hold_states, the
+    plain K1 on PLAIN_K1_SAMPLES samples; the last state's inputs are the
+    timed ones) → its timed path: the first state's errors as max_abs_err,
+    the others' beside them. With a `pool` the K1 holds wait for phase 18
+    (the record's "finish")."""
     t0 = time.perf_counter()
     fr, fw, k1_in, k2_in, errs = hold_states(key, cfg, obj, dev, root, named, bounds,
-                                             n_plain=PLAIN_K1_SAMPLES)
+                                             n_plain=PLAIN_K1_SAMPLES, pool=pool)
     print(f"    holds: {time.perf_counter() - t0:.1f} s", flush=True)
-    first, second = (name for name, _ in named)
-    tag = second.replace(" ", "_")
-    e1, e2, k2_plain = errs[second]
-    return timed_path(key, fr, fw, k1_in, k2_in, n1, n2, errs[first][0]["max"],
-                      errs[first][1], plain=(e1["plain_ms"], k2_plain),
-                      k1_extra={f"{tag}_first_step_max_abs_err": e1["first"],
-                                f"{tag}_median_max_abs_err": e1["median"],
-                                f"{tag}_max_abs_err": e1["max"],
-                                "plain_samples": PLAIN_K1_SAMPLES},
-                      k2_extra={f"{tag}_max_abs_err": e2})
+
+    def finish(errs):
+        first = named[0][0]
+        k1_extra, k2_extra = {"plain_samples": PLAIN_K1_SAMPLES}, {}
+        for name, _ in named[1:]:
+            tag = name.replace(" ", "_")
+            e1, e2, _ = errs[name]
+            k1_extra.update({f"{tag}_first_step_max_abs_err": e1["first"],
+                             f"{tag}_median_max_abs_err": e1["median"],
+                             f"{tag}_max_abs_err": e1["max"]})
+            k2_extra[f"{tag}_max_abs_err"] = e2
+        last = errs[named[-1][0]]
+        return dict(e1=errs[first][0]["max"], e2=errs[first][1],
+                    plain=(last[0]["plain_ms"], last[2]), k1_extra=k1_extra, k2_extra=k2_extra)
+
+    if callable(errs):
+        return dict(timed_path(key, fr, fw, k1_in, k2_in, n1, n2, None, None),
+                    finish=lambda: finish(errs()))
+    return timed_path(key, fr, fw, k1_in, k2_in, n1, n2, **finish(errs))
 
 
 # phases 13-14: (phase, the JAX package's success step, the loop's steps).
@@ -1391,7 +1498,7 @@ def jackal_rate(cfg, obj, succ, dev, n_steps):
              f"{n_steps} steps, fewer than {JACKAL_MIN_RATE}")
 
 
-def mesh_path(task, dev, root):
+def mesh_path(task, dev, root, pool):
     """Phases 13-14: the multi_jackal or albert loop to its goal, then K1
     and K2 against their plain versions from the initial state and the
     state in motion. → its timed path."""
@@ -1438,10 +1545,10 @@ def mesh_path(task, dev, root):
         fail(f"{task} did not reach its goal within {n_steps} steps")
     return held_path(task, cfg, obj, dev, root,
                      [("initial", None), ("in motion", seen.get("in motion", seen["last"]))],
-                     MESH_BOUNDS[task], n1, n2)
+                     MESH_BOUNDS[task], n1, n2, pool)
 
 
-def anymal_path(dev, root):
+def anymal_path(dev, root, pool):
     """Phase 15: anymal with the gait tape prior, then without it at seed 0,
     each for ANYMAL_STEPS steps; then the holds from the prior run's landed
     and last states. → its timed path."""
@@ -1482,10 +1589,10 @@ def anymal_path(dev, root):
     seen = kept["seen"]
     return held_path("anymal", kept["cfg"], kept["obj"], dev, root,
                      [("landed", seen.get("landed", seen["last"])), ("last", seen["last"])],
-                     ANYMAL_BOUNDS, kept["n1"], kept["n2"])
+                     ANYMAL_BOUNDS, kept["n1"], kept["n2"], pool)
 
 
-def fast_pick_path(dev, root, pick):
+def fast_pick_path(dev, root, pick, pool):
     """Phase 16: panda_pick at fast fidelity with the reduced manifold for
     FAST_PICK_STEPS loop steps, then K1 against its plain version from
     phase 6's settled block and held grasp. → its timed path (K2 is the pick
@@ -1516,15 +1623,20 @@ def fast_pick_path(dev, root, pick):
         V = hold_controls("panda_pick_fast", cfg, g, (K, H, fr.nu)).to(dev)
         k1_in = fr.pack(broadcast_state(s0, K), params_K, V)
         cases.append((name, k1_in, FAST_PICK_BOUNDS[name]))
-    errs = hold_k1s(fr, cases, PLAIN_K1_SAMPLES)
+    errs = hold_k1s(fr, cases, PLAIN_K1_SAMPLES, pool)
     print(f"    holds: {time.perf_counter() - t0:.1f} s", flush=True)
-    e1 = errs["held grasp"]
-    return timed_path("panda_pick_fast", fr, pick["fw"], k1_in, pick["k2_in"], n1, n2,
-                      errs["settled block"]["max"], pick["k2_err"], plain=(e1["plain_ms"], pick["k2_plain"]),
-                      k1_extra={"held_grasp_first_step_max_abs_err": e1["first"],
-                                "held_grasp_median_max_abs_err": e1["median"],
-                                "held_grasp_max_abs_err": e1["max"],
-                                "plain_samples": PLAIN_K1_SAMPLES})
+
+    def finish(errs):
+        e1 = errs["held grasp"]
+        return dict(e1=errs["settled block"]["max"], e2=pick["k2_err"],
+                    plain=(e1["plain_ms"], pick["k2_plain"]),
+                    k1_extra={"held_grasp_first_step_max_abs_err": e1["first"],
+                              "held_grasp_median_max_abs_err": e1["median"],
+                              "held_grasp_max_abs_err": e1["max"],
+                              "plain_samples": PLAIN_K1_SAMPLES})
+
+    return dict(timed_path("panda_pick_fast", fr, pick["fw"], k1_in, pick["k2_in"], n1, n2,
+                           None, None), finish=lambda: finish(errs()))
 
 
 class BoxPairObjective:
@@ -2211,31 +2323,43 @@ def batched_paths(dev):
 
 
 BENCH_PLAIN_SAMPLES = 32     # phase 17f: the plain K1 at H=30 on this many samples
+# 17f's bounds: 10× that plain K1's own float32-vs-float64 drift on its
+# inputs in each measure, the smaller of the CPU's
+# (`scripts/profile_torch_step.py --task bench --drift -`) and the card's
+# (as this phase computed it at run time before; NVIDIA H100 80GB HBM3, 700 W)
+BENCH_BOUNDS = dict(max=6.69, first=1.37e-4, median=0.236)
 
 
-def three_measures(d, dd):
+MEASURES = {"max": lambda x: x.max(), "first": lambda x: x[:, 0].max(),
+            "median": lambda x: x.max(1).values.median()}
+
+
+def drift_bounds(dd):
+    """10× a plain version's own float32-vs-float64 drift dd (samples,
+    steps) in each measure of three_measures (floor 1e-6)."""
+    return {k: max(10 * f(dd).item(), 1e-6) for k, f in MEASURES.items()}
+
+
+def three_measures(d, bounds):
     """A (samples, steps) difference d held as the paths are: its largest,
     the first step's, and the median over samples of each sample's largest,
-    each within 10x the plain version's own float32-vs-float64 drift dd in
-    the same measure (floor 1e-6). → (errs, all within, printed line)."""
-    errs, bounds = {}, {}
-    for k, f in (("max", lambda x: x.max()), ("first", lambda x: x[:, 0].max()),
-                 ("median", lambda x: x.max(1).values.median())):
-        errs[k], bounds[k] = f(d).item(), max(10 * f(dd).item(), 1e-6)
+    each within its bound (10× the plain version's own float32-vs-float64
+    drift in the same measure, floor 1e-6: drift_bounds, or those of a
+    table). → (errs, all within, printed line)."""
+    errs = {k: f(d).item() for k, f in MEASURES.items()}
     line = ", ".join(f"{k} {errs[k]:.3e} (bound {bounds[k]:.3g}: 10x drift {bounds[k] / 10:.3g})"
                      for k in errs)
     return errs, all(errs[k] <= bounds[k] for k in errs), line
 
 
-def bench_path(dev):
+def bench_path(dev, pool):
     """Phase 17f: the bench twin (`python -m mppiisaac_tpu_torch.bench`, its
     defaults: pick K=1000, H=30) with its K1 launches counted (warm-up batch
     and command, ITERS batches of CHUNK, the latency calls), then K1 on a
     command's inputs of its rollout (the initial state, V drawn as the
-    solver draws it) against the plain version on BENCH_PLAIN_SAMPLES
-    samples, by the largest difference, the first step's and the median over
-    samples, each within 10× that plain version's own float32-vs-float64
-    drift in the same measure (floor 1e-6). → the timed path (phase 18)."""
+    solver draws it), whose plain version on the first BENCH_PLAIN_SAMPLES
+    samples goes to the host CPU's workers (bench_hold holds them). → the
+    timed path (phase 18)."""
     from mppiisaac_tpu_torch import bench
     from mppiisaac_tpu_torch.ops.fused_rollout import rollout_plain
 
@@ -2257,26 +2381,31 @@ def bench_path(dev):
     k1_in = fr.pack(planner.sim.state, planner._params_K, V)
     costs, vis = fr.run(*k1_in)
     n = BENCH_PLAIN_SAMPLES
-    part = [x[..., :n].contiguous() for x in k1_in]
-    plain, ms = {}, {}
-    for dt in (torch.float32, torch.float64):
-        with Timer() as t:
-            plain[dt] = rollout_plain(fr.ks, part[0].to(dt), part[1].to(dt), part[2].to(dt),
-                                      part[3].to(dt), fr.H, fr.substeps, fr.dt_sub, fr.vis_body,
-                                      fr.impulse_sweeps, fr.world_fidelity)
-        ms[dt] = t.ms
-    plain_ms = ms[torch.float32]
-    errs, held, line = three_measures(
-        (costs[:n].double() - plain[torch.float32][0].double()).abs(),
-        (plain[torch.float32][0].double() - plain[torch.float64][0]).abs())
-    err = errs["max"]
-    print(f"  bench K1 (K={fr.K}, H={fr.H}) costs of the first {n} samples against the plain "
-          f"version: {line}; the plain K1 on {n} samples {plain_ms / 1e3:.1f} s; phase 17f "
+    part = [x[..., :n].contiguous().cpu() for x in k1_in]
+    plain = pool.submit(timed_plain, rollout_plain, fr.ks, part[0], part[1].float(), part[2],
+                        part[3], fr.H, fr.substeps, fr.dt_sub, fr.vis_body, fr.impulse_sweeps,
+                        fr.world_fidelity)
+    print(f"    its plain K1 on {n} samples goes to the host CPU; phase 17f "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if not bool(torch.isfinite(costs).all()) or not held:
+    return dict(fr=fr, k1_in=k1_in, n1=n1, rec=rec, costs=costs[:n].cpu(), vis=vis[:, :n].cpu(),
+                plain=plain)
+
+
+def bench_hold(run):
+    """17f's hold, once the host CPU's plain version is back: the bench's
+    K1 costs against it by the largest difference, the first step's and the
+    median over samples, within BENCH_BOUNDS; vis within VIS_ATOL."""
+    t0 = time.perf_counter()
+    (cp, vp), ms = run["plain"].result()
+    fr, n = run["fr"], BENCH_PLAIN_SAMPLES
+    errs, held, line = three_measures((run["costs"].double() - cp.double()).abs(), BENCH_BOUNDS)
+    print(f"  bench K1 (K={fr.K}, H={fr.H}) costs of the first {n} samples against the plain "
+          f"version: {line}; the plain K1 on {n} samples {ms / 1e3:.1f} s on the host CPU "
+          f"(waited {time.perf_counter() - t0:.1f} s for it)", flush=True)
+    if not bool(torch.isfinite(run["costs"]).all()) or not held:
         fail("bench twin: K1 disagrees with its plain version")
-    within("bench vis", vis[:, :n], plain[torch.float32][1], VIS_ATOL, 0.0)
-    return dict(fr=fr, k1_in=k1_in, n1=n1, err=err, errs=errs, plain_ms=plain_ms, rec=rec)
+    within("bench vis", run["vis"], vp, VIS_ATOL, 0.0)
+    run.update(err=errs["max"], errs=errs, plain_ms=ms)
 
 
 # ---------------------------------------------------------------------------
@@ -2674,6 +2803,27 @@ def phase19(dev, root, reach_entry, demo):
 
 ABLATE_K, ABLATE_H = 8, 12      # 20b: the holds' samples and steps at the held grasp
 ABLATE_K2_STEPS = 5
+# 20b's state: phase 6's held grasp (pick's success step at seed 0), as
+# chip_smoke.py saves it to chiprun_out/panda_pick_states.pt on the card
+HELD_GRASP = "tests/data/panda_pick_held_grasp.pt"
+# 20b's bounds by mask: 10× each ablated plain version's own
+# float32-vs-float64 drift at the held grasp in each measure (floor 1e-6),
+# each the smaller of two measurements of it: on the CPU
+# (`scripts/profile_torch_step.py --task ablations --drift -`) and on the
+# card at the same state and inputs (the bounds this phase computed at run
+# time before its plain versions moved to the host CPU; NVIDIA H100 80GB
+# HBM3, 700 W)
+ABLATE_BOUNDS = {
+    4: dict(k1=dict(max=2.99e-4, first=1e-6, median=1.68e-6),           # nocost
+            vis=dict(max=0.521, first=1.06e-5, median=2.4e-3)),
+    1: dict(k1=dict(max=6.36e-3, first=1.14e-4, median=4.71e-3)),       # nocontact
+    7: dict(k1=dict(max=1e-6, first=1e-6, median=1e-6),                 # fkonly
+            vis=dict(max=1.97e-5, first=2.5e-6, median=1.39e-5)),
+    8: dict(k1=dict(max=5.8, first=2.09e-4, median=0.033),              # oneway
+            k2=dict(pose=2.48e-5, vel=2.83e-3, lam=1e-6)),
+    16: dict(k1=dict(max=11.4, first=2.07e-4, median=0.0537),           # nogate
+             k2=dict(pose=3.18e-4, vel=3.61e-2, lam=1.22e-6)),
+}
 ABLATED = {4: ("nocost", {"zero_cost": True}), 1: ("nocontact", {"skip_contacts": True}),
            7: ("fkonly", {"skip_contacts": True, "skip_dynamics": True, "zero_cost": True}),
            8: ("oneway", {"two_way_sweeps": False}), 16: ("nogate", {"broadphase_gate": False})}
@@ -2710,55 +2860,108 @@ def join_build(th):
     return th.res["r"]
 
 
-def ablation_holds(dev, pick):
-    """20b: each ablated K1 (nocost, nocontact, fkonly, oneway) at the held
-    grasp of phase 6 on ABLATE_K samples at H=ABLATE_H, and the oneway K2 over
-    ABLATE_K2_STEPS world steps, against their ablated plain versions, each
-    measure within 10× that plain version's own float32-vs-float64 drift
-    there (floor 1e-6): the costs, and under zero_cost also vis (the sum of
-    the roots). fkonly keeps every dof, so it starts with every root given a
-    seeded velocity and its vis must move. The gate off (nogate) bit for bit
-    the default kernels, K1 and K2. → {mask: (K1 or K2 errors, plain ms)}
-    by kernel."""
-    from mppiisaac_tpu_torch.ops.fused_rollout import (FusedRollout, FusedWorldStep,
-                                                       rollout_plain, world_step_plain)
-    from mppiisaac_tpu_torch.physics.types import ModelParams
+def ablation_inputs():
+    """20b's inputs, on the CPU, from the held grasp in HELD_GRASP: the
+    default K1 inputs (ABLATE_K samples of controls uniform in ±0.3 at
+    H=ABLATE_H), fkonly's (every root given a seeded velocity), K2's rows
+    and its ABLATE_K2_STEPS targets (around the grasp's q, the fingers'
+    targets kept). → dict."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+    from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
     from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
     from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
     from mppiisaac_tpu_torch.utils.config_store import load_config
 
-    held = pick["states"]["held grasp"]
+    held = SimState(**torch.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                              HELD_GRASP)))
     pcfg = load_config("tasks/panda_pick")
-    world = Simulation(pcfg.isaacgym, pcfg.actors, pcfg.initial_actor_positions, device=dev)
+    world = Simulation(pcfg.isaacgym, pcfg.actors, pcfg.initial_actor_positions, device="cpu")
     pb, engine = world.built, world.engine
     cost = PandaPickObjective(pcfg).kernel_cost(pb)
     g = torch.Generator().manual_seed(SEED)
-    V = (torch.rand(ABLATE_K, ABLATE_H, pb.cmd_map.nu, generator=g) * 0.6 - 0.3).to(dev)
-    pm = ModelParams(torch.ones(ABLATE_K, pb.scene.nbody, device=dev),
-                     torch.ones(ABLATE_K, pb.scene.ngeom, device=dev))
+    V = torch.rand(ABLATE_K, ABLATE_H, pb.cmd_map.nu, generator=g) * 0.6 - 0.3
+    pm = ModelParams(torch.ones(ABLATE_K, pb.scene.nbody), torch.ones(ABLATE_K, pb.scene.ngeom))
 
     def rollout(profile):
         return FusedRollout(pb, engine, cost, ABLATE_H, ABLATE_K, vis_body=pb.visualize_bodies[0],
                             impulse_sweeps=pcfg.mppi.rollout_sweeps, profile=profile)
 
-    base = rollout(None)
-    k1_in = base.pack(broadcast_state(held, ABLATE_K), pm, V)
+    k1_in = rollout(None).pack(broadcast_state(held, ABLATE_K), pm, V)
+    # fkonly keeps every dof, so of what it computes only the roots' drift
+    # reaches its output (vis, the sum of the roots): every root gets a
+    # seeded velocity
+    rows = k1_in[0].clone()
+    A = pb.scene.nactor
+    lin = rows[: 13 * A].view(A, 13, -1)[:, 7:10]
+    lin.copy_(torch.rand(lin.shape, generator=torch.Generator().manual_seed(SEED + 7)) - 0.5)
+    tgts = []
+    for _ in range(ABLATE_K2_STEPS):
+        t_ = held.q + (torch.rand(pb.scene.ndof, generator=g) * 0.4 - 0.2)
+        t_[7:9] = held.dof_target[7:9]
+        tgts.append(t_.contiguous())
+    sweeps = pcfg.isaacgym.fused_world_sweeps
+    rows0 = FusedWorldStep(pb, engine, impulse_sweeps=sweeps).pack(held).contiguous()
+    return dict(pb=pb, engine=engine, sweeps=sweeps, rollout=rollout, k1_in=k1_in,
+                fk_in=(rows,) + tuple(k1_in[1:]), tgts=tgts, rows0=rows0)
+
+
+def ablation_plain(dtype=torch.float32):
+    """20b's ablated plain versions on the host CPU in dtype (the workers
+    run float32; `scripts/profile_torch_step.py --drift HELD_GRASP
+    --ablations` both, for ABLATE_BOUNDS). → {"k1": {mask: ((costs, vis),
+    ms)}, "k2": {mask: (rows after ABLATE_K2_STEPS steps, ms per step)}}."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import (FusedWorldStep, rollout_plain,
+                                                       world_step_plain)
+
+    inp = ablation_inputs()
+    out = {"k1": {}, "k2": {}}
+    for mask in (4, 1, 7, 8, 16):
+        fr = inp["rollout"](ABLATED[mask][1])
+        x = inp["fk_in"] if mask == 7 else inp["k1_in"]
+        out["k1"][mask] = timed_plain(
+            rollout_plain, fr.ks, *(t.to(dtype) for t in x), fr.H, fr.substeps, fr.dt_sub,
+            fr.vis_body, fr.impulse_sweeps, fr.world_fidelity, **fr.profile)
+    for mask in (8, 16):
+        fw = FusedWorldStep(inp["pb"], inp["engine"], impulse_sweeps=inp["sweeps"],
+                            profile=ABLATED[mask][1])
+        ks = fw.ks
+        r, ms = inp["rows0"].to(dtype), 0.0
+        for t_ in inp["tgts"]:
+            r, t = timed_plain(world_step_plain, ks, r, t_.to(dtype),
+                               torch.ones(ks.nbody, dtype=dtype), torch.ones(ks.ngeom, dtype=dtype),
+                               fw.substeps, fw.dt_sub, fw.impulse_sweeps, **fw.profile)
+            ms += t / len(inp["tgts"])
+        out["k2"][mask] = (r, ms)
+    return out
+
+
+def ablation_holds(dev, plain):
+    """20b: each ablated K1 (nocost, nocontact, fkonly, oneway, nogate) at
+    the held grasp (ablation_inputs) on ABLATE_K samples at H=ABLATE_H, and
+    the oneway and nogate K2 over ABLATE_K2_STEPS world steps, against their
+    ablated plain versions (`plain`: ablation_plain's future, from the host
+    CPU), each measure within ABLATE_BOUNDS (10× that plain version's own
+    float32-vs-float64 drift there, floor 1e-6): the costs, and under
+    zero_cost also vis (the sum of the roots). fkonly starts with every root
+    given a seeded velocity and its vis must move. The gate off (nogate) bit
+    for bit the default kernels, K1 and K2. → {mask: (K1 or K2 errors,
+    plain ms)} by kernel."""
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedWorldStep
+
+    inp = ablation_inputs()
+    base = inp["rollout"](None)
+    k1_in = tuple(x.to(dev) for x in inp["k1_in"])
     c_ref, v_ref = base.run(*k1_in)
+    t0 = time.perf_counter()
+    res = plain.result()
+    print(f"  [20b] the ablated plain versions came from the host CPU (waited "
+          f"{time.perf_counter() - t0:.1f} s for them)", flush=True)
     out = {"k1": {}, "k2": {}}
     for mask in (4, 1, 7, 8, 16):
         name, profile = ABLATED[mask]
-        fr = rollout(profile)
-        inp = k1_in
-        if mask == 7:
-            # fkonly keeps every dof, so of what it computes only the roots'
-            # drift reaches its output (vis, the sum of the roots): every
-            # root gets a seeded velocity
-            rows = k1_in[0].clone()
-            lin = rows[: 13 * fr.ks.nactor].view(fr.ks.nactor, 13, -1)[:, 7:10]
-            gv = torch.Generator().manual_seed(SEED + 7)
-            lin.copy_((torch.rand(lin.shape, generator=gv) - 0.5).to(dev))
-            inp = (rows,) + tuple(k1_in[1:])
-        costs, vis = fr.run(*inp)
+        fr = inp["rollout"](profile)
+        inp_cpu = inp["fk_in"] if mask == 7 else inp["k1_in"]
+        costs, vis = fr.run(*(x.to(dev) for x in inp_cpu))
         torch.cuda.synchronize()
         if mask == 16:
             same = torch.equal(costs, c_ref) and torch.equal(vis, v_ref)
@@ -2766,25 +2969,19 @@ def ablation_holds(dev, pick):
                   f"H={ABLATE_H}: bit for bit the gated kernel: {same}", flush=True)
             if not same:
                 fail("K1 with the broadphase gate off differs from the gated kernel")
-        plain, ms = {}, {}
-        for dt in (torch.float32, torch.float64):
-            with Timer() as t:
-                plain[dt] = rollout_plain(fr.ks, *(x.to(dt) for x in inp), fr.H, fr.substeps,
-                                          fr.dt_sub, fr.vis_body, fr.impulse_sweeps,
-                                          fr.world_fidelity, **fr.profile)
-            ms[dt] = t.ms
-        (c32, v32), (c64, v64) = plain[torch.float32], plain[torch.float64]
-        errs, ok, line = three_measures((costs.double() - c32.double()).abs(),
-                                          (c32.double() - c64).abs())
+        costs, vis = costs.cpu(), vis.cpu()
+        (c32, v32), ms = res["k1"][mask]
+        bound = ABLATE_BOUNDS[mask]
+        errs, ok, line = three_measures((costs.double() - c32.double()).abs(), bound["k1"])
         print(f"  [20b] K1 {name} (mask {mask}) vs its plain version: {line}; the plain K1 "
-              f"{ms[torch.float32] / 1e3:.1f} s", flush=True)
+              f"{ms / 1e3:.1f} s on the host CPU", flush=True)
         if not bool(torch.isfinite(costs).all()) or not ok:
             fail(f"K1 {name} disagrees with its ablated plain version")
         err = errs["max"]
         if fr.profile["zero_cost"]:
             # vis is the sum of the roots, unrounded: held as the costs are
             verrs, ok, line = three_measures((vis.double() - v32.double()).abs().amax(2).T,
-                                               (v32.double() - v64).abs().amax(2).T)
+                                             bound["vis"])
             print(f"  [20b] K1 {name} (mask {mask}) vis vs its plain version: {line}", flush=True)
             if not bool(torch.isfinite(vis).all()) or not ok:
                 fail(f"K1 {name}: vis disagrees with its ablated plain version")
@@ -2794,43 +2991,29 @@ def ablation_holds(dev, pick):
             if dv > VIS_ATOL:
                 fail(f"K1 {name}: vis disagrees with its ablated plain version ({dv:.3e})")
         if mask == 7:
-            r0 = inp[0][: 13 * fr.ks.nactor].view(fr.ks.nactor, 13, -1)[:, :3].sum(0).T
+            r0 = inp_cpu[0][: 13 * fr.ks.nactor].view(fr.ks.nactor, 13, -1)[:, :3].sum(0).T
             moved = (vis[-1] - r0).abs().max().item()
             print(f"  [20b] K1 {name}: the roots moved {moved:.3e} from the input state",
                   flush=True)
             if moved <= 1e3 * max(err, 1e-6):
                 fail(f"K1 {name}: its output did not move from the input state")
-        out["k1"][mask] = (err, ms[torch.float32])
-    # K2 from the held grasp, targets as phase 6 draws them
-    st = held
-    ones_b = torch.ones(pb.scene.nbody, device=dev)
-    ones_g = torch.ones(pb.scene.ngeom, device=dev)
-    tgts = []
-    for _ in range(ABLATE_K2_STEPS):
-        t_ = st.q + (torch.rand(pb.scene.ndof, generator=g) * 0.4 - 0.2).to(dev)
-        t_[7:9] = st.dof_target[7:9]
-        tgts.append(t_.contiguous())
-    sweeps = pcfg.isaacgym.fused_world_sweeps
-    ref_fw = FusedWorldStep(pb, engine, impulse_sweeps=sweeps)
-    rows0 = ref_fw.pack(st).contiguous()
+        out["k1"][mask] = (err, ms)
+    # K2 from the held grasp
+    ones_b = torch.ones(inp["pb"].scene.nbody, device=dev)
+    ones_g = torch.ones(inp["pb"].scene.ngeom, device=dev)
+    tgts = [t_.to(dev) for t_ in inp["tgts"]]
+    rows0 = inp["rows0"].to(dev)
+    ref_fw = FusedWorldStep(inp["pb"], inp["engine"], impulse_sweeps=inp["sweeps"])
     r_ref = rows0
     for t_ in tgts:
         r_ref = ref_fw.step_rows(r_ref, t_, ones_b, ones_g)
     for mask in (8, 16):
         name, profile = ABLATED[mask]
-        fw = FusedWorldStep(pb, engine, impulse_sweeps=sweeps, profile=profile)
+        fw = FusedWorldStep(inp["pb"], inp["engine"], impulse_sweeps=inp["sweeps"],
+                            profile=profile)
         r = rows0
-        rp = {torch.float32: rows0, torch.float64: rows0.double()}
-        plain_ms = 0.0
         for t_ in tgts:
             r = fw.step_rows(r, t_, ones_b, ones_g)
-            for dt in rp:
-                with Timer() as t:
-                    rp[dt] = world_step_plain(fw.ks, rp[dt], t_.to(dt), ones_b.to(dt),
-                                              ones_g.to(dt), fw.substeps, fw.dt_sub,
-                                              fw.impulse_sweeps, **fw.profile)
-                if dt == torch.float32:
-                    plain_ms += t.ms / len(tgts)
         torch.cuda.synchronize()
         if mask == 16:
             same = torch.equal(r, r_ref)
@@ -2838,18 +3021,19 @@ def ablation_holds(dev, pick):
                   f"bit for bit the gated kernel: {same}", flush=True)
             if not same:
                 fail("K2 with the broadphase gate off differs from the gated kernel")
-        e = _groups(fw.ks, (r.double() - rp[torch.float32].double()).abs())
-        dr = _groups(fw.ks, (rp[torch.float32].double() - rp[torch.float64]).abs())
+        rp, plain_ms = res["k2"][mask]
+        e = _groups(fw.ks, (r.cpu().double() - rp.double()).abs())
+        b = ABLATE_BOUNDS[mask]["k2"]
         print(f"  [20b] K2 {name} (mask {mask}) vs its plain version over {len(tgts)} steps: "
-              + ", ".join(f"{k} {e[k]:.3e} (bound {max(10 * dr[k], 1e-6):.3g})" for k in e),
-              flush=True)
-        if not bool(torch.isfinite(r).all()) or any(e[k] > max(10 * dr[k], 1e-6) for k in e):
+              + ", ".join(f"{k} {e[k]:.3e} (bound {b[k]:.3g})" for k in e)
+              + f"; the plain K2 {plain_ms:.1f} ms a step on the host CPU", flush=True)
+        if not bool(torch.isfinite(r).all()) or any(e[k] > b[k] for k in e):
             fail(f"K2 {name} disagrees with its ablated plain version")
         out["k2"][mask] = (max(e.values()), plain_ms)
     return out
 
 
-def phase20(dev, builds, pick):
+def phase20(dev, builds, plain):
     """Phase 20 → the ablated kernels' entries: 20a the ablation library
     (started with the others in phase 1) and the section build; 20b the
     holds (ablation_holds); 20c the ablation profiler
@@ -2869,7 +3053,7 @@ def phase20(dev, builds, pick):
         for line in ptxas.splitlines():
             if v == native.ABLATE and ("registers" in line or "Compiling entry" in line):
                 print("    ptxas:", line.strip())
-    holds = ablation_holds(dev, pick)
+    holds = ablation_holds(dev, plain)
     print(f"    phase 20b: {time.perf_counter() - t0:.1f} s", flush=True)
     FusedRollout.launches = FusedWorldStep.launches = 0
     FusedRollout.ablated_launches.clear()
@@ -2910,7 +3094,7 @@ def phase20(dev, builds, pick):
             "max_abs_err": holds["k1"][mask][0], "ms": r["ms"], "plain_ms": holds["k1"][mask][1],
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, "ablation_mask": mask,
             "profile": profile, "sweeps": r["fr"].impulse_sweeps, "plain_samples": ABLATE_K,
-            "plain_H": ABLATE_H, "max_abs_err_at": "held grasp"})
+            "plain_H": ABLATE_H, "max_abs_err_at": "held grasp", "plain_on": "host CPU"})
     for mask in K2_MASKS:
         name, profile = ABLATED[mask]
         r = prof["k2"][name]
@@ -2921,10 +3105,119 @@ def phase20(dev, builds, pick):
             "launches": n2[mask], "max_abs_err": holds["k2"][mask][0], "ms": r["ms"],
             "plain_ms": holds["k2"][mask][1], "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": None, "ablation_mask": mask, "profile": profile,
-            "max_abs_err_at": "held grasp"})
+            "max_abs_err_at": "held grasp", "plain_on": "host CPU"})
     print(f"    phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
     return entries, b
 
+
+
+# ---------------------------------------------------------------------------
+# phase 21: multi_jackal's commands and world steps recorded on the card,
+# held against the JAX package's outputs from the same inputs
+# ---------------------------------------------------------------------------
+
+# `python -m mppiisaac_tpu_torch.validate jackal ... record=` on the card, with
+# the JAX package's outputs and the port plain's own float32-vs-float64 drift
+# of each record added by scripts/jackal_commands_jax.py on the CPU
+JACKAL_RECORDS = "tests/data/multi_jackal_commands.npz"
+COMMAND_MEASURES = ("costs_max", "costs_first", "costs_median", "S_max", "S_median", "U", "action")
+
+
+def command_measures(a, b):
+    """How far two commands part (dicts of CPU arrays: the rollout's costs
+    (K, H), S (K,), the new U and the action), by COMMAND_MEASURES."""
+    d = {k: (torch.as_tensor(a[k]).double() - torch.as_tensor(b[k]).double()).abs()
+         for k in ("costs", "S", "U", "action")}
+    return {"costs_max": d["costs"].max().item(), "costs_first": d["costs"][:, 0].max().item(),
+            "costs_median": d["costs"].max(1).values.median().item(),
+            "S_max": d["S"].max().item(), "S_median": d["S"].median().item(),
+            "U": d["U"].max().item(), "action": d["action"].max().item()}
+
+
+def out_rows(fw, st):
+    """K2's output rows of a 1-env state (N=1): its packed rows with its
+    net contact forces in their place (packing leaves them zero)."""
+    ks = fw.ks
+    lo = 13 * ks.nactor + 2 * ks.ndof
+    r = fw.pack(st)[:, 0].clone()
+    r[lo: ks.n_state_rows] = st.net_contact_force[0].reshape(-1)
+    return r
+
+
+def jackal_records(dev):
+    """Phase 21: from each record of JACKAL_RECORDS (seed 42's initial state
+    and states along seeds 0-4's episodes, stalls among them) the card's
+    multi_jackal command (`MPPIisaacPlanner._full`: K1 at K=300, H=12) from
+    the recorded carry and world state, and K2 from the recorded state with
+    the recorded action, held against the JAX package's outputs: the
+    rollout's costs (largest, first step's, median over samples), S (largest,
+    median), the new U and the action, and the state after K2 by row group,
+    each within 10× the port plain's own rounding in the same measure at
+    that record (floor 1e-6): the larger of its float32-vs-float64 drift and
+    its envelope under one float32 rounding of the state
+    (scripts/jackal_commands_jax.py). The launch counters are set to 0 just
+    before and read just after. → (K1, K2 launches, the largest difference
+    of each measure)."""
+    from mppiisaac_tpu_torch.mppi.solver import MppiCarry
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS, SimState
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.sim import Simulation
+    from mppiisaac_tpu_torch.tasks.multi_robot import MultiJackalObjective
+    from mppiisaac_tpu_torch.utils.config_store import load_config
+
+    t0 = time.perf_counter()
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), JACKAL_RECORDS)) as f:
+        d = {k: f[k] for k in f.files}
+    cfg = load_config("tasks/multi_jackal")
+    planner = MPPIisaacPlanner(cfg, MultiJackalObjective(cfg), device=dev)
+    pm = planner._params_K
+    if not (np.array_equal(pm.body_mass_scale.cpu().numpy(), d["params.body_mass_scale"])
+            and np.array_equal(pm.geom_friction.cpu().numpy(), d["params.geom_friction"])):
+        fail("multi_jackal's per-sample ModelParams differ from the records'")
+    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device=dev)
+    fw = world._world_step
+    R = len(d["seed"])
+    worst = dict.fromkeys(COMMAND_MEASURES + ("pose", "vel", "lam"), 0.0)
+    reset_counts()
+    outs = []
+    for i in range(R):
+        t = (lambda k: torch.as_tensor(d[k][i], device=dev))
+        carry = MppiCarry(U=t("carry.U"), lambda_=t("carry.lambda"), sigma=t("carry.sigma"),
+                          t0=torch.tensor(int(d["carry.t0"][i]), device=dev),
+                          key=np.array(d["carry.key"][i], np.uint32))
+        ws = SimState(**{f: t(f"before.{f}") for f in SIM_STATE_FIELDS if f"before.{f}" in d})
+        action, new, info = planner._full(carry, ws)
+        st = world.stepped(world.commanded(ws, t("card.action")[None]))
+        outs.append(({"costs": info["rollout_costs"].cpu(), "S": info["costs"].cpu(),
+                      "U": new.U.cpu(), "action": action.reshape(-1).cpu()},
+                     out_rows(fw, st).cpu()))
+    n1, n2 = read_counts()
+    print(f"[21] multi_jackal: {R} recorded states (seeds {sorted(set(d['seed'].tolist()))}, "
+          f"{int(d['stalled'].sum())} from stalled episodes; recorded on {d['device']}) through "
+          f"the card's command and K2; launches K1 {n1}, K2 {n2}", flush=True)
+    if (n1, n2) != (R, R):
+        fail(f"phase 21: expected {R} launches of each kernel, got K1 {n1}, K2 {n2}")
+    same = 0
+    for i, (card, rows) in enumerate(outs):
+        jax_ = {k: d[f"jax.{k}"][i] for k in ("costs", "S", "U", "action")}
+        e = command_measures(card, jax_)
+        e.update(_groups(fw.ks, (rows.double() - torch.as_tensor(d["jax.after_rows"][i]).double())
+                         .abs()))
+        b = {k: max(10.0 * max(float(d[f"drift.{k}"][i]), float(d[f"envelope.{k}"][i])), 1e-6)
+             for k in e}
+        same += all(np.array_equal(card[k].numpy(), d[f"card.{k}"][i]) for k in card)
+        print(f"  seed {int(d['seed'][i])} step {int(d['step'][i])}"
+              f"{' (stalled episode)' if d['stalled'][i] else ''}: " + ", ".join(
+                  f"{k} {e[k]:.2e} (bound {b[k]:.2e})" for k in e), flush=True)
+        finite = all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in card.values())
+        if not finite or any(e[k] > b[k] for k in e):
+            fail(f"phase 21: the card's command or K2 at seed {int(d['seed'][i])} step "
+                 f"{int(d['step'][i])} disagrees with the JAX package's")
+        for k in e:
+            worst[k] = max(worst[k], e[k])
+    print(f"    the card's commands bit for bit the recorded ones at {same} of {R} records; "
+          f"phase 21 {time.perf_counter() - t0:.1f} s", flush=True)
+    return n1, n2, worst
 
 
 def geometry_table():
@@ -2976,6 +3269,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    pool = plain_pool(root)
+    try:
+        smoke(dev, root, pool, native)
+    finally:
+        stop_pool(pool)
+
+
+def smoke(dev, root, pool, native):
+    """Phases 1-21 (the module's docstring), then the result lines."""
+    t_start = time.perf_counter()
+    # 20b's plain versions start on the host CPU now; the card's phases run
+    # meanwhile
+    ablation = pool.submit(ablation_plain)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -2993,26 +3299,28 @@ def main():
     pick, records = earlier_paths(dev, root)
     point_paths(dev, root)
     for task in ARM_PATHS:
-        rec = arm_path(task, dev, root)
+        rec = arm_path(task, dev, root, pool)
         if task != "panda_effort":
             records.append(rec)
     for task in MESH_LOOPS:
-        records.append(mesh_path(task, dev, root))
-    records.append(anymal_path(dev, root))
-    records.append(fast_pick_path(dev, root, pick))
+        records.append(mesh_path(task, dev, root, pool))
+    records.append(anymal_path(dev, root, pool))
+    records.append(fast_pick_path(dev, root, pick, pool))
     records.append(box_pair_path(dev, root))
     api_path(dev)
     rpc_path(dev, root)
     episode_paths(dev)
     chunked_paths(dev, root)
     batch = batched_paths(dev)
-    bench_run = bench_path(dev)
+    bench_run = bench_path(dev, pool)
 
     # ---- 18. timing, and each kernel's bound on the timed inputs ----
     t0 = time.perf_counter()
     entries = []
     src = "mppiisaac_tpu_torch/csrc/fused_rollout.cu"
     for r in records:
+        if "finish" in r:                # its K1 holds against the host CPU's plain version
+            r.update(r.pop("finish")())
         fr, fw, k1_in, k2_in = r["fr"], r["fw"], r["k1_in"], r["k2_in"]
         k1_ms, k2_ms = cuda_time_ms(lambda: fr.run(*k1_in)), cuda_time_ms(lambda: fw.step_rows(*k2_in))
         if r["plain"] is None:
@@ -3069,6 +3377,7 @@ def main():
         "one_wave_envs": n_sm * W, "one_wave_ms": wave_ms,
         "demo_ms_per_step": batch["demo"]["ms_per_step"],
         "demo_env_steps_per_s": batch["demo"]["env_steps_per_s"]})
+    bench_hold(bench_run)
     fr, k1_in = bench_run["fr"], bench_run["k1_in"]
     k1_ms = cuda_time_ms(lambda: fr.run(*k1_in), reps=10)
     b1 = k1_bound(fr, k1_in)
@@ -3083,7 +3392,7 @@ def main():
         "launches": bench_run["n1"], "max_abs_err": bench_run["err"], "ms": k1_ms,
         "plain_ms": bench_run["plain_ms"], "bound_ms": b1[0], "bound_by": b1[1],
         "library_ms": None, "warps_per_block": W, "smem_bytes": tables + W * fr.warp_bytes,
-        "plain_samples": BENCH_PLAIN_SAMPLES,
+        "plain_samples": BENCH_PLAIN_SAMPLES, "plain_on": "host CPU",
         "first_step_max_abs_err": bench_run["errs"]["first"],
         "median_max_abs_err": bench_run["errs"]["median"],
         "bench_env_steps_per_s": bench_run["rec"]["value"],
@@ -3092,8 +3401,16 @@ def main():
     reach_entry = next(e for e in entries if e["path"] == "panda_reach"
                        and e["name"] == "fused_world_step_kernel")
     entries += phase19(dev, root, reach_entry, batch["demo"])
-    ablated, _ = phase20(dev, builds, pick)
+    ablated, _ = phase20(dev, builds, ablation)
     entries += ablated
+    n1, n2, worst = jackal_records(dev)
+    for e in entries:
+        if e["path"] == "multi_jackal":
+            k2 = e["name"] == "fused_world_step_kernel"
+            e.update({"records_launches": n2 if k2 else n1,
+                      "records_vs_jax_max_abs_err": (max(worst[k] for k in ("pose", "vel", "lam"))
+                                                     if k2 else worst["costs_max"])})
+    print(f"    the whole run: {time.perf_counter() - t_start:.1f} s", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,

@@ -121,10 +121,8 @@ def _settings():
             os.environ.get("BENCH_SWEEPS", "1"), os.environ.get("BENCH_MANIFOLD", "reduced"))
 
 
-def main(K: int = K, H: int = H, iters: int = ITERS, chunk: int = CHUNK, device="cuda") -> dict:
-    """Run the benchmark; print its JSON record and return it, with the
-    per-command and latency ms unrounded and the planner it ran."""
-    device = torch.device(device)
+def config(K: int = K, H: int = H):
+    """The benchmark's panda_pick conf at K samples and horizon H."""
     fidelity, substeps_o, sweeps_o, manifold = _settings()
     over = [f"mppi.num_samples={K}", f"mppi.horizon={H}", f"mppi.rollout_fidelity={fidelity}"]
     if substeps_o:
@@ -133,7 +131,15 @@ def main(K: int = K, H: int = H, iters: int = ITERS, chunk: int = CHUNK, device=
         over.append(f"mppi.rollout_sweeps={sweeps_o}")
     if manifold:
         over.append(f"mppi.rollout_manifold={manifold}")
-    cfg = load_config("tasks/panda_pick", over)
+    return load_config("tasks/panda_pick", over)
+
+
+def main(K: int = K, H: int = H, iters: int = ITERS, chunk: int = CHUNK, device="cuda") -> dict:
+    """Run the benchmark; print its JSON record and return it, with the
+    per-command and latency ms unrounded and the planner it ran."""
+    device = torch.device(device)
+    fidelity, _, _, manifold = _settings()
+    cfg = config(K, H)
     t0 = time.perf_counter()
     planner = MPPIisaacPlanner(cfg, PandaPickObjective(cfg), randomize=True, device=device)
     state0 = (planner.sim.state, planner._params_K)

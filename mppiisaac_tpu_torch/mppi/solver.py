@@ -307,7 +307,8 @@ class MPPIPlanner:
 
         new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma, t0=carry.t0 + c.u_per_command,
                               key=key)
-        info = {"costs": S, "weights": w, "eta": eta, "vis": vis, "best_cost": beta}
+        info = {"costs": S, "weights": w, "eta": eta, "vis": vis, "best_cost": beta,
+                "rollout_costs": costs}
         if self.fused is None:
             info["applied"] = u_seq          # (K,H,nu) the controls each sample applied
         return action, new_carry, info

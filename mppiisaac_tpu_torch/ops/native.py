@@ -10,6 +10,12 @@ scripts/profile_torch_step.py --sections) builds the same sources with
 `-DSECTION_CLOCKS` into `_build/sections/`: the kernels then count clock64()
 cycles per section, read back by `read_sections`.
 
+`VARIANT = "nofma"` builds them with `--fmad=false` into `_build/nofma/`:
+nvcc then contracts no multiply and add into an FMA, so the kernels round
+as the device code's CPU emulation does (csrc/emu; a rounding study's
+twin of the default build: `scripts/jackal_commands_jax.py --replay
+--no-fma`).
+
 `load_library("ablate")` builds, beside whichever library the wrappers use,
 the profiling ablations (`-DABLATE`, into `_build/ablate/`): one nvcc run
 instantiates the kernels for every mask of AB_K1_MASKS and AB_K2_MASKS
@@ -48,7 +54,8 @@ def _nvcc() -> str:
 
 VARIANT = None          # None: the main build; "sections": the section counters
 ABLATE = "ablate"       # the profiling ablations' library
-_DEFINES = {None: [], "sections": ["-DSECTION_CLOCKS"], ABLATE: ["-DABLATE"]}
+_DEFINES = {None: [], "sections": ["-DSECTION_CLOCKS"], ABLATE: ["-DABLATE"],
+            "nofma": ["--fmad=false"]}
 
 
 def _flags(variant):

@@ -143,6 +143,7 @@ def run_task(
     device_steps: int = 1,
     chunk_observer: Optional[Callable] = None,
     use_fused: Optional[bool] = None,
+    recorder: Optional["CommandRecorder"] = None,
 ) -> LoopMetrics:
     """success_fn(world: Simulation) -> bool; observer(step, world, action);
     prior: a tape or closed-loop prior for the planner, use_fused: its
@@ -154,20 +155,26 @@ def run_task(
     (`DeviceChunk`), as the JAX package's chunked loop; success stays exact,
     replayed on the fetched post-step states. chunk_observer(step, world,
     action) sees each of them (`world` pinned to that step's state, on the
-    host). A per-step observer or real-time pacing takes the per-step loop,
-    as in the JAX package."""
+    host). A per-step observer, real-time pacing or a `recorder` (one
+    episode, under `cfg.mppi.seed_val`) takes the per-step loop, as in the
+    JAX package."""
     device = torch.device(device)
     world = goal_world(cfg, device)
     planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device,
                                use_fused=use_fused)
     n = n_steps if n_steps is not None else cfg.n_steps
-    if device_steps > 1 and observer is None and not real_time:
+    if device_steps > 1 and observer is None and not real_time and recorder is None:
         return _run_chunked(DeviceChunk(world, planner, device_steps), n, cfg.isaacgym.dt,
                             success_fn=success_fn, verbose=verbose,
                             chunk_observer=chunk_observer)
-    return run_steps(world, planner.compute_action_from_state, n, cfg.isaacgym.dt,
-                     success_fn=success_fn, observer=observer, verbose=verbose,
-                     real_time=real_time)
+    act = planner.compute_action_from_state
+    if recorder is not None:
+        act, observer = recorder.episode(int(cfg.mppi.seed_val), planner, observer)
+    m = run_steps(world, act, n, cfg.isaacgym.dt, success_fn=success_fn, observer=observer,
+                  verbose=verbose, real_time=real_time)
+    if recorder is not None:
+        recorder.end(m)
+    return m
 
 
 def run_task_episodes(
@@ -182,28 +189,40 @@ def run_task_episodes(
     verbose: bool = False,
     device="cuda",
     use_fused: Optional[bool] = None,
+    start: Optional[Callable] = None,
+    recorder: Optional["CommandRecorder"] = None,
 ) -> Dict[int, LoopMetrics]:
     """Seeded episodes on one build: the world, the planner (with their
     FusedRollout and FusedWorldStep) and, for device_steps > 1, the chunk
     (its CUDA graph) are built once; each seed then runs a fresh episode
-    from the initial world state (goal marker placed), with the solver
-    carry re-keyed by `prng.prng_key(seed)` (JAX's `PRNGKey(seed)`).
-    device_steps=1 runs the per-step loop. → {seed: LoopMetrics}."""
+    from the initial world state (goal marker placed), which
+    `start(seed, world)` may then change through the world's setters, with
+    the solver carry re-keyed by
+    `prng.prng_key(seed)` (JAX's `PRNGKey(seed)`). device_steps=1 or a
+    `recorder` runs the per-step loop. → {seed: LoopMetrics}."""
     device = torch.device(device)
     world = goal_world(cfg, device)
     initial = world.state
     planner = MPPIisaacPlanner(cfg, objective, prior, randomize=randomize, device=device,
                                use_fused=use_fused)
-    chunk = DeviceChunk(world, planner, device_steps) if device_steps > 1 else None
+    per_step = device_steps <= 1 or recorder is not None
+    chunk = None if per_step else DeviceChunk(world, planner, device_steps)
     n = n_steps if n_steps is not None else cfg.n_steps
     results = {}
     for seed in seeds:
         world.state = initial
+        if start is not None:
+            start(seed, world)
         planner.mppi.carry = dataclasses.replace(planner.mppi.init_carry(),
                                                  key=prng.prng_key(int(seed)))
         if chunk is None:
-            results[seed] = run_steps(world, planner.compute_action_from_state, n,
-                                      cfg.isaacgym.dt, success_fn=success_fn)
+            act, observer = planner.compute_action_from_state, None
+            if recorder is not None:
+                act, observer = recorder.episode(int(seed), planner)
+            results[seed] = run_steps(world, act, n, cfg.isaacgym.dt, success_fn=success_fn,
+                                      observer=observer)
+            if recorder is not None:
+                recorder.end(results[seed])
         else:
             results[seed] = _run_chunked(chunk, n, cfg.isaacgym.dt, success_fn=success_fn)
         if verbose:
@@ -457,3 +476,113 @@ class _StateProxy:
         if callable(attr):
             return attr.__get__(self)
         return getattr(self._world, name)
+
+
+RECORD_EVERY = 50      # CommandRecorder: every this many steps of an episode
+RECORD_LAST = 10       # ... and the last this many of an episode without success
+
+
+def _host_state(state: SimState) -> Dict[str, np.ndarray]:
+    return {f: getattr(state, f).detach().cpu().numpy() for f in SIM_STATE_FIELDS
+            if getattr(state, f) is not None}
+
+
+class CommandRecorder:
+    """Records the control steps of per-step episodes, so that a command and
+    a world step can be replayed elsewhere from exactly their inputs (on the
+    CPU against the JAX package: `scripts/jackal_commands_jax.py`).
+
+    Every step keeps the 1-env world state after its world step (the
+    episode's trajectory). The steps an episode keeps in full are every
+    RECORD_EVERY-th and, when it ends without success, its last RECORD_LAST:
+    for each, the world state before the step, the solver carry before the
+    command (U, λ, Σ, key, t0), what the command gave (the per-sample costs
+    S (K,), the rollout's costs (K, H), the new carry's U, the action) and
+    the world state after the world step. `save(path)` writes one .npz."""
+
+    def __init__(self, every: int = RECORD_EVERY, last: int = RECORD_LAST):
+        self.every, self.last = int(every), int(last)
+        self.records: List[dict] = []
+        self.episodes: List[tuple] = []        # (seed, success step or −1, steps run)
+        self.trajectories: List[dict] = []     # per episode: {field: (steps, 1, ...)}
+        self.meta: dict = {}
+        self._cur = None
+
+    def episode(self, seed: int, planner: MPPIisaacPlanner, observer: Optional[Callable] = None):
+        """→ (act, observer) of run_steps for one episode of `seed`."""
+        if not self.meta:
+            pm = planner._params_K
+            self.meta = {"params.body_mass_scale": pm.body_mass_scale.cpu().numpy(),
+                         "params.geom_friction": pm.geom_friction.cpu().numpy(),
+                         "params_seed": int(planner.cfg.mppi.seed_val),
+                         "K": int(planner.cfg.mppi.num_samples),
+                         "H": int(planner.cfg.mppi.horizon),
+                         "device": (torch.cuda.get_device_name(planner.device)
+                                    if planner.device.type == "cuda" else "cpu")}
+        steps: List[dict] = []
+        self._cur = (int(seed), steps)
+
+        def act(state):
+            c = planner.mppi.carry
+            rec = {"before": _host_state(state), "carry.U": c.U.cpu().numpy(),
+                   "carry.lambda": np.float32(c.lambda_.item()),
+                   "carry.sigma": c.sigma.cpu().numpy(),
+                   "carry.key": np.array(c.key, np.uint32), "carry.t0": int(c.t0)}
+            action = planner.compute_action_from_state(state)
+            info = planner.mppi.last_info
+            rec.update({"card.S": info["costs"].cpu().numpy(),
+                        "card.costs": info["rollout_costs"].cpu().numpy(),
+                        "card.U": planner.mppi.carry.U.cpu().numpy(),
+                        "card.action": action.reshape(-1).cpu().numpy()})
+            steps.append(rec)
+            return action
+
+        def observe(step, world, action):
+            steps[-1]["after"] = _host_state(world.state)
+            if observer is not None:
+                observer(step, world, action)
+
+        return act, observe
+
+    def end(self, metrics: LoopMetrics):
+        """Close the episode that `episode` opened, with its metrics."""
+        seed, steps = self._cur
+        n, ok = len(steps), metrics.success_step
+        keep = set(range(0, n, self.every))
+        if ok is None:
+            keep |= set(range(max(0, n - self.last), n))
+        for i in sorted(keep):
+            self.records.append(dict(steps[i], seed=seed, step=i, stalled=ok is None))
+        self.episodes.append((seed, -1 if ok is None else int(ok), n))
+        self.trajectories.append({f: np.stack([s["after"][f] for s in steps])
+                                  for f in steps[0]["after"]})
+        self._cur = None
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """The records as arrays, one row per recorded step: `seed`, `step`,
+        `stalled`, `before.<field>` and `after.<field>` (1-env SimState
+        fields), `carry.*`, `card.*`; then `params.*` (the rollout's
+        per-sample ModelParams) with `params_seed`, `K`, `H`, `device`;
+        `episodes` (seed, success step or −1, steps run) and each episode's
+        post-step states `traj<e>.<field>`."""
+        r = self.records
+        out = {"seed": np.array([x["seed"] for x in r], np.int64),
+               "step": np.array([x["step"] for x in r], np.int64),
+               "stalled": np.array([x["stalled"] for x in r], bool)}
+        for side in ("before", "after"):
+            for f in r[0][side]:
+                out[f"{side}.{f}"] = np.stack([x[side][f] for x in r])
+        for k in r[0]:
+            if k.startswith(("carry.", "card.")):
+                out[k] = np.stack([np.asarray(x[k]) for x in r])
+        out.update({k: np.asarray(v) for k, v in self.meta.items()})
+        out["episodes"] = np.array(self.episodes, np.int64)
+        for e, tr in enumerate(self.trajectories):
+            out.update({f"traj{e}.{f}": v for f, v in tr.items()})
+        return out
+
+    def save(self, path: str):
+        import os
+
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez_compressed(path, **self.arrays())

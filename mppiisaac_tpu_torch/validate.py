@@ -10,7 +10,11 @@ Subcommands:
   omni [fast|world] [n_seeds]    the same for omni_panda_pick
   anymal [n_seeds] [tape|none]   anymal within the conf's steps, with its
                                  gait tape prior or without (default 3, tape)
-  jackal [n_seeds]               multi_jackal within the conf's 200 steps
+  jackal [n_seeds]               multi_jackal within the conf's 200 steps;
+                                 with perturb=M, then M more episodes of
+                                 each seed whose jackals start moved by
+                                 ±PERTURB_M in x, y and z (signs drawn from
+                                 the seed and the move)
   suite                          one episode of every other task, each at its
                                  conf's seed; a task that raises is recorded
                                  with its error and counted as a failure, the
@@ -23,8 +27,12 @@ Options: device=cuda|cpu (default cuda), n_steps=N (cap each episode),
 device_steps=N (control steps per host round trip, default 16 as in the JAX
 package's sweeps; 1 runs the per-step loop), use_fused=true|false|none (the
 planner's rollout, default none: its own choice), results=PATH (default
-chiprun_out/validate_torch.json at the repo root); any other key=value is a
-config override (e.g. mppi.num_samples=16).
+chiprun_out/validate_torch.json at the repo root), seeds=S,S,... (the
+episodes' seeds instead of 0 .. n_seeds−1), record=PATH (run per step and
+write the steps of `runtime/loop.CommandRecorder` to PATH as one .npz:
+every 50th step's command and world step with their inputs, the last 10
+of an episode without success, every step's world state); any other
+key=value is a config override (e.g. mppi.num_samples=16).
 
 Every episode of a sweep runs on one build (`runtime/loop.run_task_episodes`:
 the carry keyed by `PRNGKey(seed)`, as the JAX package's). Each subcommand
@@ -47,6 +55,7 @@ from .utils.profiling import card
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PICK_STEPS = 1500
+PERTURB_M = 1e-6        # jackal perturb=M: one float32 rounding's order at a 1 m position
 
 
 def _summ(results):
@@ -84,16 +93,37 @@ def _record(path, key, summary):
     print(f"RECORDED {key} -> {path}", flush=True)
 
 
-def _episodes(key, cfg, obj, seeds, opts, prior=None, success_fn=None, n_steps=None, **extra):
+def _seeds(opts, n_seeds):
+    if opts["seeds"] is not None:
+        return [int(x) for x in str(opts["seeds"]).split(",") if x != ""]
+    return list(range(int(n_seeds)))
+
+
+def _recorder(opts):
+    from .runtime.loop import CommandRecorder
+
+    return CommandRecorder() if opts["record"] else None
+
+
+def _save(opts, recorder):
+    if recorder is not None:
+        recorder.save(opts["record"])
+        print(f"RECORDED {len(recorder.records)} steps of {len(recorder.episodes)} episodes "
+              f"-> {opts['record']}", flush=True)
+
+
+def _episodes(key, cfg, obj, seeds, opts, prior=None, success_fn=None, n_steps=None,
+              start=None, recorder=None, **extra):
     from .runtime.loop import run_task_episodes
 
     if opts["n_steps"] is not None:
         n_steps = int(opts["n_steps"])
     t0 = time.perf_counter()
-    ds = int(opts["device_steps"])
+    ds = 1 if recorder is not None else int(opts["device_steps"])
     results = run_task_episodes(cfg, obj, seeds, prior=prior, n_steps=n_steps,
                                 success_fn=success_fn, device=opts["device"], device_steps=ds,
-                                use_fused=fused_opt(opts["use_fused"]))
+                                use_fused=fused_opt(opts["use_fused"]), start=start,
+                                recorder=recorder)
     for s, m in results.items():
         print(json.dumps({"key": key, "seed": s, **m.summary(),
                           "finite": m.final_state_finite}), flush=True)
@@ -119,9 +149,12 @@ def pick(opts, overrides, fidelity="world", n_seeds=5, task="panda_pick"):
     else:
         from .tasks.omni_panda_pick import OmniPandaPickObjective as Obj, success_fn
     cfg = load_config(f"tasks/{task}", [f"mppi.rollout_fidelity={_fidelity(fidelity)}"] + overrides)
-    return _episodes(f"{task}:{fidelity}", cfg, Obj(cfg), list(range(int(n_seeds))), opts,
-                     success_fn=success_fn(), n_steps=PICK_STEPS, task=task, fidelity=fidelity,
-                     overrides=overrides)
+    rec = _recorder(opts)
+    out = _episodes(f"{task}:{fidelity}", cfg, Obj(cfg), _seeds(opts, n_seeds), opts,
+                    success_fn=success_fn(), n_steps=PICK_STEPS, recorder=rec, task=task,
+                    fidelity=fidelity, overrides=overrides)
+    _save(opts, rec)
+    return out
 
 
 def anymal(opts, overrides, n_seeds=3, prior_mode="tape"):
@@ -132,21 +165,57 @@ def anymal(opts, overrides, n_seeds=3, prior_mode="tape"):
         raise SystemExit(f"anymal prior must be 'tape' or 'none', got {prior_mode!r}")
     over = (["mppi.use_priors=false"] if prior_mode == "none" else []) + overrides
     cfg = load_config("tasks/anymal", over)
-    return _episodes(f"anymal:{prior_mode}", cfg, AnymalObjective(cfg),
-                     list(range(int(n_seeds))), opts, prior=gait_prior(cfg),
-                     success_fn=success_fn(), task="anymal", prior_mode=prior_mode,
-                     overrides=overrides)
+    rec = _recorder(opts)
+    out = _episodes(f"anymal:{prior_mode}", cfg, AnymalObjective(cfg), _seeds(opts, n_seeds),
+                    opts, prior=gait_prior(cfg), success_fn=success_fn(), recorder=rec,
+                    task="anymal", prior_mode=prior_mode, overrides=overrides)
+    _save(opts, rec)
+    return out
+
+
+def moved_start(move, metres):
+    """`run_task_episodes`' start: each jackal's root moved by ±metres in
+    x, y and z, the signs drawn from (seed, move)."""
+    from .tasks.multi_robot import MultiJackalObjective
+
+    def start(seed, world):
+        idx = MultiJackalObjective.robot_actor_indices(world.scene)
+        signs = np.random.default_rng([int(seed), int(move)]).choice([-1.0, 1.0], (len(idx), 3))
+        rs = world.root_state.clone()
+        rs[0, idx, :3] += torch.as_tensor(signs * metres, dtype=rs.dtype, device=rs.device)
+        world.set_root_state(rs)
+
+    return start
 
 
 def jackal(opts, overrides, n_seeds=5):
+    """multi_jackal over seeds; with perturb=M, the spread of success
+    steps under M moves of the jackals' start per seed."""
     from .tasks.multi_robot import MultiJackalObjective, success_fn
     from .utils.config_store import load_config
 
     cfg = load_config("tasks/multi_jackal", overrides)
     obj = MultiJackalObjective(cfg)
-    return _episodes("multi_jackal", cfg, obj, list(range(int(n_seeds))), opts,
-                     success_fn=success_fn("multi_jackal", obj), task="multi_jackal",
-                     overrides=overrides)
+    seeds, succ = _seeds(opts, n_seeds), success_fn("multi_jackal", obj)
+    rec = _recorder(opts)
+    out = _episodes("multi_jackal", cfg, obj, seeds, opts, success_fn=succ, recorder=rec,
+                    task="multi_jackal", overrides=overrides)
+    _save(opts, rec)
+    moves, metres = int(opts["perturb"]), PERTURB_M
+    if moves:
+        spread = {s: {"unmoved": out["success_steps"][s]} for s in seeds}
+        for move in range(1, moves + 1):
+            m = _episodes(f"multi_jackal:move{move}", cfg, obj, seeds, opts, success_fn=succ,
+                          start=moved_start(move, metres), task="multi_jackal", move=move,
+                          metres=metres, overrides=overrides)
+            for s in seeds:
+                spread[s][f"move{move}"] = m["success_steps"][s]
+        summ = {"spread": spread, "metres": metres, "moves": moves, "seeds": seeds,
+                "n_steps": opts["n_steps"], "device_steps": int(opts["device_steps"]),
+                **_card(opts["device"])}
+        print("SPREAD " + json.dumps(summ), flush=True)
+        _record(opts["results"], "multi_jackal:spread", summ)
+    return out
 
 
 def suite_plan():
@@ -227,9 +296,13 @@ def one(opts, overrides, task=None):
         raise SystemExit("usage: python -m mppiisaac_tpu_torch.validate one <task> [key=value ...]")
     modname, kw = ONE_ALIASES.get(task, (task, {}))
     mod = importlib.import_module(f"{__package__}.tasks.{modname}")
+    rec = _recorder(opts)
+    if rec is not None:
+        kw["recorder"] = rec
     out = {"task": task, "overrides": list(overrides), **_episode(mod.run, opts, overrides, **kw),
            "device_steps": int(opts["device_steps"]), "use_fused": opts["use_fused"],
            **_card(opts["device"])}
+    _save(opts, rec)
     print("ONE " + json.dumps(out), flush=True)
     _record(opts["results"], f"one:{task}" + (":" + ",".join(overrides) if overrides else ""), out)
     return out
@@ -257,7 +330,8 @@ def main(argv=None, device="cuda"):
     overrides, opts = split_cli(
         [a for a in rest if "=" in a],
         {"device": device, "n_steps": None, "device_steps": 16, "use_fused": None,
-         "results": os.path.join(REPO, "chiprun_out", "validate_torch.json")})
+         "results": os.path.join(REPO, "chiprun_out", "validate_torch.json"), "seeds": None,
+         "record": None, "perturb": 0})
     return SUBCOMMANDS[sub](opts, overrides, *positional)
 
 

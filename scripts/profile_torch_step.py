@@ -195,14 +195,102 @@ def k2_holds(args, cfg, world, step):
               + " ".join(f"{x:.3e}" for x in dd), flush=True)
 
 
+def _bound_line(name, bounds):
+    return f"{name}: 10x drift " + ", ".join(f"{k} {v:.3g}" for k, v in bounds.items())
+
+
+def ablation_drift():
+    """chip_smoke.py phase 20b's ablated plain versions in float32 against
+    float64 from the held grasp (its ABLATE_BOUNDS)."""
+    from chip_smoke import ABLATED, _groups, ablation_plain, drift_bounds
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    p = {dt: ablation_plain(dt) for dt in (torch.float32, torch.float64)}
+    for mask in (4, 1, 7, 8, 16):
+        name, profile = ABLATED[mask]
+        (c32, v32), _ = p[torch.float32]["k1"][mask]
+        (c64, v64), _ = p[torch.float64]["k1"][mask]
+        print(_bound_line(f"K1 {name} (mask {mask}) costs", drift_bounds((c32.double() - c64).abs())))
+        if profile.get("zero_cost"):
+            dv = (v32.double() - v64).abs().amax(2).T
+            print(_bound_line(f"K1 {name} (mask {mask}) vis", drift_bounds(dv)))
+    ks = _ks_of_pick()
+    for mask in (8, 16):
+        r32, _ = p[torch.float32]["k2"][mask]
+        r64, _ = p[torch.float64]["k2"][mask]
+        g = _groups(ks, (r32.double() - r64).abs())
+        print(_bound_line(f"K2 {ABLATED[mask][0]} (mask {mask}) rows after 5 steps",
+                          {k: max(10 * v, 1e-6) for k, v in g.items()}), flush=True)
+
+
+def _ks_of_pick():
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedWorldStep
+
+    cfg = load_config("tasks/panda_pick")
+    w = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
+    return FusedWorldStep(w.built, w.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps).ks
+
+
+def bench_drift():
+    """chip_smoke.py phase 17f's plain K1 in float32 against float64 on the
+    bench twin's inputs (the initial state, V drawn as the solver draws it
+    from its initial carry; the first BENCH_PLAIN_SAMPLES samples at H=30):
+    its BENCH_BOUNDS."""
+    from chip_smoke import BENCH_PLAIN_SAMPLES, drift_bounds
+    from mppiisaac_tpu_torch import bench
+    from mppiisaac_tpu_torch.ops.fused_rollout import rollout_plain
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = bench.config()
+    planner = MPPIisaacPlanner(cfg, PandaPickObjective(cfg), randomize=True, device="cpu")
+    mppi, fr = planner.mppi, planner.mppi.fused
+    _, d = mppi.draws(mppi.carry.key, 1)
+    eps = mppi.noise(torch.as_tensor(d[0]), mppi.carry.sigma)
+    V = torch.clamp(mppi.carry.U[None] + eps, mppi._u_min, mppi._u_max) * mppi.cfg.u_scale
+    n = BENCH_PLAIN_SAMPLES
+    part = [x[..., :n].contiguous() for x in fr.pack(planner.sim.state, planner._params_K, V)]
+    c = {dt: rollout_plain(fr.ks, *(x.to(dt) for x in part), fr.H, fr.substeps, fr.dt_sub,
+                           fr.vis_body, fr.impulse_sweeps, fr.world_fidelity)[0]
+         for dt in (torch.float32, torch.float64)}
+    print(_bound_line(f"bench K1 (K={fr.K}, H={fr.H}) costs of the first {n} samples",
+                      drift_bounds((c[torch.float32].double() - c[torch.float64]).abs())),
+          flush=True)
+
+
+def first_touch(record, out):
+    """The first post-step state of a panda_stick_push episode recorded by
+    `python -m mppiisaac_tpu_torch.validate one panda_stick_push ...
+    record=RECORD` at which a stick–block λ row carries an impulse (the
+    touching state of chip_smoke.py phase 11) → `out`, as its fields."""
+    from chip_smoke import pair_rows
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS
+
+    cfg = load_config("tasks/panda_stick_push")
+    w = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cpu")
+    rows = pair_rows(w.scene, w.engine.tables, "panda", "panda_push_block", "cpu").numpy()
+    with np.load(record) as d:
+        lam = d["traj0.contact_lam"][:, 0, rows]
+        hit = np.abs(lam).reshape(len(lam), -1).max(1) > 0
+        if not hit.any():
+            raise SystemExit(f"{record}: the stick never touched the block")
+        i = int(np.argmax(hit))
+        torch.save({f: torch.from_numpy(d[f"traj0.{f}"][i, 0].copy()) for f in SIM_STATE_FIELDS
+                    if f"traj0.{f}" in d}, out)
+    print(f"{record}: the stick touches the block after step {i} -> {out}", flush=True)
+
+
 def drift(task, path):
     """float32 against float64 of the plain K1 and K2 from the saved states."""
     from mppiisaac_tpu_torch.ops.fused_rollout import (
         FusedWorldStep, rollout_plain, world_step_plain)
-    from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
+    from mppiisaac_tpu_torch.physics.types import SIM_STATE_FIELDS, ModelParams, SimState
     from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 
     torch.set_num_threads(os.cpu_count() or 1)
+    if task == "bench":
+        return bench_drift()
+    if task == "ablations":
+        return ablation_drift()
     if task == "box_pair":
         cfg, obj, b, engine, _ = box_pair_scene("cpu")
     else:
@@ -215,7 +303,10 @@ def drift(task, path):
     ks = fw.ks
     A, D, NS = ks.nactor, ks.ndof, ks.n_state_rows
     pm = ModelParams(torch.ones(K, b.scene.nbody), torch.ones(K, b.scene.ngeom))
-    for name, fields in torch.load(path).items():
+    states = torch.load(path)
+    if set(states) <= set(SIM_STATE_FIELDS):        # one state's fields (tests/data)
+        states = {os.path.basename(path): states}
+    for name, fields in states.items():
         s0 = SimState(**fields)
         g = torch.Generator().manual_seed(0)
         V = hold_draw(task, cfg, g, (K, H, fr.nu))
@@ -308,8 +399,8 @@ def sections(args, planner, world, step):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", choices=sorted({*OBJECTIVES, *POINT_PATHS, "box_pair"}),
-                    default="panda")
+    ap.add_argument("--task", choices=sorted({*OBJECTIVES, *POINT_PATHS, "box_pair", "bench",
+                                             "ablations"}), default="panda")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="profile_out")
@@ -318,7 +409,12 @@ def main():
                     help="the kernels' per-section cycle split instead of the profile")
     ap.add_argument("--k2-holds", type=int, metavar="EVERY",
                     help="K2 against plain float32 and float64 from every EVERY-th state")
+    ap.add_argument("--first-touch", metavar="RECORD",
+                    help="write the stick's first touching state of RECORD to --out")
     args = ap.parse_args()
+    if args.first_touch:
+        first_touch(args.first_touch, args.out)
+        return
     if args.drift:
         drift(args.task, args.drift)
         return
