@@ -1,0 +1,7 @@
+"""k1_roofline_pct: K1's least time over its measured time
+(readers.roofline_pct)."""
+from cellbench.readers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "k1")
