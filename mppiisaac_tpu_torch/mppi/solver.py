@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 from . import prng
 from .config import MPPIConfig
 from .sampling import bspline_interp_matrix, halton, savgol_coeffs, savgol_matrix
@@ -228,89 +229,95 @@ class MPPIPlanner:
         K, H, nu = c.num_samples, c.horizon, self.nu
         key = carry.key
         if eps is None and draw is None:
-            key, d = self.draws(carry.key, 1)
-            draw = torch.as_tensor(d[0], device=self.device)
-        if eps is None:
-            eps = self.noise(draw, carry.sigma)
-        u_min, u_max = self._u_min, self._u_max
-        # the special samples (null action, tape or prior) occupy the last
-        # global sample slots: on the last rank only when sharded
-        edge = self.rank == self.n_shards - 1
-        V = torch.clamp(carry.U[None] + eps, u_min, u_max)            # (K,H,nu)
-        if c.sample_null_action and edge:
-            V[K - 1] = 0.0
-        if self.tape_prior is not None and c.use_priors:
-            # one sample rolls the prior's full tape; eps_eff below uses the
-            # actual controls, so a winning tape drags U toward the tape
-            tape = torch.clamp(self.tape_prior(state0, carry.t0).to(torch.float32), u_min, u_max)
-            if c.prior_blend > 0.0:
-                # biased MPPI: the sampling mean moves toward the tape, while
-                # the importance term still measures deviation from U
-                a = self._prior_blend
-                V = torch.clamp((1 - a) * carry.U[None] + a * tape[None] + eps, u_min, u_max)
-                if c.sample_null_action and edge:
-                    V[K - 1] = 0.0
-            if edge:
-                V[K - 2] = tape
-                type(self).tape_injections += 1
-        eps_eff = V - carry.U[None]
-        sigma_inv = torch.linalg.inv_ex(carry.sigma + self._eye * 1e-8).inverse
-
+            with span("solver.draw"):
+                key, d = self.draws(carry.key, 1)
+                draw = torch.as_tensor(d[0], device=self.device)
+        with span("solver.noise"):
+            if eps is None:
+                eps = self.noise(draw, carry.sigma)
+            u_min, u_max = self._u_min, self._u_max
+            # the special samples (null action, tape or prior) occupy the last
+            # global sample slots: on the last rank only when sharded
+            edge = self.rank == self.n_shards - 1
+            V = torch.clamp(carry.U[None] + eps, u_min, u_max)            # (K,H,nu)
+            if c.sample_null_action and edge:
+                V[K - 1] = 0.0
+            if self.tape_prior is not None and c.use_priors:
+                # one sample rolls the prior's full tape; eps_eff below uses the
+                # actual controls, so a winning tape drags U toward the tape
+                tape = torch.clamp(self.tape_prior(state0, carry.t0).to(torch.float32),
+                                   u_min, u_max)
+                if c.prior_blend > 0.0:
+                    # biased MPPI: the sampling mean moves toward the tape, while
+                    # the importance term still measures deviation from U
+                    a = self._prior_blend
+                    V = torch.clamp((1 - a) * carry.U[None] + a * tape[None] + eps, u_min, u_max)
+                    if c.sample_null_action and edge:
+                        V[K - 1] = 0.0
+                if edge:
+                    V[K - 2] = tape
+                    type(self).tape_injections += 1
+            eps_eff = V - carry.U[None]
         if self.fused is not None:
             sim_state_K, params_K = state0
             costs, vis = self.fused.rollout(sim_state_K, params_K, V * c.u_scale)
         else:
             use_prior = self.prior is not None and c.use_priors
-            costs, vis, u_seq = self._rollout(state0, V, use_prior and edge)
+            with span("solver.rollout"):
+                costs, vis, u_seq = self._rollout(state0, V, use_prior and edge)
             if use_prior:
                 # the prior sample applies closed-loop actions, not its drawn
                 # noise: the update uses the controls actually applied
                 eps_eff = u_seq - carry.U[None]
 
-        # action (control-noise) cost — MPPI information-theoretic term
-        if c.noise_abs_cost:
-            act_cost = carry.lambda_ * torch.einsum("khj,ij->khi", eps_eff.abs(), sigma_inv.abs())
-            action_cost = torch.sum(carry.U.abs()[None] * act_cost, dim=(-1, -2))
-        else:
-            act_cost = carry.lambda_ * torch.einsum("khj,ij->khi", eps_eff, sigma_inv)
-            action_cost = torch.sum(carry.U[None] * act_cost, dim=(-1, -2))
+        with span("solver.update"):
+            sigma_inv = torch.linalg.inv_ex(carry.sigma + self._eye * 1e-8).inverse
 
-        S = torch.sum(costs * self._gamma[None], dim=1) + action_cost      # (K,)
-        beta = self._reduce(torch.min(S), dist.ReduceOp.MIN)
-        scaled = -(S - beta) / torch.clamp(carry.lambda_, min=1e-6)
-        eta = self._reduce(torch.sum(torch.exp(scaled)))
-        w = torch.exp(scaled) / eta                                   # global weights
+            # action (control-noise) cost — MPPI information-theoretic term
+            if c.noise_abs_cost:
+                act_cost = carry.lambda_ * torch.einsum("khj,ij->khi", eps_eff.abs(),
+                                                        sigma_inv.abs())
+                action_cost = torch.sum(carry.U.abs()[None] * act_cost, dim=(-1, -2))
+            else:
+                act_cost = carry.lambda_ * torch.einsum("khj,ij->khi", eps_eff, sigma_inv)
+                action_cost = torch.sum(carry.U[None] * act_cost, dim=(-1, -2))
 
-        dU = self._reduce(torch.einsum("k,khn->hn", w, eps_eff))
-        U_new = carry.U + dU
-        if self._sg is not None:
-            # the Savitzky–Golay window over the edge-padded sequence, as
-            # one (H, H) matrix
-            U_new = self._sg @ U_new
-        U_new = torch.clamp(U_new, u_min, u_max)
+            S = torch.sum(costs * self._gamma[None], dim=1) + action_cost      # (K,)
+            beta = self._reduce(torch.min(S), dist.ReduceOp.MIN)
+            scaled = -(S - beta) / torch.clamp(carry.lambda_, min=1e-6)
+            eta = self._reduce(torch.sum(torch.exp(scaled)))
+            w = torch.exp(scaled) / eta                                   # global weights
 
-        action = U_new[: c.u_per_command] * c.u_scale                 # (u_per_command, nu)
-        U_shift = torch.cat([U_new[c.u_per_command:],
-                             self._u_init.expand(c.u_per_command, nu)])
+            dU = self._reduce(torch.einsum("k,khn->hn", w, eps_eff))
+            U_new = carry.U + dU
+            if self._sg is not None:
+                # the Savitzky–Golay window over the edge-padded sequence, as
+                # one (H, H) matrix
+                U_new = self._sg @ U_new
+            U_new = torch.clamp(U_new, u_min, u_max)
 
-        lam = carry.lambda_
-        if c.update_lambda:
-            lam = torch.where(eta > c.eta_u_bound, lam * 0.9,
-                              torch.where(eta < c.eta_l_bound, lam * 1.1, lam))
-            lam = torch.clamp(lam, 1e-4, 1e2)
+            action = U_new[: c.u_per_command] * c.u_scale                 # (u_per_command, nu)
+            U_shift = torch.cat([U_new[c.u_per_command:],
+                                 self._u_init.expand(c.u_per_command, nu)])
 
-        sigma = carry.sigma
-        if c.update_cov:
-            weighted = self._reduce(torch.einsum("k,khi,khj->ij", w, eps_eff, eps_eff) / H)
-            sigma = 0.9 * sigma + 0.1 * weighted
-            sigma = sigma + self._eye * 1e-5
+            lam = carry.lambda_
+            if c.update_lambda:
+                lam = torch.where(eta > c.eta_u_bound, lam * 0.9,
+                                  torch.where(eta < c.eta_l_bound, lam * 1.1, lam))
+                lam = torch.clamp(lam, 1e-4, 1e2)
 
-        new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma, t0=carry.t0 + c.u_per_command,
-                              key=key)
-        info = {"costs": S, "weights": w, "eta": eta, "vis": vis, "best_cost": beta,
-                "rollout_costs": costs}
-        if self.fused is None:
-            info["applied"] = u_seq          # (K,H,nu) the controls each sample applied
+            sigma = carry.sigma
+            if c.update_cov:
+                weighted = self._reduce(torch.einsum("k,khi,khj->ij", w, eps_eff, eps_eff) / H)
+                sigma = 0.9 * sigma + 0.1 * weighted
+                sigma = sigma + self._eye * 1e-5
+
+            new_carry = MppiCarry(U=U_shift, lambda_=lam, sigma=sigma,
+                                  t0=carry.t0 + c.u_per_command, key=key)
+            info = {"costs": S, "weights": w, "eta": eta, "vis": vis, "best_cost": beta,
+                    "rollout_costs": costs}
+            if self.fused is None:
+                info["applied"] = u_seq          # (K,H,nu) the controls each sample applied
         return action, new_carry, info
 
     # ------------------------------------------------------------------

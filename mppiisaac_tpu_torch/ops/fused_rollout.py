@@ -47,6 +47,7 @@ import torch
 from ..physics.contact import build_contact_tables
 from ..physics.types import ModelParams, SimState
 from ..utils.device_cache import DeviceCache
+from ..utils.profiling import span
 from .fused_contacts import (F_A_ART, F_A_FREE, F_A_STA, F_B_ART, F_B_FREE, F_B_STA, F_EMIT_A,
                              F_EMIT_B, F_SWEPT)
 from .fused_physics import (
@@ -607,7 +608,10 @@ class FusedRollout:
     def rollout(self, sim_state_K: SimState, params_K: ModelParams, V_khn: torch.Tensor):
         """sim_state_K: SimState with leading K; params_K: ModelParams (K,·);
         V_khn: (K, H, nu). → (costs (K,H), vis (H,K,3))."""
-        return self.run(*self.pack(sim_state_K, params_K, V_khn))
+        with span("k1.pack"):
+            packed = self.pack(sim_state_K, params_K, V_khn)
+        with span("k1.launch"):
+            return self.run(*packed)
 
     def _check_inputs(self, rows, V, mass, fric):
         ks, K, dev = self.ks, self.K, rows.device
@@ -755,20 +759,25 @@ class FusedWorldStep:
             return one.map(lambda x: x[0])
         A, D, B = self.ks.nactor, self.ks.ndof, self.ks.nbody
         NS, N = self.ks.n_state_rows, state.q.shape[0]
-        out = self.step_rows(
-            self.pack(state).contiguous(), state.dof_target.to(torch.float32).T.contiguous(),
-            params.body_mass_scale.to(torch.float32).T.contiguous(),
-            params.geom_friction.to(torch.float32).T.contiguous(),
-        ).T.contiguous()
-        st = state.with_root_state(out[:, : 13 * A].reshape(N, A, 13))
-        st = st.replace(
-            q=out[:, 13 * A: 13 * A + D],
-            qd=out[:, 13 * A + D: 13 * A + 2 * D],
-            net_contact_force=out[:, 13 * A + 2 * D: NS].reshape(N, B, 3),
-        )
-        lam = state.contact_lam
-        if self.ks.n_fc and lam is not None and tuple(lam.shape[1:]) == (self.ks.n_con, 4):
-            lam = lam.clone()
-            lam[:, self._tables.fc(lam.device)] = out[:, NS:].reshape(N, -1, 4)
-            st = st.replace(contact_lam=lam)
-        return self.engine.refresh(st)
+        with span("k2.pack"):
+            packed = (self.pack(state).contiguous(),
+                      state.dof_target.to(torch.float32).T.contiguous(),
+                      params.body_mass_scale.to(torch.float32).T.contiguous(),
+                      params.geom_friction.to(torch.float32).T.contiguous())
+        with span("k2.launch"):
+            out = self.step_rows(*packed)
+        with span("k2.unpack"):
+            out = out.T.contiguous()
+            st = state.with_root_state(out[:, : 13 * A].reshape(N, A, 13))
+            st = st.replace(
+                q=out[:, 13 * A: 13 * A + D],
+                qd=out[:, 13 * A + D: 13 * A + 2 * D],
+                net_contact_force=out[:, 13 * A + 2 * D: NS].reshape(N, B, 3),
+            )
+            lam = state.contact_lam
+            if self.ks.n_fc and lam is not None and tuple(lam.shape[1:]) == (self.ks.n_con, 4):
+                lam = lam.clone()
+                lam[:, self._tables.fc(lam.device)] = out[:, NS:].reshape(N, -1, 4)
+                st = st.replace(contact_lam=lam)
+        with span("world.refresh"):
+            return self.engine.refresh(st)

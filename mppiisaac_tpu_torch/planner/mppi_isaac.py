@@ -38,6 +38,7 @@ from ..runtime.sim import Simulation, broadcast_state, sample_model_params
 from ..runtime.transport import bytes_to_torch, torch_to_bytes
 from ..utils.config_store import ExampleConfig
 from ..utils.device_cache import refresh_cached
+from ..utils.profiling import span
 from .observables import SimView
 
 
@@ -174,8 +175,9 @@ class MPPIisaacPlanner:
         return action
 
     def compute_action_from_state(self, world_state) -> torch.Tensor:
-        self.objective.reset()
-        return self._finish(*self._full(self.mppi.carry, world_state))
+        with span("planner.command"):
+            self.objective.reset()
+            return self._finish(*self._full(self.mppi.carry, world_state))
 
     def _command_from_current_state(self) -> torch.Tensor:
         return self._finish(*self.mppi._command_impl(self.mppi.carry,
@@ -215,14 +217,16 @@ class MPPIisaacPlanner:
     def reset_rollout_from_state(self, world_state):
         """A 1-env world SimState, broadcast K-wide, as the rollout sim's
         state."""
-        self.sim.state = broadcast_state(world_state.map(lambda x: x[0]),
-                                         self.cfg.mppi.num_samples)
+        with span("planner.broadcast"):
+            self.sim.state = broadcast_state(world_state.map(lambda x: x[0]),
+                                             self.cfg.mppi.num_samples)
 
     def compute_action_tensor(self, dof_state_tensor, root_state_tensor) -> bytes:
         """The RPC entry: state bytes in, action bytes out."""
-        self.objective.reset()
-        self.reset_rollout_sim(dof_state_tensor, root_state_tensor)
-        return self.command()
+        with span("planner.command"):
+            self.objective.reset()
+            self.reset_rollout_sim(dof_state_tensor, root_state_tensor)
+            return self.command()
 
     def command(self) -> bytes:
         return torch_to_bytes(self._command_from_current_state())

@@ -29,7 +29,7 @@ from ..ops.fused_rollout import FusedRollout, FusedWorldStep
 from ..physics.types import SIM_STATE_FIELDS, SimState
 from ..planner.mppi_isaac import MPPIisaacPlanner
 from ..utils.config_store import ExampleConfig
-from ..utils.profiling import graph_nodes
+from ..utils.profiling import graph_nodes, paused, span
 from .sim import Simulation
 
 
@@ -95,34 +95,36 @@ def run_steps(world: Simulation, act: Callable, n: int, dt: float,
     metrics = LoopMetrics()
     prev_pos = None
     for step in range(n):
-        t0 = time.perf_counter()
-        action = act(world.state)
-        _sync(device)
-        t1 = time.perf_counter()
-        world.apply_robot_cmd(action)
-        world.step()
-        rp = world.state.root_pos[0, 0].cpu().numpy()
-        t2 = time.perf_counter()
+        with span("loop.step"):
+            t0 = time.perf_counter()
+            action = act(world.state)
+            _sync(device)
+            t1 = time.perf_counter()
+            world.apply_robot_cmd(action)
+            world.step()
+            with span("loop.readback"):
+                rp = world.state.root_pos[0, 0].cpu().numpy()
+            t2 = time.perf_counter()
 
-        metrics.solver_time.append(t1 - t0)
-        actual = t2 - t0
-        metrics.fps.append(1.0 / max(actual, 1e-9))
-        metrics.rt_factor.append(dt / max(actual, 1e-9))
-        metrics.steps = metrics.commands = step + 1
-        if prev_pos is not None:
-            metrics.path_length += float(np.linalg.norm(rp - prev_pos))
-        prev_pos = rp
+            metrics.solver_time.append(t1 - t0)
+            actual = t2 - t0
+            metrics.fps.append(1.0 / max(actual, 1e-9))
+            metrics.rt_factor.append(dt / max(actual, 1e-9))
+            metrics.steps = metrics.commands = step + 1
+            if prev_pos is not None:
+                metrics.path_length += float(np.linalg.norm(rp - prev_pos))
+            prev_pos = rp
 
-        if observer is not None:
-            observer(step, world, action)
-        if verbose:
-            print(
-                f"step {step}: FPS {metrics.fps[-1]:8.1f}  RT {metrics.rt_factor[-1]:6.2f}  "
-                f"solver {metrics.solver_time[-1]*1e3:7.2f} ms"
-            )
-        if success_fn is not None and metrics.success_step is None and success_fn(world):
-            metrics.success_step = step
-            break
+            if observer is not None:
+                observer(step, world, action)
+            if verbose:
+                print(
+                    f"step {step}: FPS {metrics.fps[-1]:8.1f}  RT {metrics.rt_factor[-1]:6.2f}  "
+                    f"solver {metrics.solver_time[-1]*1e3:7.2f} ms"
+                )
+            if success_fn is not None and metrics.success_step is None and success_fn(world):
+                metrics.success_step = step
+                break
         if real_time and actual < dt:
             time.sleep(dt - actual)
     metrics.final_state_finite = bool(all(torch.isfinite(t).all() for t in world.state.tensors()))
@@ -337,7 +339,7 @@ class DeviceChunk:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with paused(), torch.cuda.graph(graph):
             self._info = self._step()
         after = _counts()
         self._delta = tuple(a - b for a, b in zip(after, before))
@@ -360,17 +362,19 @@ class DeviceChunk:
                                "update_mppi_params or add_to_env) after this chunk was built: "
                                "build a new DeviceChunk")
         k = min(self.n, int(n_steps))
-        key, draws = mppi.draws(mppi.carry.key, k)
+        with span("chunk.draws"):
+            key, draws = mppi.draws(mppi.carry.key, k)
         start = world.state
-        for f in self._fields:
-            self._state[f].copy_(getattr(start, f))
-        c = mppi.carry
-        self._U.copy_(c.U)
-        self._lam.copy_(c.lambda_)
-        self._sigma.copy_(c.sigma)
-        self._t0.copy_(c.t0)
-        self._draws[:k].copy_(torch.from_numpy(draws))
-        self._slot.zero_()
+        with span("chunk.load"):
+            for f in self._fields:
+                self._state[f].copy_(getattr(start, f))
+            c = mppi.carry
+            self._U.copy_(c.U)
+            self._lam.copy_(c.lambda_)
+            self._sigma.copy_(c.sigma)
+            self._t0.copy_(c.t0)
+            self._draws[:k].copy_(torch.from_numpy(draws))
+            self._slot.zero_()
         if self.device.type == "cuda":
             sig = repr(mppi.cfg)
             if mppi.fused is None:
@@ -378,28 +382,35 @@ class DeviceChunk:
                 sig += f"|{id(obj)}|{getattr(obj, 'weights', None)!r}"
             todo, info = k, self._info
             if self._graph is None or sig != self._signature:
-                info = self._capture()
+                with span("chunk.capture"):
+                    info = self._capture()
                 self._signature = sig
                 todo -= 1
-            for _ in range(todo):
-                self._graph.replay()
+            with span("chunk.replay"):
+                for _ in range(todo):
+                    self._graph.replay()
             _add_counts(self._delta, todo)
             if todo:
                 info = self._info          # the graph's outputs, from the last replay
         else:
-            for _ in range(k):
-                info = self._step()
-        packed = self._out[:k].to("cpu", copy=True).numpy()      # the one fetch
-        mppi.carry = MppiCarry(U=self._U.clone(), lambda_=self._lam.clone(),
-                               sigma=self._sigma.clone(), t0=self._t0.clone(), key=key)
-        world.state = SimState(**{f: t.clone() for f, t in self._state.items()})
-        mppi.last_info = {n: v.clone() for n, v in info.items()}
-        planner._last_vis = mppi.last_info.get("vis")
-        states, actions = self._unpack(packed)
+            with span("chunk.replay"):     # the same steps, run eagerly
+                for _ in range(k):
+                    info = self._step()
+        with span("chunk.fetch"):
+            packed = self._out[:k].to("cpu", copy=True).numpy()      # the one fetch
+        with span("chunk.store"):
+            mppi.carry = MppiCarry(U=self._U.clone(), lambda_=self._lam.clone(),
+                                   sigma=self._sigma.clone(), t0=self._t0.clone(), key=key)
+            world.state = SimState(**{f: t.clone() for f, t in self._state.items()})
+            mppi.last_info = {n: v.clone() for n, v in info.items()}
+            planner._last_vis = mppi.last_info.get("vis")
+        with span("chunk.unpack"):
+            states, actions = self._unpack(packed)
         # the rollout sim as the last command left it: K-wide, the state the
         # command planned from
-        last_from = start if k == 1 else states[k - 2].map(lambda x: x.to(self.device))
-        planner.reset_rollout_from_state(last_from)
+        with span("chunk.rebroadcast"):
+            last_from = start if k == 1 else states[k - 2].map(lambda x: x.to(self.device))
+            planner.reset_rollout_from_state(last_from)
         return states, actions
 
     def _unpack(self, packed):
@@ -426,31 +437,33 @@ def _run_chunked(chunk: DeviceChunk, n: int, dt: float, success_fn=None, verbose
     step = 0
     prev_pos = None
     while step < n:
-        t0 = time.perf_counter()
-        planner.objective.reset()
-        states, actions = chunk.run(n - step)
-        t1 = time.perf_counter()
-        k = len(states)
-        metrics.commands += k
-        per = (t1 - t0) / k
-        for i in range(k):
-            metrics.solver_time.append(per)
-            metrics.fps.append(1.0 / max(per, 1e-9))
-            metrics.rt_factor.append(dt / max(per, 1e-9))
-            metrics.steps = step + 1
-            rp = states[i].root_pos[0, 0].numpy()
-            if prev_pos is not None:
-                metrics.path_length += float(np.linalg.norm(rp - prev_pos))
-            prev_pos = rp
-            if chunk_observer is not None:
-                chunk_observer(step, _StateProxy(world, states[i]), actions[i])
-            if success_fn is not None and metrics.success_step is None \
-                    and success_fn(_StateProxy(world, states[i])):
-                metrics.success_step = step
-                # rewind the live world to the success step
-                world.state = states[i].map(lambda x: x.to(world.device))
-                break
-            step += 1
+        with span("loop.chunk", steps=min(chunk.n, n - step)):
+            t0 = time.perf_counter()
+            planner.objective.reset()
+            states, actions = chunk.run(n - step)
+            t1 = time.perf_counter()
+            k = len(states)
+            metrics.commands += k
+            per = (t1 - t0) / k
+            with span("loop.observe"):
+                for i in range(k):
+                    metrics.solver_time.append(per)
+                    metrics.fps.append(1.0 / max(per, 1e-9))
+                    metrics.rt_factor.append(dt / max(per, 1e-9))
+                    metrics.steps = step + 1
+                    rp = states[i].root_pos[0, 0].numpy()
+                    if prev_pos is not None:
+                        metrics.path_length += float(np.linalg.norm(rp - prev_pos))
+                    prev_pos = rp
+                    if chunk_observer is not None:
+                        chunk_observer(step, _StateProxy(world, states[i]), actions[i])
+                    if success_fn is not None and metrics.success_step is None \
+                            and success_fn(_StateProxy(world, states[i])):
+                        metrics.success_step = step
+                        # rewind the live world to the success step
+                        world.state = states[i].map(lambda x: x.to(world.device))
+                        break
+                    step += 1
         if verbose:
             print(f"chunk @{metrics.steps}: {per * 1e3:7.2f} ms/step  RT {dt / max(per, 1e-9):6.2f}")
         if metrics.success_step is not None:

@@ -26,6 +26,7 @@ from ..planner.observables import SimView
 from ..scene.actor import ActorSpec, load_actor_cfgs
 from ..scene.builder import BuiltScene, SimConfig, build_scene
 from ..utils.config_store import actors_conf_dir
+from ..utils.profiling import span
 
 
 def broadcast_state(state: SimState, K: int) -> SimState:
@@ -198,7 +199,8 @@ class Simulation:
         or `Engine.step` over them (fused_world=False)."""
         if self._world_step is None:
             raise RuntimeError("the simulation was stopped (stop_sim): start_sim builds it anew")
-        return self._world_step.step(state, self.params)
+        with span("world.step"):
+            return self._world_step.step(state, self.params)
 
     # ------------------------------------------------------------------
     def _f32(self, x) -> torch.Tensor:

@@ -1,15 +1,24 @@
-"""Phase timers, a profiler trace, and the node count of a CUDA graph
-(parity with the JAX package's `utils/profiling.py`).
+"""The port's spans, a profiler trace, and the node count of a CUDA graph.
 
 Usage:
-    prof = PhaseProfiler()
-    with prof.phase("sample"): ...
-    with prof.phase("rollout"): ...
-    print(prof.report())
+    with span("loop.chunk", steps=k): ...     # records only under torch.profiler
 
     with trace("chiprun_out/trace") as t:     # open trace.json in Perfetto
         run_task(cfg, obj, n_steps=32, device_steps=16)
     print(t.idle_share)
+    print(spans())                           # the spans the traced block recorded
+
+`span(name, **attrs)` marks one phase of the program. It records only while
+`torch.profiler` records on the calling thread; otherwise it is one shared
+no-op object behind one flag check (under 1 µs with its `with`: a bare
+`record_function` costs about 10 µs even with the profiler off, so it is
+never entered unguarded). A live span enters `record_function(name)`, which
+puts it on the profiler's timeline beside the device's kernels, and appends
+one `SpanRecord` to a bounded list in memory (`spans()`, `clear()`; past
+SPAN_CAP records it drops them and counts them in `dropped`). The
+benchmark's readers (`cellbench/metrics/*_host_ms.py`) read that list. A
+span name never holds a kernel's name: the benchmark finds a kernel's
+launches by a fragment of it.
 
 `trace` runs `torch.profiler` with CPU and, where the device is a GPU, CUDA
 activities, writes a Chrome trace, and gives the device's busy time and idle
@@ -21,6 +30,7 @@ import contextlib
 import ctypes
 import os
 import subprocess
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -28,46 +38,112 @@ from typing import Dict, List, Optional
 
 import torch
 
+SPAN_CAP = 65536           # records kept in memory; later ones are dropped
+_profiling = torch._C._autograd._profiler_enabled
 
-class PhaseProfiler:
-    def __init__(self):
-        self.times: Dict[str, List[float]] = defaultdict(list)
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[name].append(time.perf_counter() - t0)
+@dataclass
+class SpanRecord:
+    """One span: start and end on `time.perf_counter_ns` (the host clock of
+    the benchmark's timings; end 0 while open), `parent` the index in
+    `spans()` of the span it opened in (-1 for a root), `root` the index of
+    its root: the request, one control step or one chunk."""
 
-    def report(self) -> str:
-        import numpy as np
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    root: int
+    attrs: dict
 
-        lines = []
-        for name, ts in self.times.items():
-            a = np.asarray(ts) * 1e3
-            lines.append(
-                f"{name:>12}: n={len(a):4d}  mean {a.mean():8.2f} ms  "
-                f"p50 {np.percentile(a, 50):8.2f}  p95 {np.percentile(a, 95):8.2f}"
-            )
-        return "\n".join(lines)
 
-    def summary(self) -> dict:
-        import numpy as np
+_records: List[SpanRecord] = []
+_lock = threading.Lock()
+_open = threading.local()           # per thread: the stack of open spans' (index, root)
+_paused = 0
+dropped = 0                         # records past SPAN_CAP since the last clear()
+_OFF = contextlib.nullcontext()      # the span when nothing records: shared
 
-        return {
-            name: {"mean_ms": float(np.mean(ts) * 1e3), "n": len(ts)}
-            for name, ts in self.times.items()
-        }
+
+class _Span:
+    __slots__ = ("_name", "_attrs", "_fn", "_rec")
+
+    def __init__(self, name: str, attrs: dict):
+        self._name, self._attrs = name, attrs
+
+    def __enter__(self):
+        global dropped
+        self._fn = torch.profiler.record_function(self._name)
+        self._fn.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent, root = stack[-1] if stack else (-1, -1)
+        rec = SpanRecord(self._name, time.perf_counter_ns(), 0, parent, root, self._attrs)
+        with _lock:
+            if len(_records) < SPAN_CAP:
+                i = len(_records)
+                _records.append(rec)
+            else:
+                i, rec = -1, None
+                dropped += 1
+        if rec is not None and root < 0:
+            rec.root = root = i
+        self._rec = rec
+        stack.append((i, root))
+        return self
+
+    def __exit__(self, *exc):
+        if self._rec is not None:
+            self._rec.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        self._fn.__exit__(*exc)
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager over one phase of the program, recorded only while
+    torch.profiler records and no `paused()` block is open."""
+    if _paused or not _profiling():
+        return _OFF
+    return _Span(name, attrs)
+
+
+@contextlib.contextmanager
+def paused():
+    """No span records inside the block: a CUDA graph capture takes no
+    span or annotation."""
+    global _paused
+    _paused += 1
+    try:
+        yield
+    finally:
+        _paused -= 1
+
+
+def spans() -> List[SpanRecord]:
+    """The spans recorded since the last `clear()`, in the order they
+    opened."""
+    with _lock:
+        return list(_records)
+
+
+def clear():
+    """Forget the recorded spans and the dropped count (call it with no span
+    open)."""
+    global dropped
+    with _lock:
+        _records.clear()
+        dropped = 0
 
 
 @dataclass
 class TraceResult:
     """Filled when the `trace` block ends. window_s: the block's wall time
-    (ended by a device synchronise); device_busy_s: the summed self time of
-    the device's kernels and copies (0 without a GPU); kernels: device
-    (name → (calls, seconds)), largest first."""
+    (ended by a device synchronise); device_busy_s: the summed time of the
+    device's kernels and copies (0 without a GPU); kernels: device
+    (name → (calls, seconds)), largest first. Neither counts the marks that
+    spans leave on the device's timeline (`device_time`)."""
 
     path: str = ""
     window_s: float = 0.0
@@ -103,11 +179,23 @@ def trace(log_dir: str, name: str = "trace.json"):
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(res.path)
     if cuda:
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        res.device_busy_s = sum(e.self_device_time_total for e in events) / 1e6
-        res.kernels = {e.key: (e.count, e.self_device_time_total / 1e6)
-                       for e in sorted(events, key=lambda e: -e.self_device_time_total)}
+        res.device_busy_s, res.kernels = device_time(prof.events())
+
+
+def device_time(events):
+    """The device's kernels and copies among torch.profiler events → (busy
+    seconds, {name: (calls, seconds)} largest first). A `record_function`
+    span leaves a mark on the device's timeline over the work it launched
+    (a user annotation): that is no work, and is left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e.device_type == cuda and not getattr(e, "is_user_annotation", False):
+            k = by_name[e.name]
+            k[0] += 1
+            k[1] += (e.time_range.end - e.time_range.start) / 1e6
+    kernels = {n: (c, t) for n, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])}
+    return sum(t for _, t in kernels.values()), kernels
 
 
 def card() -> Dict[str, Optional[str]]:

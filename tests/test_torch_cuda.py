@@ -626,6 +626,52 @@ def test_chunk_equals_the_per_step_loop(panda, task):
                 assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
 
 
+def test_chunk_capture_under_the_profiler_takes_no_span(panda):
+    """A chunk whose graph is captured under torch.profiler: the capture is
+    one `chunk.capture` span, whose only world step is the warm-up's (no
+    span enters the capture), the next chunk replays; the spans' marks on
+    the device's timeline are user annotations, which `device_time` leaves
+    out; the actions equal an unprofiled chunk's bit for bit."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import DeviceChunk, goal_world
+    from mppiisaac_tpu_torch.utils import profiling
+
+    cfg = load_config("tasks/panda")
+    runs = []
+    for profiled in (True, False):
+        world = goal_world(cfg, "cuda")
+        planner = MPPIisaacPlanner(cfg, PandaReachObjective(cfg), device="cuda")
+        chunk = DeviceChunk(world, planner, 4)
+        profiling.clear()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with prof if profiled else contextlib.nullcontext():
+            actions = np.concatenate([chunk.run(4)[1], chunk.run(4)[1]])
+            torch.cuda.synchronize()
+        runs.append(actions)
+        if not profiled:
+            assert profiling.spans() == []
+            continue
+        recs = profiling.spans()
+        names = [r.name for r in recs]
+        assert chunk.captures == 1 and names.count("chunk.capture") == 1
+        cap = names.index("chunk.capture")
+        c = recs[cap]
+        under = [r.name for r in recs
+                 if r.root == c.root and c.start_ns <= r.start_ns and r.end_ns <= c.end_ns]
+        assert under.count("world.step") == under.count("k1.launch") == 1
+        assert names.count("chunk.replay") == 2
+        marks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name in set(names)]
+        assert marks and all(e.is_user_annotation for e in marks)
+        busy, kernels = profiling.device_time(prof.events())
+        assert busy > 0 and not set(kernels) & set(names)
+    assert np.array_equal(runs[0], runs[1])
+
+
 def test_chunk_sees_online_changes_on_the_card(panda):
     """On the card, between two chunks: `update_weights` re-packs the tables
     the captured graph reads (no new capture), a changed solver config is

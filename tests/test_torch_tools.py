@@ -1,7 +1,7 @@
 """The port's tools around the control loop, on the CPU:
 
-* `utils/profiling`: PhaseProfiler and `trace` (torch.profiler, a Chrome
-  trace; no device time without a GPU);
+* `utils/profiling`: `trace` (torch.profiler, a Chrome trace with the
+  program's spans; no device time without a GPU);
 * `benchmarks/runner`: the point_robot and panda benchmarks for 2 short
   trials at a small K and H, with the goals and obstacles the JAX runner
   draws from the same seed (the JAX runner's planner and world stubbed: the
@@ -25,27 +25,23 @@ from mppiisaac_tpu_torch.runtime.server import Client, Server
 from mppiisaac_tpu_torch.tasks import tuning
 from mppiisaac_tpu_torch.tasks.point_robot import PointRobotObjective
 from mppiisaac_tpu_torch.utils.config_store import load_config
-from mppiisaac_tpu_torch.utils.profiling import PhaseProfiler, trace
+from mppiisaac_tpu_torch.utils.profiling import span, trace
 
 torch.set_num_threads(1)
 SMALL = ["mppi.num_samples=16", "mppi.horizon=4"]
 
 
 def test_phase_profiler_and_trace(tmp_path):
-    prof = PhaseProfiler()
-    for _ in range(3):
-        with prof.phase("a"):
-            torch.ones(8).sum()
-    with prof.phase("b"):
-        pass
-    s = prof.summary()
-    assert s["a"]["n"] == 3 and s["b"]["n"] == 1 and s["a"]["mean_ms"] >= 0.0
-    assert [ln.split(":")[0].strip() for ln in prof.report().splitlines()] == ["a", "b"]
+    """`trace`: the Chrome trace holds the block's ops and the program's
+    spans; without a GPU no device time."""
     with trace(str(tmp_path), "t.json") as t:
-        (torch.randn(64, 64) @ torch.randn(64, 64)).sum()
+        with span("loop.step"):
+            (torch.randn(64, 64) @ torch.randn(64, 64)).sum()
     doc = json.loads((tmp_path / "t.json").read_text())
-    assert any("mm" in str(e.get("name", "")) for e in doc["traceEvents"])
+    names = [str(e.get("name", "")) for e in doc["traceEvents"]]
+    assert any("mm" in n for n in names) and "loop.step" in names
     assert t.window_s > 0 and t.device_busy_s == 0.0 and t.idle_share is None
+    assert t.kernels == {}
 
 
 class _StubAdapter:
