@@ -249,6 +249,15 @@ Phases (any failure exits non-zero before the result line):
      the port plain's own rounding at that record: the larger of its
      float32-vs-float64 drift and its envelope under one float32 rounding of
      the state.
+Every K2 hold (hold_k2s: phases 6 and 8-17; hold_batch: 17e and 19c) and
+phase 21's world steps also hold the body caches K2's epilogue writes
+(positions, quaternions, linear and angular velocities of the stepped
+state) against `engine.refresh` of the same state, each within the larger
+of 1e-5 and 10× the float32 refresh's own drift from a float64 refresh
+(body_cache_gaps); a batch's body rows of envs 0, N/2 and N−1 bit for bit
+their one-env launches'. Phase 18 times K2 with its body rows beside K2
+without them (`body_rows_ms`), and the run fails if a world step on the card
+took its body caches from the torch refresh (FusedWorldStep.torch_refreshes).
 Each kernel's bound — the least time the card could take for the same work —
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s; the operations are
@@ -699,6 +708,35 @@ def timed_plain(fn, *args, **kw):
     return out, (time.perf_counter() - t) * 1e3
 
 
+BODY_CACHES = ("body_pos", "body_quat", "body_linvel", "body_angvel")
+
+
+def body_cache_gaps(engine, st):
+    """K2's body caches in the stepped SimState `st` against
+    `engine.refresh` of the same state. → {cache: (max |d|, bound)}, each
+    bound the larger of 1e-5 and 10× the float32 refresh's own max |d| from
+    a float64 refresh of the same state."""
+    r32 = engine.refresh(st)
+    r64 = engine.refresh(st.map(lambda x: x.double() if x.is_floating_point() else x))
+    out = {}
+    for f in BODY_CACHES:
+        got, ref = getattr(st, f).double(), getattr(r32, f).double()
+        drift = (ref - getattr(r64, f)).abs().max().item()
+        out[f] = ((got - ref).abs().max().item(), max(1e-5, 10 * drift))
+    return out
+
+
+def hold_bodies(name, engine, st):
+    """Fail unless K2's body caches in `st` are within body_cache_gaps's
+    bounds. → the largest |d|."""
+    gaps = body_cache_gaps(engine, st)
+    print(f"  {name}: K2's body caches against engine.refresh: max|d| " + ", ".join(
+        f"{f[5:]} {e:.2e} (bound {b:.2e})" for f, (e, b) in gaps.items()), flush=True)
+    if not all(e <= b for e, b in gaps.values()):
+        fail(f"{name}: K2's body caches disagree with engine.refresh")
+    return max(e for e, _ in gaps.values())
+
+
 def hold_k2s(fw, cases, n):
     """K2 against its plain version over n world steps from each case's
     state: cases [(name, s0, tgt_of, bound)]. The kernel steps each state on
@@ -706,8 +744,10 @@ def hold_k2s(fw, cases, n):
     side, one env per column (envs are independent). Max |d| by row group
     (pose, vel, lam), checked against each `bound`; where the scene has λ
     rows, the plain version must leave an impulse in them after one of the
-    steps at least. → {name: (the largest group's |d|, the last step's
-    kernel inputs, the plain version's ms per step for all the states)}."""
+    steps at least. The kernel writes its body rows at every step; the last
+    step's are held against engine.refresh (hold_bodies). → {name: (the
+    largest group's |d|, the last step's kernel inputs, the plain version's
+    ms per step for all the states)}."""
     from mppiisaac_tpu_torch.ops.fused_rollout import world_step_plain
 
     ks = fw.ks
@@ -715,6 +755,7 @@ def hold_k2s(fw, cases, n):
     ones_b = torch.ones(ks.nbody, device=dev)
     ones_g = torch.ones(ks.ngeom, device=dev)
     r = [fw.pack(s0).contiguous() for _, s0, _, _ in cases]
+    body = [torch.empty(13 * ks.nbody, device=dev) for _ in cases]
     rp = torch.stack(r, 1)
     N = len(cases)
     NS = ks.n_state_rows
@@ -722,7 +763,7 @@ def hold_k2s(fw, cases, n):
     plain_ms = 0.0
     for i in range(n):
         tgt = [tgt_of(i) for _, _, tgt_of, _ in cases]
-        r = [fw.step_rows(rc, tc, ones_b, ones_g) for rc, tc in zip(r, tgt)]
+        r = [fw.step_rows(rc, tc, ones_b, ones_g, body=bc) for rc, tc, bc in zip(r, tgt, body)]
         with Timer() as t:
             rp = world_step_plain(ks, rp, torch.stack(tgt), ones_b.expand(N, -1),
                                   ones_g.expand(N, -1), fw.substeps, fw.dt_sub, fw.impulse_sweeps)
@@ -745,6 +786,8 @@ def hold_k2s(fw, cases, n):
         # the λ rows took part: an impulse after one of the steps at least
         if ks.n_fc and float(lam[j]) == 0.0:
             fail(f"{name}: no λ row carried a contact impulse")
+        s0 = cases[j][1].map(lambda x: x[None])
+        hold_bodies(name, fw.engine, fw.unpack(s0, r[j][:, None], body[j][:, None]))
         out[name] = (max(groups.values()), (r[j], tgt[j], ones_b, ones_g), plain_ms)
     return out
 
@@ -2240,8 +2283,10 @@ def hold_batch(name, sim, n):
     launch on their inputs, and the batch against the plain version on a
     slice of BATCH_PLAIN_ENVS envs, within 10× that slice's own
     float32-vs-float64 drift over the same steps (floor 1e-6) by row
-    group; the λ rows must carry an impulse. → (the largest group's |d|,
-    the kernel's inputs of the first step)."""
+    group; the λ rows must carry an impulse. Each launch writes its body
+    rows, the three envs' bit for bit their one-env launches', and the last
+    step's are held against engine.refresh (hold_bodies). → (the largest
+    group's |d|, the kernel's inputs of the first step)."""
     from mppiisaac_tpu_torch.ops.fused_rollout import world_step_plain
 
     fw = sim._world_step
@@ -2254,12 +2299,14 @@ def hold_batch(name, sim, n):
     idx = torch.arange(0, N, max(1, N // BATCH_PLAIN_ENVS), device=rows.device)[:BATCH_PLAIN_ENVS]
     plain_in = {dt: [x[:, idx].to(dt) for x in k2_in] for dt in (torch.float32, torch.float64)}
     rp = {dt: v[0] for dt, v in plain_in.items()}
+    body = torch.empty(13 * ks.nbody, N, device=rows.device)
+    body1 = torch.empty(13 * ks.nbody, device=rows.device)
     for _ in range(n):
-        out = fw.step_rows(rows, tgt, mass, fric)
+        out = fw.step_rows(rows, tgt, mass, fric, body=body)
         for e in (0, N // 2, N - 1):
             one = fw.step_rows(rows[:, e].contiguous(), tgt[:, e].contiguous(),
-                               mass[:, e].contiguous(), fric[:, e].contiguous())
-            if not torch.equal(one, out[:, e]):
+                               mass[:, e].contiguous(), fric[:, e].contiguous(), body=body1)
+            if not (torch.equal(one, out[:, e]) and torch.equal(body1, body[:, e])):
                 fail(f"{name}: env {e} of the batched K2 differs from its one-env launch")
         rows = out
         for dt, (_, t, m, f) in plain_in.items():
@@ -2278,6 +2325,7 @@ def hold_batch(name, sim, n):
         fail(f"{name}: the batched K2 disagrees with its plain version")
     if ks.n_fc and float(rp[torch.float32][ks.n_state_rows:].abs().max()) == 0.0:
         fail(f"{name}: no λ row carried a contact impulse")
+    hold_bodies(name, fw.engine, fw.unpack(sim.state, rows, body))
     return max(err.values()), k2_in
 
 
@@ -3188,6 +3236,7 @@ def jackal_records(dev):
         ws = SimState(**{f: t(f"before.{f}") for f in SIM_STATE_FIELDS if f"before.{f}" in d})
         action, new, info = planner._full(carry, ws)
         st = world.stepped(world.commanded(ws, t("card.action")[None]))
+        hold_bodies(f"[21] seed {int(d['seed'][i])} step {int(d['step'][i])}", fw.engine, st)
         outs.append(({"costs": info["rollout_costs"].cpu(), "S": info["costs"].cpu(),
                       "U": new.U.cpu(), "action": action.reshape(-1).cpu()},
                      out_rows(fw, st).cpu()))
@@ -3323,6 +3372,8 @@ def smoke(dev, root, pool, native):
             r.update(r.pop("finish")())
         fr, fw, k1_in, k2_in = r["fr"], r["fw"], r["k1_in"], r["k2_in"]
         k1_ms, k2_ms = cuda_time_ms(lambda: fr.run(*k1_in)), cuda_time_ms(lambda: fw.step_rows(*k2_in))
+        body = torch.empty(13 * fw.ks.nbody, device=dev)
+        k2b_ms = cuda_time_ms(lambda: fw.step_rows(*k2_in, body=body))
         if r["plain"] is None:
             plain = (cuda_time_ms(lambda: fr.plain(*k1_in), reps=5, warmup=1),
                      cuda_time_ms(lambda: fw.plain(*k2_in), reps=5, warmup=1))
@@ -3332,7 +3383,8 @@ def smoke(dev, root, pool, native):
         print(f"[18] {r['key']}: K1 {k1_ms:.3f} ms vs plain {plain[0]:.3f} ms; K2 {k2_ms:.3f} ms "
               f"vs plain {plain[1]:.3f} ms (kernels: medians); bounds: K1 {b1[0]:.6f} ms ({b1[1]}: "
               f"{b1[2]:.4g} flop, {b1[3]} B, live block share {b1[4]:.3f}), K2 {b2[0]:.6f} ms "
-              f"({b2[1]}: {b2[2]:.4g} flop, {b2[3]} B, live block share {b2[4]:.3f})", flush=True)
+              f"({b2[1]}: {b2[2]:.4g} flop, {b2[3]} B, live block share {b2[4]:.3f}); K2 with "
+              f"its body rows {k2b_ms:.3f} ms (the epilogue {k2b_ms - k2_ms:+.3f} ms)", flush=True)
         earlier = EARLIER_MS.get(r["key"])
         W, tables = fr.warps(dev), len(fr._tables._bytes)
         geom = ((W, tables + W * fr.warp_bytes), (1, tables + fw.warp_bytes))
@@ -3351,6 +3403,7 @@ def smoke(dev, root, pool, native):
                 "launches": n, "max_abs_err": e, "ms": tk, "plain_ms": tp,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
                 "warps_per_block": wpb, "smem_bytes": smem, **extra})
+        entries[-1]["body_rows_ms"] = k2b_ms
     # the batched K2 (the balls at BALLS_ENVS envs) and the bench's K1 (H=30)
     fw, k2_in = batch["fw"], batch["k2_in"]
     N = k2_in[0].shape[1]
@@ -3363,18 +3416,21 @@ def smoke(dev, root, pool, native):
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     wave_in = [x[:, : n_sm * W].contiguous() for x in k2_in]
     wave_ms = cuda_time_ms(lambda: fw.step_rows(*wave_in))
+    body = torch.empty(13 * fw.ks.nbody, N, device=dev)
+    k2b_ms = cuda_time_ms(lambda: fw.step_rows(*k2_in, body=body))
     print(f"[18] balls batch N={N}: K2 {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms; {W} warps per "
           f"block, {-(-N // W)} blocks on {n_sm} SMs, {tables + W * fw.warp_bytes} B shared; one "
           f"wave ({n_sm * W} envs, {n_sm} blocks) {wave_ms:.3f} ms; bound {b2[0]:.6f} ms ({b2[1]}: "
           f"{b2[2]:.4g} flop, {b2[3]} B, live block share {b2[4]:.3f}); "
-          f"{N / k2_ms * 1e3:.0f} env-steps/s in the kernel", flush=True)
+          f"{N / k2_ms * 1e3:.0f} env-steps/s in the kernel; with its body rows {k2b_ms:.3f} ms "
+          f"(the epilogue {k2b_ms - k2_ms:+.3f} ms)", flush=True)
     entries.append({
         "name": "fused_world_step_kernel", "path": f"balls_batch_N{N}", "route": "cuda",
         "source": src, "replaces": "mppiisaac_tpu/ops/pallas/fused_rollout.py:533",
         "launches": batch["n2"], "max_abs_err": batch["err"], "ms": k2_ms, "plain_ms": k2_plain,
         "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None, "warps_per_block": W,
         "smem_bytes": tables + W * fw.warp_bytes, "envs": N, "blocks": -(-N // W),
-        "one_wave_envs": n_sm * W, "one_wave_ms": wave_ms,
+        "one_wave_envs": n_sm * W, "one_wave_ms": wave_ms, "body_rows_ms": k2b_ms,
         "demo_ms_per_step": batch["demo"]["ms_per_step"],
         "demo_env_steps_per_s": batch["demo"]["env_steps_per_s"]})
     bench_hold(bench_run)
@@ -3410,6 +3466,13 @@ def smoke(dev, root, pool, native):
             e.update({"records_launches": n2 if k2 else n1,
                       "records_vs_jax_max_abs_err": (max(worst[k] for k in ("pose", "vel", "lam"))
                                                      if k2 else worst["costs_max"])})
+    from mppiisaac_tpu_torch.ops.fused_rollout import FusedWorldStep
+
+    refreshes = FusedWorldStep.torch_refreshes
+    print(f"    world steps whose body caches came from engine.refresh over the run: {refreshes}",
+          flush=True)
+    if refreshes:
+        fail("a fused world step on the card refreshed its body caches in torch, not in K2")
     print(f"    the whole run: {time.perf_counter() - t_start:.1f} s", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

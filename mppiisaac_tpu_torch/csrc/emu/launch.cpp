@@ -138,7 +138,7 @@ struct RolloutArgs {
 struct WorldArgs {
   const SceneTables* tables;
   const float *rows, *tgt, *mass, *fric;
-  float* out;
+  float *out, *body;
   int N, substeps, sweeps;
   float dt_sub;
 };
@@ -154,8 +154,8 @@ void rollout_t(void* p) {
 template <int AB>
 void world_t(void* p) {
   const WorldArgs& a = *static_cast<WorldArgs*>(p);
-  fused_world_step_kernel<AB>(a.tables, a.rows, a.tgt, a.mass, a.fric, a.out, a.N, a.substeps,
-                              a.dt_sub, a.sweeps, 1);
+  fused_world_step_kernel<AB>(a.tables, a.rows, a.tgt, a.mass, a.fric, a.out, a.body, a.N,
+                              a.substeps, a.dt_sub, a.sweeps, 1);
 }
 using Body = void (*)(void*);
 Body rollout_body(int mask) {
@@ -178,8 +178,8 @@ void rollout_k(void* p) {
 }
 void world_k(void* p) {
   const WorldArgs& a = *static_cast<WorldArgs*>(p);
-  fused_world_step_kernel(a.tables, a.rows, a.tgt, a.mass, a.fric, a.out, a.N, a.substeps,
-                          a.dt_sub, a.sweeps, 1);
+  fused_world_step_kernel(a.tables, a.rows, a.tgt, a.mass, a.fric, a.out, a.body, a.N,
+                          a.substeps, a.dt_sub, a.sweeps, 1);
 }
 using Body = void (*)(void*);
 Body rollout_body(int mask) { return mask == 0 ? rollout_k : nullptr; }
@@ -201,13 +201,13 @@ int rollout(int mask, const void* tables, const float* rows, const uint16_t* V, 
 }
 
 int world_step(int mask, const void* tables, const float* rows, const float* tgt,
-               const float* mass, const float* fric, float* out, int N, int substeps,
-               float dt_sub, int sweeps, int warp_bytes) {
+               const float* mass, const float* fric, float* out, float* body_out, int N,
+               int substeps, float dt_sub, int sweeps, int warp_bytes) {
   if ((long)sizeof(SceneTables) + warp_bytes > (long)sizeof(smem)) return 1;
   const Body body = world_body(mask);
   if (body == nullptr) return EMU_NO_VARIANT;
   emu::block_dim.x = 32;
-  WorldArgs a{(const SceneTables*)tables, rows, tgt, mass, fric, out, N, substeps,
+  WorldArgs a{(const SceneTables*)tables, rows, tgt, mass, fric, out, body_out, N, substeps,
               sweeps, dt_sub};
   for (int e = 0; e < N; ++e)
     if (int rc = run_block(e, body, &a)) return rc;
@@ -243,11 +243,12 @@ int emu_rollout(const void* tables, const float* rows, const uint16_t* V, const 
                  world, warp_bytes);
 }
 
-// K2 over N envs with one warp per block, block e running env e
+// K2 over N envs with one warp per block, block e running env e; body: the
+// body caches' rows (13·B, N), or null for none
 int emu_world_step(const void* tables, const float* rows, const float* tgt, const float* mass,
-                   const float* fric, float* out, int N, int substeps, float dt_sub, int sweeps,
-                   int warp_bytes) {
-  return world_step(0, tables, rows, tgt, mass, fric, out, N, substeps, dt_sub, sweeps,
+                   const float* fric, float* out, float* body, int N, int substeps,
+                   float dt_sub, int sweeps, int warp_bytes) {
+  return world_step(0, tables, rows, tgt, mass, fric, out, body, N, substeps, dt_sub, sweeps,
                     warp_bytes);
 }
 
@@ -261,9 +262,9 @@ int emu_rollout_ablate(int mask, const void* tables, const float* rows, const ui
 }
 
 int emu_world_step_ablate(int mask, const void* tables, const float* rows, const float* tgt,
-                          const float* mass, const float* fric, float* out, int N, int substeps,
-                          float dt_sub, int sweeps, int warp_bytes) {
-  return world_step(mask, tables, rows, tgt, mass, fric, out, N, substeps, dt_sub, sweeps,
+                          const float* mass, const float* fric, float* out, float* body, int N,
+                          int substeps, float dt_sub, int sweeps, int warp_bytes) {
+  return world_step(mask, tables, rows, tgt, mass, fric, out, body, N, substeps, dt_sub, sweeps,
                     warp_bytes);
 }
 #endif

@@ -800,13 +800,42 @@ fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __rest
 // code for both. An env's warp does the same arithmetic at any N, so each
 // env of a batch equals the one-env launch on its inputs bit for bit. Bound,
 // like K1, by the latency of one env's chain; the warp's lanes shorten it.
+//
+// Epilogue: where body_out is not null, the body caches of the stepped state
+// (physics/stacked.refresh_stacked's), from one more FK pass: 13·B rows per
+// env, env-fastest like rows_out, in the scene's body order: positions
+// [b·3 + i], then quaternions normalized [3B + b·4 + i], linear velocities of
+// the body origins [7B + b·3 + i], angular velocities [10B + b·3 + i]. The
+// refresh takes the velocities from the generalized coordinates alone, so a
+// root without any (a static actor, a fixed base) moves with none here too.
 // ---------------------------------------------------------------------------
+
+__device__ void write_bodies(const SceneTables& sc, Sample& s, const Kin& k, float* body_out,
+                             int N, int e, int lane) {
+  __syncwarp();  // every lane has read the root rows into rows_out
+  if (lane < sc.nactor && sc.actor_base[lane] == 0 && sc.actor_dynamic[lane] != ACTOR_FREE)
+    for (int i = 7; i < 13; ++i) s.root[lane][i] = 0.f;
+  __syncwarp();
+  fk(sc, s, k, lane);
+  const int B = sc.nbody;
+  for (int g = lane; g < B; g += 32) {
+    const float* q = k.quat[g];
+    const float n = fmaxf(sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]), 1e-12f);
+    for (int i = 0; i < 3; ++i) {
+      body_out[(3 * g + i) * N + e] = k.pos[g][i];
+      body_out[(7 * B + 3 * g + i) * N + e] = k.linv[g][i];
+      body_out[(10 * B + 3 * g + i) * N + e] = k.angv[g][i];
+    }
+    for (int i = 0; i < 4; ++i) body_out[(3 * B + 4 * g + i) * N + e] = q[i] / n;
+  }
+}
 
 AB_TEMPLATE __global__ void __launch_bounds__(256, 1)
 fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __restrict__ rows_in,
                         const float* __restrict__ tgt_in, const float* __restrict__ mass,
-                        const float* __restrict__ fric, float* __restrict__ rows_out, int N,
-                        int substeps, float dt_sub, int sweeps, int world) {
+                        const float* __restrict__ fric, float* __restrict__ rows_out,
+                        float* __restrict__ body_out, int N, int substeps, float dt_sub,
+                        int sweeps, int world) {
   extern __shared__ int smem[];
   SceneTables& sc = *reinterpret_cast<SceneTables*>(smem);
   load_tables(tables, &sc);
@@ -828,6 +857,7 @@ fused_world_step_kernel(const SceneTables* __restrict__ tables, const float* __r
   for (int it = 0; it < substeps; ++it)
     substep AB_ARG(sc, s, kin, sw, c, W, tgt, mass + e, fric + e, N, dt_sub, sweeps, world != 0);
   for (int r = lane; r < n_rows; r += 32) rows_out[r * N + e] = W.w[r];
+  if (body_out != nullptr) write_bodies(sc, s, kin, body_out, N, e, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -891,16 +921,18 @@ int fused_rollout_launch(const void* tables, const void* rows, const void* V, co
 }
 
 // N envs; warps: envs per block; warp_bytes: one env's region
+// body: the body caches' rows (13·B, N), or null for none
 int fused_world_step_launch(const void* tables, const void* rows, const void* tgt,
-                            const void* mass, const void* fric, void* out, int N, int substeps,
-                            float dt_sub, int sweeps, int warps, int warp_bytes, void* stream) {
+                            const void* mass, const void* fric, void* out, void* body, int N,
+                            int substeps, float dt_sub, int sweeps, int warps, int warp_bytes,
+                            void* stream) {
   const int blocks = (N + warps - 1) / warps;
   const int smem = (int)sizeof(SceneTables) + warps * warp_bytes;
   int rc = set_smem((const void*)fused_world_step_kernel, smem);
   if (rc != 0) return rc;
   fused_world_step_kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const float*)tgt, (const float*)mass,
-      (const float*)fric, (float*)out, N, substeps, dt_sub, sweeps, 1);
+      (const float*)fric, (float*)out, (float*)body, N, substeps, dt_sub, sweeps, 1);
   return (int)cudaGetLastError();
 }
 #endif  // !ABLATE
@@ -930,15 +962,16 @@ static int rollout_launch(const void* tables, const void* rows, const void* V, c
 
 template <int AB>
 static int world_step_launch(const void* tables, const void* rows, const void* tgt,
-                             const void* mass, const void* fric, void* out, int N, int substeps,
-                             float dt_sub, int sweeps, int warps, int warp_bytes, void* stream) {
+                             const void* mass, const void* fric, void* out, void* body, int N,
+                             int substeps, float dt_sub, int sweeps, int warps, int warp_bytes,
+                             void* stream) {
   const int blocks = (N + warps - 1) / warps;
   const int smem = (int)sizeof(SceneTables) + warps * warp_bytes;
   int rc = set_smem((const void*)fused_world_step_kernel<AB>, smem);
   if (rc != 0) return rc;
   fused_world_step_kernel<AB><<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const SceneTables*)tables, (const float*)rows, (const float*)tgt, (const float*)mass,
-      (const float*)fric, (float*)out, N, substeps, dt_sub, sweeps, 1);
+      (const float*)fric, (float*)out, (float*)body, N, substeps, dt_sub, sweeps, 1);
   return (int)cudaGetLastError();
 }
 
@@ -958,12 +991,12 @@ int fused_rollout_launch_ablate(int mask, const void* tables, const void* rows, 
 }
 
 int fused_world_step_launch_ablate(int mask, const void* tables, const void* rows, const void* tgt,
-                                   const void* mass, const void* fric, void* out, int N,
-                                   int substeps, float dt_sub, int sweeps, int warps,
+                                   const void* mass, const void* fric, void* out, void* body,
+                                   int N, int substeps, float dt_sub, int sweeps, int warps,
                                    int warp_bytes, void* stream) {
-#define AB_CASE(m)                                                                           \
-  case (m):                                                                                  \
-    return world_step_launch<(m)>(tables, rows, tgt, mass, fric, out, N, substeps, dt_sub,   \
+#define AB_CASE(m)                                                                             \
+  case (m):                                                                                    \
+    return world_step_launch<(m)>(tables, rows, tgt, mass, fric, out, body, N, substeps, dt_sub, \
                                   sweeps, warps, warp_bytes, stream);
   switch (mask) { AB_K2_MASKS(AB_CASE) }
 #undef AB_CASE

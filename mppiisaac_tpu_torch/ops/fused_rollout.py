@@ -663,9 +663,12 @@ class FusedWorldStep:
     """K2: N ≥ 1 envs, each advanced one control dt (every substep,
     `impulse_sweeps` sweeps each), in one launch of one warp per env. `step`
     seeds each env's λ rows from its SimState.contact_lam, scatters them
-    back, and refreshes the body caches with the engine's torch refresh."""
+    back, and takes the body caches of the stepped state from K2's epilogue
+    on the card, from the engine's torch refresh on the CPU (the reference
+    the kernel is held to), counted in `torch_refreshes`."""
 
     launches = 0
+    torch_refreshes = 0                     # world steps whose caches came from engine.refresh
     ablated_launches: Dict[int, int] = {}   # mask → launches of the ablation library
 
     def __init__(self, built, engine, impulse_sweeps: int = 16, profile: Optional[dict] = None):
@@ -712,20 +715,29 @@ class FusedWorldStep:
         return world_step_plain(self.ks, rows, tgt, mass, fric, self.substeps, self.dt_sub,
                                 self.impulse_sweeps, **self.profile).contiguous()
 
-    def step_rows(self, rows, tgt, mass, fric):
+    def step_rows(self, rows, tgt, mass, fric, body: Optional[torch.Tensor] = None):
         """rows (NS + 4·n_fc, N), tgt (D, N), mass (B, N), fric (G, N) → rows
-        one dt later (one env: the same without the N axis)."""
+        one dt later (one env: the same without the N axis). On the card,
+        `body` (13·B, N) takes the body caches of the stepped state (K2's
+        epilogue; the layout of csrc/fused_rollout.cu `write_bodies`)."""
         if rows.device.type == "cpu":
+            if body is not None:
+                raise ValueError("body: the plain version writes no body caches; "
+                                 "engine.refresh computes them on the CPU")
             return self.plain(rows, tgt, mass, fric)
         _require_cuda(rows.device)
         N = self._check_inputs(rows, tgt, mass, fric)
+        if body is not None:
+            _check("body", body, (13 * self.ks.nbody,) + tuple(rows.shape[1:2]), torch.float32,
+                   rows.device)
         if self.mask and self.mask not in K2_MASKS:
             raise NotImplementedError(f"profile {self.profile}: mask {self.mask} is not one of "
                                       f"the ablation library's K2 masks {K2_MASKS}")
         lib = _library("ablate" if self.mask else None)
         out = torch.empty_like(rows)
         args = (self._tables.tables(rows.device).data_ptr(), rows.data_ptr(), tgt.data_ptr(),
-                mass.data_ptr(), fric.data_ptr(), out.data_ptr(), N, self.substeps, self.dt_sub,
+                mass.data_ptr(), fric.data_ptr(), out.data_ptr(),
+                None if body is None else body.data_ptr(), N, self.substeps, self.dt_sub,
                 self.impulse_sweeps, self.warps(rows.device, N), self.warp_bytes,
                 torch.cuda.current_stream(rows.device).cuda_stream)
         with torch.cuda.device(rows.device):
@@ -750,6 +762,35 @@ class FusedWorldStep:
         lam = _lam_rows(self.ks, self._tables, state.contact_lam, lead, state.q.device)
         return state_to_rows(self.ks, state.root_state, state.q, state.qd, lam)
 
+    def unpack(self, state: SimState, out: torch.Tensor,
+               body: Optional[torch.Tensor] = None) -> SimState:
+        """`state` of N envs (leading axis N) and K2's rows of it one dt
+        later, out (NS + 4·n_fc, N), → the stepped SimState: λ rows
+        scattered into contact_lam, the body caches from K2's body rows
+        (13·B, N); without them the caches are `state`'s, for
+        `engine.refresh` to compute."""
+        A, D, B = self.ks.nactor, self.ks.ndof, self.ks.nbody
+        NS, N = self.ks.n_state_rows, state.q.shape[0]
+        out = out.T.contiguous()
+        st = state.with_root_state(out[:, : 13 * A].reshape(N, A, 13))
+        st = st.replace(
+            q=out[:, 13 * A: 13 * A + D],
+            qd=out[:, 13 * A + D: 13 * A + 2 * D],
+            net_contact_force=out[:, 13 * A + 2 * D: NS].reshape(N, B, 3),
+        )
+        lam = state.contact_lam
+        if self.ks.n_fc and lam is not None and tuple(lam.shape[1:]) == (self.ks.n_con, 4):
+            lam = lam.clone()
+            lam[:, self._tables.fc(lam.device)] = out[:, NS:].reshape(N, -1, 4)
+            st = st.replace(contact_lam=lam)
+        if body is not None:
+            bt = body.T.contiguous()
+            return st.replace(body_pos=bt[:, : 3 * B].reshape(N, B, 3),
+                              body_quat=bt[:, 3 * B: 7 * B].reshape(N, B, 4),
+                              body_linvel=bt[:, 7 * B: 10 * B].reshape(N, B, 3),
+                              body_angvel=bt[:, 10 * B:].reshape(N, B, 3))
+        return st
+
     def step(self, state: SimState, params: ModelParams) -> SimState:
         """SimState of N envs (leading axis N; params (N, B) and (N, G)), or
         of one env without it → the same one control dt later, body caches
@@ -757,27 +798,20 @@ class FusedWorldStep:
         if state.q.dim() == 1:
             one = self.step(state.map(lambda x: x[None]), params.map(lambda x: x[None]))
             return one.map(lambda x: x[0])
-        A, D, B = self.ks.nactor, self.ks.ndof, self.ks.nbody
-        NS, N = self.ks.n_state_rows, state.q.shape[0]
+        dev, N = state.q.device, state.q.shape[0]
         with span("k2.pack"):
             packed = (self.pack(state).contiguous(),
                       state.dof_target.to(torch.float32).T.contiguous(),
                       params.body_mass_scale.to(torch.float32).T.contiguous(),
                       params.geom_friction.to(torch.float32).T.contiguous())
         with span("k2.launch"):
-            out = self.step_rows(*packed)
+            body = (None if dev.type == "cpu"
+                    else torch.empty(13 * self.ks.nbody, N, dtype=torch.float32, device=dev))
+            out = self.step_rows(*packed, body=body)
         with span("k2.unpack"):
-            out = out.T.contiguous()
-            st = state.with_root_state(out[:, : 13 * A].reshape(N, A, 13))
-            st = st.replace(
-                q=out[:, 13 * A: 13 * A + D],
-                qd=out[:, 13 * A + D: 13 * A + 2 * D],
-                net_contact_force=out[:, 13 * A + 2 * D: NS].reshape(N, B, 3),
-            )
-            lam = state.contact_lam
-            if self.ks.n_fc and lam is not None and tuple(lam.shape[1:]) == (self.ks.n_con, 4):
-                lam = lam.clone()
-                lam[:, self._tables.fc(lam.device)] = out[:, NS:].reshape(N, -1, 4)
-                st = st.replace(contact_lam=lam)
+            st = self.unpack(state, out, body)
+        if body is not None:
+            return st
+        type(self).torch_refreshes += 1
         with span("world.refresh"):
             return self.engine.refresh(st)

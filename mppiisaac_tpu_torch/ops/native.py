@@ -117,12 +117,12 @@ def _load(variant) -> ctypes.CDLL:
     if variant == ABLATE:
         lib.fused_rollout_launch_ablate.argtypes = [I, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
         lib.fused_rollout_launch_ablate.restype = I
-        lib.fused_world_step_launch_ablate.argtypes = [I, P, P, P, P, P, P, I, I, F, I, I, I, P]
+        lib.fused_world_step_launch_ablate.argtypes = [I, P, P, P, P, P, P, P, I, I, F, I, I, I, P]
         lib.fused_world_step_launch_ablate.restype = I
         return lib
     lib.fused_rollout_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
     lib.fused_rollout_launch.restype = I
-    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, I, I, F, I, I, I, P]
+    lib.fused_world_step_launch.argtypes = [P, P, P, P, P, P, P, I, I, F, I, I, I, P]
     lib.fused_world_step_launch.restype = I
     if variant == "sections":
         lib.read_sections.argtypes = [P]

@@ -481,7 +481,7 @@ def emulate(path, replay_path):
                         os.path.join(emu, "launch.cpp")], check=True, capture_output=True)
         lib = ctypes.CDLL(so)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.emu_world_step.argtypes = [P] * 6 + [I, I, F, I, I]
+    lib.emu_world_step.argtypes = [P] * 7 + [I, I, F, I, I]
     d, rep = load(path), load(replay_path)
     port = PortSide(*params(d))
     w = port.world
@@ -495,7 +495,7 @@ def emulate(path, replay_path):
         rows, tgt = fw.pack(st).contiguous(), st.dof_target.T.contiguous()
         out = torch.empty_like(rows)
         if lib.emu_world_step(tables.ctypes.data, rows.data_ptr(), tgt.data_ptr(),
-                              ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), 1,
+                              ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), None, 1,
                               fw.substeps, fw.dt_sub, fw.impulse_sweeps, fw.warp_bytes) != 0:
             raise RuntimeError(f"the emulated K2 failed at record {i}")
         e, c = out[:, 0].numpy(), rep["card.after_rows"][i]

@@ -67,8 +67,8 @@ def emu_step(lib, mask):
         out = torch.empty_like(rows)
         tb = _bytes(fw._tables)
         args = (tb.ctypes.data, rows.data_ptr(), tgt.data_ptr(), mass.data_ptr(),
-                fric.data_ptr(), out.data_ptr(), 1, fw.substeps, fw.dt_sub, fw.impulse_sweeps,
-                fw.warp_bytes)
+                fric.data_ptr(), out.data_ptr(), None, 1, fw.substeps, fw.dt_sub,
+                fw.impulse_sweeps, fw.warp_bytes)
         rc = lib.emu_world_step_ablate(mask, *args) if mask else lib.emu_world_step(*args)
         assert rc == 0, rc
         return out
@@ -144,6 +144,6 @@ def test_masks_not_instantiated_are_refused(libs, scene):
     tb = _bytes(fw._tables)
     tgt = torch.zeros(built.scene.ndof)
     assert ab.emu_world_step_ablate(4, tb.ctypes.data, rows.data_ptr(), tgt.data_ptr(),
-                                    ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), 1,
+                                    ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), None, 1,
                                     fw.substeps, fw.dt_sub, fw.impulse_sweeps,
                                     fw.warp_bytes) == EMU_NO_VARIANT

@@ -6,20 +6,25 @@ box–box manifold (bbA/bbB), and on the mini-gripper grasp scenes (a ball held
 by fingers with the gripper map or with effort fingers, and velocity fingers
 closing on a post through the finger force gate), and K2 over a grid of
 envs (a randomized point-robot batch, the 1080-ball demo through
-`Simulation.step`), and every instantiation of the ablation library (its
-kernels against their ablated plain versions, the gate off bit for bit the
-default kernels, a mask it lacks refused). Marked `cuda`: they skip without an
+`Simulation.step`), K2's body caches against `engine.refresh` of its
+stepped state (reach, pick's held grasp, the 1080-ball batch), and every
+instantiation of the ablation library (its kernels against their ablated
+plain versions, the gate off bit for bit the default kernels, a mask it
+lacks refused). Marked `cuda`: they skip without an
 NVIDIA GPU and run on the card (whose machine has no JAX, which
 tests/conftest.py imports) with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -p no:cacheprovider --noconftest
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
-from mppiisaac_tpu_torch.physics.types import ModelParams
+from mppiisaac_tpu_torch.physics.types import ModelParams, SimState
 from mppiisaac_tpu_torch.runtime.sim import Simulation, broadcast_state
 from mppiisaac_tpu_torch.scene.builder import SimConfig
 from mppiisaac_tpu_torch.tasks.panda_pick import PandaPickObjective
@@ -98,6 +103,8 @@ def test_wrapper_rejects_bad_inputs(panda):
         fw.step_rows(rows, tgt, ones_b, ones_g)
     with pytest.raises(ValueError, match="on cpu"):
         fw.step_rows(rows, tgt.float(), ones_b.cpu(), ones_g)
+    with pytest.raises(ValueError, match="body: shape"):
+        fw.step_rows(rows, tgt.float(), ones_b, ones_g, body=torch.empty(13, device="cuda"))
 
 
 def test_world_step_kernel_prismatic_scene(panda):
@@ -768,6 +775,44 @@ def test_simulation_steps_every_env_in_one_launch(panda):
     torch.testing.assert_close(z, z[:1].expand_as(z), rtol=0.0, atol=1e-4)
     sim.restore_state(snap)
     assert torch.equal(sim.state.root_pos, snap.root_pos)
+
+
+@pytest.mark.parametrize("case", ["reach", "pick_held_grasp", "balls_1080"])
+def test_world_step_body_caches_match_refresh(panda, case):
+    """`FusedWorldStep.step` on the card takes the body caches of the stepped
+    state from K2's epilogue, with no torch refresh
+    (FusedWorldStep.torch_refreshes unchanged): positions, quaternions and
+    both velocities within the larger of 1e-5 and 10× the float32 refresh's
+    own drift from a float64 refresh of `engine.refresh` on the same state
+    (chip_smoke.body_cache_gaps), after 5 steps from panda reach under
+    random targets, from pick's held grasp (chip_smoke.HELD_GRASP) with its
+    targets, and of the balls demo's 1080 envs after 20 steps."""
+    if case == "balls_1080":
+        from mppiisaac_tpu_torch.examples import balls_demo
+
+        world = balls_demo.balls_sim(1080, 4, device="cuda")
+        st, tgt_of, n = world.state, lambda st: st.dof_target, 20
+    elif case == "reach":
+        cfg, world = panda
+        g = torch.Generator().manual_seed(6)
+        st, n = world.state, 5
+        tgt_of = (lambda st: (torch.rand(st.q.shape, generator=g) * 4 - 2).cuda())
+    else:
+        cfg = load_config("tasks/panda_pick")
+        world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cuda")
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            chip_smoke.HELD_GRASP)
+        held = {k: v.cuda()[None] for k, v in torch.load(path).items() if v is not None}
+        st, tgt_of, n = SimState(**held), lambda st: st.dof_target, 5
+    fw = world._world_step
+    n0 = FusedWorldStep.torch_refreshes
+    for _ in range(n):
+        st = fw.step(st.replace(dof_target=tgt_of(st)), world.params)
+    torch.cuda.synchronize()
+    assert FusedWorldStep.torch_refreshes == n0
+    gaps = chip_smoke.body_cache_gaps(fw.engine, st)
+    assert all(e <= b for e, b in gaps.values()), gaps
+    assert float(st.body_linvel.abs().max()) > 0.0, "nothing moved"
 
 
 def test_unfused_command_replays_from_a_cuda_graph(panda):

@@ -70,9 +70,9 @@ def build_emu(tmp_path_factory, *defines):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if "ABLATE" in defines:
         lib.emu_rollout_ablate.argtypes = [I] + [P] * 7 + [I, I, I, F, I, I, I]
-        lib.emu_world_step_ablate.argtypes = [I] + [P] * 6 + [I, I, F, I, I]
+        lib.emu_world_step_ablate.argtypes = [I] + [P] * 7 + [I, I, F, I, I]
     lib.emu_rollout.argtypes = [P] * 7 + [I, I, I, F, I, I, I]
-    lib.emu_world_step.argtypes = [P] * 6 + [I, I, F, I, I]
+    lib.emu_world_step.argtypes = [P] * 7 + [I, I, F, I, I]
     lib.emu_stack_high_water.restype = ctypes.c_long
     lib.emu_lane_stack_size.restype = ctypes.c_long
     assert lib.emu_scene_tables_size() == ctypes.sizeof(fro._SceneTablesC)
@@ -110,7 +110,7 @@ def emu_world_steps(lib, fw, built, st, tgt_of, n):
         tgt = tgt_of().contiguous()
         out = torch.empty_like(rows)
         assert lib.emu_world_step(tb.ctypes.data, rows.data_ptr(), tgt.data_ptr(),
-                                  ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), 1,
+                                  ones_b.data_ptr(), ones_g.data_ptr(), out.data_ptr(), None, 1,
                                   fw.substeps, fw.dt_sub, fw.impulse_sweeps, fw.warp_bytes) == 0
         rows = out
         rows_p = fw.plain(rows_p, tgt, ones_b, ones_g)
@@ -188,13 +188,13 @@ def test_pick_settled_block_kernels_match_plain(emu):
     assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"
 
 
-def test_grasp_scene_kernels_match_plain(emu):
-    """The mini-gripper closing on a ball and holding it (tests/test_torch_cuda.py's
-    grasp scene): couple terms, Ψ, two-way sweeps, λ warm start and snap live;
-    K2 for 5 steps, then K1 from the held grasp."""
+def grasp_scene():
+    """The mini-gripper open around a ball, its fingers commanded shut
+    (tests/test_torch_cuda.py's grasp scene). → (built, engine, state,
+    targets)."""
     from mppiisaac_tpu_torch.physics.step import Engine
     from mppiisaac_tpu_torch.scene.actor import ActorSpec
-    from mppiisaac_tpu_torch.scene.builder import SimConfig, build_scene
+    from mppiisaac_tpu_torch.scene.builder import build_scene
 
     built = build_scene([
         ActorSpec(type="robot", name="mini_gripper", fixed=True, gripper_binarize=True,
@@ -202,10 +202,17 @@ def test_grasp_scene_kernels_match_plain(emu):
         ActorSpec(type="sphere", name="ball", size=[0.02], mass=0.005, init_pos=[0.0, 0.0, 0.53],
                   friction=1.0)], SimConfig(dt=0.05, substeps=2))
     engine = Engine(built.scene)
-    fw = FusedWorldStep(built, engine)
     st = built.initial_state(engine, "cpu")
     st = engine.refresh(st.replace(q=torch.full_like(st.q, 0.034)))
-    tgt = built.cmd_map.apply(torch.full((2,), -1.0), st.q)
+    return built, engine, st, built.cmd_map.apply(torch.full((2,), -1.0), st.q)
+
+
+def test_grasp_scene_kernels_match_plain(emu):
+    """The mini-gripper closing on a ball and holding it (tests/test_torch_cuda.py's
+    grasp scene): couple terms, Ψ, two-way sweeps, λ warm start and snap live;
+    K2 for 5 steps, then K1 from the held grasp."""
+    built, engine, st, tgt = grasp_scene()
+    fw = FusedWorldStep(built, engine)
     rows, rows_p = emu_world_steps(emu, fw, built, st, lambda: tgt, 5)
     torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
     ks = fw.ks
@@ -239,32 +246,22 @@ def test_lane_stacks_stay_small(emu):
     the stiction snap) run once here, after whatever this file ran before,
     and the deepest use of any lane since the stacks were painted at most a
     quarter of a lane's stack (an overflow would fault on the guard page)."""
-    from mppiisaac_tpu_torch.physics.step import Engine
-    from mppiisaac_tpu_torch.scene.actor import ActorSpec
-    from mppiisaac_tpu_torch.scene.builder import build_scene
-
-    built = build_scene([
-        ActorSpec(type="robot", name="mini_gripper", fixed=True, gripper_binarize=True,
-                  init_pos=[0.0, 0.0, 0.5]),
-        ActorSpec(type="sphere", name="ball", size=[0.02], mass=0.005, init_pos=[0.0, 0.0, 0.53],
-                  friction=1.0)], SimConfig(dt=0.05, substeps=2))
-    engine = Engine(built.scene)
-    st = built.initial_state(engine, "cpu")
-    st = engine.refresh(st.replace(q=torch.full_like(st.q, 0.034)))
-    tgt = built.cmd_map.apply(torch.full((2,), -1.0), st.q)
+    built, engine, st, tgt = grasp_scene()
     emu_world_steps(emu, FusedWorldStep(built, engine), built, st, lambda: tgt, 1)
     used, size = emu.emu_stack_high_water(), emu.emu_lane_stack_size()
     assert size >= 256 * 1024 and 0 < used <= size // 4, (used, size)
 
 
-def emu_world_step_envs(lib, fw, rows, tgt, mass, fric):
-    """One launch of the emulated K2 over N envs, in the kernel's layout."""
+def emu_world_step_envs(lib, fw, rows, tgt, mass, fric, body=None):
+    """One launch of the emulated K2 over N envs, in the kernel's layout;
+    with `body` (13·B, N) it writes the body caches there too."""
     out = torch.empty_like(rows)
     tb = _bytes(fw._tables)
     N = rows.shape[1]
     assert lib.emu_world_step(tb.ctypes.data, rows.data_ptr(), tgt.data_ptr(), mass.data_ptr(),
-                              fric.data_ptr(), out.data_ptr(), N, fw.substeps, fw.dt_sub,
-                              fw.impulse_sweeps, fw.warp_bytes) == 0
+                              fric.data_ptr(), out.data_ptr(),
+                              None if body is None else body.data_ptr(), N, fw.substeps,
+                              fw.dt_sub, fw.impulse_sweeps, fw.warp_bytes) == 0
     return out
 
 
@@ -296,6 +293,111 @@ def test_batched_world_step_matches_plain(emu):
         rows, rows_p = out, fw.plain(rows_p, tgt, mass, fric)
     torch.testing.assert_close(rows, rows_p, rtol=STATE_TOL, atol=STATE_TOL)
     assert float(rows_p[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"
+
+
+def body_scene(name):
+    """A scene of the body-cache holds → (FusedWorldStep, its one-env state
+    with the N axis, targets (D, 1) of each step, steps)."""
+    if name == "grasp":
+        built, engine, st, tgt = grasp_scene()
+        fw = FusedWorldStep(built, engine)
+        return fw, st.map(lambda x: x[None]), lambda: tgt[:, None].contiguous(), 5
+    cfg, w = world({"panda_reach": "panda", "resting_boxer": "boxer_push"}[name])
+    fw = FusedWorldStep(w.built, w.engine, impulse_sweeps=cfg.isaacgym.fused_world_sweeps)
+    g = torch.Generator().manual_seed(9)
+
+    def tgt():
+        u = torch.rand(w.built.cmd_map.nu, generator=g) * 2 - 1
+        return w.built.cmd_map.apply(u[None], w.state.q)[0][:, None].contiguous()
+
+    return fw, w.state, tgt, 2
+
+
+@pytest.mark.parametrize("scene", ["panda_reach", "grasp", "resting_boxer"])
+def test_k2_body_rows_match_refresh(emu, scene):
+    """K2's epilogue writes the body caches of its stepped state: positions,
+    quaternions, linear and angular velocities, each within the larger of
+    1e-5 and 10× the float32 refresh's own drift from a float64 refresh of
+    `engine.refresh` on K2's own output state (chip_smoke.body_cache_gaps),
+    at panda reach, the mini-gripper holding its ball (5 steps) and the
+    boxer resting on its wheels; the rows beside them are bit for bit those
+    of a launch with a null body pointer."""
+    fw, st, tgt_of, n = body_scene(scene)
+    B = fw.ks.nbody
+    ones_b, ones_g = torch.ones(B, 1), torch.ones(fw.ks.ngeom, 1)
+    rows = fw.pack(st).contiguous()
+    for _ in range(n):
+        tgt = tgt_of()
+        body = torch.full((13 * B, 1), float("nan"))
+        out = emu_world_step_envs(emu, fw, rows, tgt, ones_b, ones_g, body)
+        assert torch.equal(out, emu_world_step_envs(emu, fw, rows, tgt, ones_b, ones_g))
+        rows = out
+    got = fw.unpack(st, rows, body)
+    gaps = chip_smoke.body_cache_gaps(fw.engine, got)
+    assert all(e <= b for e, b in gaps.values()), gaps
+    assert float(got.body_linvel.abs().max()) > 0.0, "nothing in the scene moves"
+
+
+def test_batched_body_rows_match_one_env_and_refresh(emu):
+    """The batched K2 writes each env's body rows bit for bit as the one-env
+    launch does, over 2 steps of a randomized point-robot batch pushing its
+    block; the roots without generalized coordinates (the fixed robot base,
+    the static goal) given velocities in the state carry none in the body
+    caches, as in `engine.refresh`, which the batch's caches match within
+    chip_smoke.body_cache_gaps's bounds."""
+    N = 3
+    sim = Simulation(SimConfig(dt=0.05, substeps=1), ["point_robot", "block", "goal"],
+                     num_envs=N, randomize=True, seed=3, device="cpu")
+    sim.set_actor_position_by_name("block", [0.45, 0.0, 0.1])
+    u = np.random.RandomState(1).uniform(-1, 1, (N, 3)).astype(np.float32)
+    u[:, 0] = 1.0
+    sim.apply_robot_cmd(u)
+    fixed = [sim.scene.actor_index(a) for a in ("point_robot", "goal")]
+    lin, ang = sim.state.root_linvel.clone(), sim.state.root_angvel.clone()
+    lin[:, fixed], ang[:, fixed] = 0.3, -0.2
+    st = sim.state.replace(root_linvel=lin, root_angvel=ang)
+    fw = sim._world_step
+    B = fw.ks.nbody
+    rows = fw.pack(st).contiguous()
+    tgt = st.dof_target.T.contiguous()
+    mass = sim.params.body_mass_scale.T.contiguous()
+    fric = sim.params.geom_friction.T.contiguous()
+    for _ in range(2):
+        body = torch.empty(13 * B, N)
+        out = emu_world_step_envs(emu, fw, rows, tgt, mass, fric, body)
+        for e in range(N):
+            one_body = torch.empty(13 * B, 1)
+            one = emu_world_step_envs(emu, fw, rows[:, e:e + 1].contiguous(),
+                                      tgt[:, e:e + 1].contiguous(), mass[:, e:e + 1].contiguous(),
+                                      fric[:, e:e + 1].contiguous(), one_body)
+            assert torch.equal(one[:, 0], out[:, e]) and torch.equal(one_body[:, 0], body[:, e]), e
+        rows = out
+    got = fw.unpack(st, rows, body)
+    gaps = chip_smoke.body_cache_gaps(fw.engine, got)
+    assert all(e <= b for e, b in gaps.values()), gaps
+    bodies = [sim.scene.body_offset[a] for a in fixed]
+    assert float(got.root_linvel[:, fixed].abs().min()) > 0.0
+    assert float(got.body_linvel[:, bodies].abs().max()) == 0.0
+
+
+def test_cpu_world_step_refreshes_in_torch():
+    """On the CPU the fused world step runs K2's plain version and takes its
+    body caches from `engine.refresh`, counted in
+    FusedWorldStep.torch_refreshes once per world step; each cache is the
+    refresh of the stepped state."""
+    cfg, w = world("panda")
+    n0 = FusedWorldStep.torch_refreshes
+    for _ in range(2):
+        w.step()
+    assert FusedWorldStep.torch_refreshes == n0 + 2
+    ref = w.engine.refresh(w.state)
+    for f in chip_smoke.BODY_CACHES:
+        assert torch.equal(getattr(w.state, f), getattr(ref, f)), f
+    fw = w._world_step
+    rows = fw.pack(w.state).contiguous()
+    with pytest.raises(ValueError, match="no body caches"):
+        fw.step_rows(rows, w.state.dof_target.T.contiguous(), torch.ones(fw.ks.nbody, 1),
+                     torch.ones(fw.ks.ngeom, 1), body=torch.empty(13 * fw.ks.nbody, 1))
 
 
 @pytest.mark.parametrize("task", SHIPPED)
