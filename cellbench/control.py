@@ -161,12 +161,10 @@ def main(argv=None):
     del prog
     t_prog = time.perf_counter() - t0
 
-    from .reference.controller import Reference
-
     result = {"workload": cell.name, "card": torch.cuda.get_device_name(device),
               "program_s": t_prog, "program": {}, "control": {}}
     with judge.float32_products():
-        ref = Reference(cell.config["conf"], cell.config["cost"], device)
+        ref = judge.reference(cell.config, device)
         ur = judge.u_range(ref)
         for s in seeds:
             start, recs = runs[s]
@@ -180,8 +178,7 @@ def main(argv=None):
             result["program"][s] = v
             print(json.dumps({"program": s, **v}), flush=True)
         if cseeds:
-            ctl = Reference(cell.config["conf"], cell.config["cost"], device,
-                            store=torch.bfloat16)
+            ctl = judge.reference(cell.config, device, store=torch.bfloat16)
             for s in cseeds:
                 _, recs = runs[s]
                 t = time.perf_counter()

@@ -76,6 +76,15 @@ def to_host(x):
     return x
 
 
+def reference(config: dict, device, store=None):
+    """The reference of a configuration file: its "conf", its "cost" and,
+    where it names one, its "reference_prior"."""
+    from .reference.controller import Reference
+
+    return Reference(config["conf"], config["cost"], device, store=store,
+                     prior=config.get("reference_prior"))
+
+
 def _carry(ref, c: dict):
     from .reference.mppi.solver import MppiCarry
 

@@ -54,9 +54,12 @@ def _sync(device: torch.device):
 
 
 class Program:
-    """The port's loop for one cell. conf: the configuration file's "conf";
-    objective: "module:Class" with `objective_kwargs`; traffic: the cell's
-    traffic file."""
+    """The port's loop for one cell. config: the configuration file, whose
+    "conf" is the task configuration, "objective" the port's "module:Class"
+    with `objective_kwargs`, and "prior", where there is one, the port's
+    "module:function" that makes the planner's prior from the task
+    configuration, as the task's own `run` passes it to `run_task`;
+    traffic: the cell's traffic file."""
 
     def __init__(self, config: dict, traffic: dict, device: torch.device):
         from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
@@ -71,7 +74,11 @@ class Program:
             cfg, **config.get("objective_kwargs", {}))
         self.world = goal_world(cfg, device)
         self.initial = self.world.state
-        self.planner = MPPIisaacPlanner(cfg, self.objective, device=device)
+        prior = None
+        if "prior" in config:
+            mod, fn = config["prior"].split(":")
+            prior = getattr(importlib.import_module(mod), fn)(cfg)
+        self.planner = MPPIisaacPlanner(cfg, self.objective, prior, device=device)
         self.chunked = traffic["loop"] == "chunked"
         self.steps = int(traffic["episode_steps"])
         self.dt = cfg.isaacgym.dt

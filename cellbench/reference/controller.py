@@ -11,14 +11,15 @@ tables, and the MPPI solver. One control step of the port is then
     world step: dof targets of the action → K2 → the next world state
 
 `sample` and `update` are the solver's `_command_impl` split around the
-rollout (its one-device path with the fused rollout and no prior), so that
-the rollouts of several steps run as one batch of columns, and so that the
-update can be worked out from given costs.
+rollout (its one-device path with the fused rollout, and the tape prior
+that the configuration names, if any), so that the rollouts of several
+steps run as one batch of columns, and so that the update can be worked out
+from given costs.
 
 `store=torch.bfloat16` keeps every value that passes from one stage to the
 next in bfloat16 (the world state, the noise, K1's costs, U, the action,
-K2's output) while the arithmetic inside a stage stays float32: the control
-of the comparison.
+K2's output, and the tape) while the arithmetic inside a stage stays
+float32: the control of the comparison.
 """
 from __future__ import annotations
 
@@ -76,9 +77,12 @@ def state_from(fields: Dict[str, torch.Tensor], device) -> SimState:
 class Reference:
     """conf: the task configuration as the benchmark's configuration file
     holds it (actors as dicts); cost: the name of a module under
-    `reference/costs/` whose `kernel_cost(built)` gives K1's cost."""
+    `reference/costs/` whose `kernel_cost(built)` gives K1's cost; prior:
+    None, or the name of a module under `reference/priors/` whose
+    `tape_prior(built, cfg)` gives the tape of each command."""
 
-    def __init__(self, conf: dict, cost: str, device="cpu", store=None):
+    def __init__(self, conf: dict, cost: str, device="cpu", store=None,
+                 prior: Optional[str] = None):
         self.device = torch.device(device)
         self.store = store
         cfg = config_from_dict({**conf, "actors": []})
@@ -118,6 +122,10 @@ class Reference:
             impulse_sweeps=m.rollout_sweeps, world_fidelity=m.rollout_fidelity != "fast",
             manifold=m.rollout_manifold)
         self.solver = MPPIPlanner(m, cfg.nx, fused=self.rollout, device=dev)
+        self.tape = None
+        if prior is not None:
+            self.tape = importlib.import_module(f"{__package__}.priors.{prior}").tape_prior(
+                self.rollout_built, cfg)
         self.rollout.store = self.world_step.store = store
         if store is not None:
             self.initial_world = self.initial_world.map(lambda x: stored(x, store))
@@ -131,14 +139,27 @@ class Reference:
         _, d = self.solver.draws(np.asarray(key, np.uint32), 1)
         return torch.as_tensor(d[0], device=self.device)
 
-    def sample(self, carry: MppiCarry, draw: torch.Tensor):
-        """→ (V (K,H,nu) controls, ε_eff) of one command."""
+    def sample(self, state: SimState, carry: MppiCarry, draw: torch.Tensor):
+        """→ (V (K,H,nu) controls, ε_eff) of one command from the 1-env
+        world state (read by the tape only)."""
         s, c = self.solver, self.solver.cfg
         K = c.num_samples
         eps = stored(s.noise(draw, carry.sigma), self.store)
         V = torch.clamp(carry.U[None] + eps, s._u_min, s._u_max)
         if c.sample_null_action:
             V[K - 1] = 0.0
+        if self.tape is not None and c.use_priors:
+            # one sample rolls the tape; with a blend the sampling mean moves
+            # to (1 − a)·U + a·tape
+            tape = torch.clamp(self.tape(state, carry.t0).to(torch.float32), s._u_min, s._u_max)
+            tape = stored(tape, self.store)
+            if c.prior_blend > 0.0:
+                a = s._prior_blend
+                V = torch.clamp((1 - a) * carry.U[None] + a * tape[None] + eps, s._u_min,
+                                s._u_max)
+                if c.sample_null_action:
+                    V[K - 1] = 0.0
+            V[K - 2] = tape
         return V, V - carry.U[None]
 
     def update(self, carry: MppiCarry, eps_eff: torch.Tensor, costs: torch.Tensor):
@@ -170,7 +191,7 @@ class Reference:
     def k1_inputs(self, state: SimState, carry: MppiCarry, with_eps: bool = False):
         """K1's inputs (rows, V, mass, fric) for the command from a 1-env
         world state and a carry (and ε_eff with `with_eps`)."""
-        V, eps_eff = self.sample(carry, self.draw(carry.key))
+        V, eps_eff = self.sample(state, carry, self.draw(carry.key))
         state_K = broadcast_state(state.map(lambda x: x[0]), self.K)
         inputs = self.rollout.pack(state_K, self.params_K, V * self.solver.cfg.u_scale)
         return (inputs, eps_eff) if with_eps else inputs

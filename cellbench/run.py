@@ -162,12 +162,10 @@ def run(args, out=sys.stdout, err=sys.stderr):
     del prog
 
     # the comparison, on the run's device, after the program's state is freed
-    from .reference.controller import Reference
-
     t_judge = time.perf_counter()
     judged = [r for r in records if r["judged"]]
     with judge.float32_products():
-        ref = Reference(cell.config["conf"], cell.config["cost"], device)
+        ref = judge.reference(cell.config, device)
         values = {"start_gap": judge.start_gap(ref, start, seeds[0])}
         expected = judge.outputs(ref, judged)
         values.update(judge.numbers(ref, judged, expected, judge.u_range(ref)))

@@ -9,6 +9,14 @@ its name holds before the first "." (`k1_ms.per_step` by `metrics/k1_ms.py`);
 the limits of the comparison that decides `correct`
 are `limits/<cell>.json`. Adding a configuration, a traffic mix, a cell or a
 metric adds files and entries and edits none of this code.
+
+A configuration file names the program's side and the reference's side of
+each part it needs: `"objective"` (the port's "module:Class") and `"cost"`
+(a module under `reference/costs/`); and, for a task that plans with a tape
+prior, `"prior"` (the port's "module:function", called with the task
+configuration, that makes the planner's prior) and `"reference_prior"` (a
+module under `reference/priors/`). A configuration without the two prior
+keys plans without a prior.
 """
 from __future__ import annotations
 

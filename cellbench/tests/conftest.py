@@ -24,3 +24,31 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+ANYMAL = {"objective": "mppiisaac_tpu_torch.tasks.anymal:AnymalObjective", "objective_kwargs": {},
+          "prior": "mppiisaac_tpu_torch.tasks.anymal:gait_prior", "cost": "anymal",
+          "reference_prior": "anymal_trot"}
+
+
+def anymal(num_samples: int = 8, **mppi) -> dict:
+    """A configuration file of the anymal task as the benchmark would hold it,
+    composed from the repo's `conf/tasks/anymal.yaml` (the trot tape prior
+    on, prior_blend 0.5), with K cut to `num_samples` and the other `mppi`
+    keys given."""
+    import os
+
+    from cellbench.reference.utils import confsys
+    from cellbench.spec import ROOT
+
+    root = os.path.join(ROOT, "conf")
+    conf = confsys.compose(root, "tasks/anymal", [])
+    conf["actors"] = [confsys.load_yaml(os.path.join(root, "actors", f"{n}.yaml"))
+                      for n in conf["actors"]]
+    conf["mppi"].update(num_samples=num_samples, **mppi)
+    return dict(ANYMAL, conf=conf, checked_steps=2)
+
+
+@pytest.fixture(scope="session")
+def anymal_config():
+    return anymal

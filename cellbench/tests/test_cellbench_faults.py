@@ -101,3 +101,54 @@ def test_fault_is_not_correct(monkeypatch, workload, fault, number):
     assert line["correct"] is False and line["failed"] > 0
     c = line["checks"][number]
     assert not c["value"] <= c["limit"]
+
+
+# ----------------------------------------------------------------------
+# a configuration with a tape prior: anymal, cut to K=8 and H=2 on the CPU
+
+TAPE_TRAFFIC = {"loop": "chunked", "episode_steps": 4, "device_steps": 2, "episodes": [11]}
+
+
+def tape_dropped(monkeypatch, config):
+    """The program plans without the tape: no prior passed to the planner."""
+    config.pop("prior")
+
+
+def tape_late(monkeypatch, config):
+    """The tape's phase one control step late."""
+    from mppiisaac_tpu_torch.planner.priors import QuadrupedGaitPrior
+
+    tape = QuadrupedGaitPrior.tape
+    monkeypatch.setattr(QuadrupedGaitPrior, "tape", lambda self, view, t0: tape(self, view, t0 - 1))
+
+
+@pytest.mark.parametrize("fault", [None, tape_dropped, tape_late],
+                         ids=["honest", "tape_dropped", "tape_late"])
+def test_tape_fault_is_not_correct(monkeypatch, anymal_config, fault):
+    """The judge, under the loosest limits the benchmark holds (pick
+    chunked's), calls the honest program correct and a program whose tape
+    is dropped or late not correct."""
+    import os
+
+    from cellbench import control, judge
+    from cellbench.loop import Program
+    from cellbench.run import candidates
+    from cellbench.spec import HERE
+
+    limits = json.load(open(os.path.join(HERE, "limits", "panda_pick.chunked.json")))
+    config = anymal_config(8, horizon=2)
+    if fault is not None:
+        fault(monkeypatch, config)
+    prog = Program(config, TAPE_TRAFFIC, torch.device("cpu"))
+    start, recs = control.episode_records(prog, 5, 2, candidates(TAPE_TRAFFIC))
+    prog.free()
+    assert [int(r["step"]) for r in recs] == [0, 2]
+    ref = judge.reference(anymal_config(8, horizon=2), "cpu")
+    values = {"start_gap": judge.start_gap(ref, start, 5)}
+    values.update(judge.numbers(ref, recs, judge.outputs(ref, recs), judge.u_range(ref)))
+    correct, rows = judge.verdict(values, limits)
+    if fault is None:
+        assert correct and all(v == 0 for v in values.values()), values
+    else:
+        assert not correct, values
+        assert not values["command_gap"] <= limits["command_gap"], values

@@ -92,6 +92,7 @@ def test_reference_imports_nothing_of_the_port():
         "import json, sys\n"
         "from cellbench.reference.controller import Reference\n"
         "from cellbench.reference import count\n"
+        "from cellbench.reference.priors import anymal_trot\n"
         "from cellbench import judge\n"
         f"c = json.load(open({os.path.join(HERE, 'configs', 'panda_pick.json')!r}))\n"
         "c['conf']['mppi'].update(num_samples=4, horizon=1)\n"
