@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.profiling import span
+from ..utils.profiling import span, tape_part
 from . import prng
 from .config import MPPIConfig
 from .sampling import bspline_interp_matrix, halton, savgol_coeffs, savgol_matrix
@@ -70,7 +70,9 @@ class MPPIPlanner:
     optional `(state0, t0) → (H, nu)` control tape, evaluated once per
     command (with `use_priors`) from the K-wide state0 and the world step
     clock, outside the rollout: one sample rolls the tape, and with
-    `prior_blend` a > 0 the sampling mean moves to (1 − a)·U + a·tape.
+    `prior_blend` a > 0 the sampling mean moves to (1 − a)·U + a·tape. The
+    tape's evaluation and clamp are the span `solver.tape` and, in a
+    captured step, the nodes that utils/profiling.tape_part counts.
 
     `tape_injections` counts the commands into which a tape was injected."""
 
@@ -245,8 +247,9 @@ class MPPIPlanner:
             if self.tape_prior is not None and c.use_priors:
                 # one sample rolls the prior's full tape; eps_eff below uses the
                 # actual controls, so a winning tape drags U toward the tape
-                tape = torch.clamp(self.tape_prior(state0, carry.t0).to(torch.float32),
-                                   u_min, u_max)
+                with span("solver.tape"), tape_part():
+                    tape = torch.clamp(self.tape_prior(state0, carry.t0).to(torch.float32),
+                                       u_min, u_max)
                 if c.prior_blend > 0.0:
                     # biased MPPI: the sampling mean moves toward the tape, while
                     # the importance term still measures deviation from U

@@ -29,7 +29,7 @@ from ..ops.fused_rollout import FusedRollout, FusedWorldStep
 from ..physics.types import SIM_STATE_FIELDS, SimState
 from ..planner.mppi_isaac import MPPIisaacPlanner
 from ..utils.config_store import ExampleConfig
-from ..utils.profiling import graph_nodes, paused, span
+from ..utils.profiling import graph_nodes, paused, span, take_tape_nodes
 from .sim import Simulation
 
 
@@ -46,7 +46,8 @@ class LoopMetrics:
     # the success step
     commands: int = 0
     # the chunked loop on CUDA: the nodes of the captured control step by
-    # type (utils/profiling.graph_nodes)
+    # type (utils/profiling.graph_nodes), and under "tape" those of the
+    # solver's tape prior (0 without one)
     graph_nodes: Optional[dict] = None
 
     def summary(self) -> dict:
@@ -302,7 +303,7 @@ class DeviceChunk:
         self._delta = (0, 0, 0)
         self._info = None
         self.captures = 0
-        self.nodes = None           # the captured step's graph nodes by type
+        self.nodes = None           # the captured step's graph nodes by type, and the tape's
 
     # ------------------------------------------------------------------
     def _step(self):
@@ -339,12 +340,13 @@ class DeviceChunk:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        take_tape_nodes()                  # what earlier captures counted
         with paused(), torch.cuda.graph(graph):
             self._info = self._step()
         after = _counts()
         self._delta = tuple(a - b for a, b in zip(after, before))
         _add_counts(self._delta, -1)       # the capture itself launched nothing
-        self.nodes = graph_nodes(graph.raw_cuda_graph())
+        self.nodes = dict(graph_nodes(graph.raw_cuda_graph()), tape=take_tape_nodes())
         graph.instantiate()
         self._graph = graph
         self.captures += 1

@@ -1,4 +1,4 @@
-"""The port's spans, a profiler trace, and the node count of a CUDA graph.
+"""The port's spans, a profiler trace, and the node counts of a CUDA graph.
 
 Usage:
     with span("loop.chunk", steps=k): ...     # records only under torch.profiler
@@ -23,6 +23,10 @@ launches by a fragment of it.
 `trace` runs `torch.profiler` with CPU and, where the device is a GPU, CUDA
 activities, writes a Chrome trace, and gives the device's busy time and idle
 share of the traced window.
+
+`graph_nodes` counts a captured CUDA graph's nodes by type; a `tape_part()`
+block adds the nodes it captures to a per-thread count that
+`take_tape_nodes()` reads and resets (the solver's tape prior).
 """
 from __future__ import annotations
 
@@ -238,3 +242,59 @@ def graph_nodes(raw_graph: int) -> Dict[str, int]:
         out[_NODE_TYPES.get(t.value, "other")] += 1
     out["total"] = n.value
     return out
+
+
+_tape = threading.local()           # per thread: the tape prior's captured nodes since the last take
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream captures a graph (False before CUDA
+    is initialised, and so on a CPU-only build)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+def _capturing_graph_nodes() -> int:
+    """The nodes captured so far into the graph that the current CUDA stream
+    captures (`cuStreamGetCaptureInfo_v2` gives the graph; the capture is
+    left as it is)."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    info = drv.cuStreamGetCaptureInfo_v2      # stream, status, id, graph, deps, n deps
+    info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                     ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
+    status, graph = ctypes.c_int(0), ctypes.c_void_p(0)
+    rc = info(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream), ctypes.byref(status),
+              None, ctypes.byref(graph), None, None)
+    if rc != 0:
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2 failed: CUresult {rc}")
+    return graph_nodes(graph.value)["total"]
+
+
+class _TapePart:
+    __slots__ = ("_n0",)
+
+    def __enter__(self):
+        self._n0 = _capturing_graph_nodes()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            _tape.nodes = getattr(_tape, "nodes", 0) + _capturing_graph_nodes() - self._n0
+        return False
+
+
+def tape_part():
+    """Around the solver's tape prior: while the current CUDA stream
+    captures a graph, adds the nodes the block puts into it to this
+    thread's count (`take_tape_nodes`); otherwise one shared no-op behind
+    one check, so that it adds nothing to an eager step or to a replay."""
+    if not _capturing():
+        return _OFF
+    return _TapePart()
+
+
+def take_tape_nodes() -> int:
+    """The tape nodes this thread captured since the last take; resets the
+    count."""
+    n = getattr(_tape, "nodes", 0)
+    _tape.nodes = 0
+    return n
