@@ -271,7 +271,16 @@ class DeviceChunk:
     are written in place and seen by the graph; a changed solver config, and
     for the unfused rollout a changed objective or weights (its cost reads
     them as constants), are captured anew; a new solver or FusedRollout (a
-    structural `update_mppi_params`, `add_to_env`) makes `run` raise."""
+    structural `update_mppi_params`, `add_to_env`) makes `run` raise.
+
+    The noise draws depend only on the carry's key and the solver's config,
+    so `run` draws the next chunk's (`min(N, n_steps - k)` commands) while
+    this chunk's replays run, before its fetch, and the next `run` uses them
+    when its carry's key, its count and the config are the ones they were
+    drawn for; otherwise (a new episode's key, a carry set by the caller, a
+    changed config) it draws them itself. The copy into the draw buffer
+    stays in the next run's load, after this run's fetch has synchronised.
+    `draws_ahead_hits` and `draws_ahead_misses` count the runs of each."""
 
     def __init__(self, world, planner: MPPIisaacPlanner, device_steps: int):
         if int(device_steps) < 1:
@@ -304,6 +313,8 @@ class DeviceChunk:
         self._info = None
         self.captures = 0
         self.nodes = None           # the captured step's graph nodes by type, and the tape's
+        self._ahead = None          # ((count, config, key), key after, draws) drawn ahead
+        self.draws_ahead_hits = self.draws_ahead_misses = 0
 
     # ------------------------------------------------------------------
     def _step(self):
@@ -355,8 +366,9 @@ class DeviceChunk:
     # ------------------------------------------------------------------
     def run(self, n_steps: int):
         """Up to min(N, n_steps) control steps from `world.state` and the
-        solver's carry. Leaves the carry and `world.state` at the last step
-        run. → (post-step SimStates on the host, actions (k, nu) numpy)."""
+        solver's carry, and the draws of the next min(N, n_steps - k) made
+        ahead. Leaves the carry and `world.state` at the last step run. →
+        (post-step SimStates on the host, actions (k, nu) numpy)."""
         planner, world, mppi = self.planner, self.world, self.planner.mppi
         if mppi is not self._mppi or mppi.fused is not self._fused \
                 or world._world_step is not self._stepper:
@@ -364,8 +376,15 @@ class DeviceChunk:
                                "update_mppi_params or add_to_env) after this chunk was built: "
                                "build a new DeviceChunk")
         k = min(self.n, int(n_steps))
-        with span("chunk.draws"):
-            key, draws = mppi.draws(mppi.carry.key, k)
+        cfg_sig = repr(mppi.cfg)
+        ahead, self._ahead = self._ahead, None
+        hit = ahead is not None and ahead[0] == (k, cfg_sig, mppi.carry.key.tobytes())
+        with span("chunk.draws", ahead=int(hit)):
+            key, draws = ahead[1:] if hit else mppi.draws(mppi.carry.key, k)
+        if hit:
+            self.draws_ahead_hits += 1
+        else:
+            self.draws_ahead_misses += 1
         start = world.state
         with span("chunk.load"):
             for f in self._fields:
@@ -378,7 +397,7 @@ class DeviceChunk:
             self._draws[:k].copy_(torch.from_numpy(draws))
             self._slot.zero_()
         if self.device.type == "cuda":
-            sig = repr(mppi.cfg)
+            sig = cfg_sig
             if mppi.fused is None:
                 obj = planner.objective
                 sig += f"|{id(obj)}|{getattr(obj, 'weights', None)!r}"
@@ -398,6 +417,10 @@ class DeviceChunk:
             with span("chunk.replay"):     # the same steps, run eagerly
                 for _ in range(k):
                     info = self._step()
+        nxt = min(self.n, int(n_steps) - k)
+        if nxt:
+            with span("chunk.ahead"):      # the next chunk's draws, while the replays run
+                self._ahead = ((nxt, cfg_sig, key.tobytes()), *mppi.draws(key, nxt))
         with span("chunk.fetch"):
             packed = self._out[:k].to("cpu", copy=True).numpy()      # the one fetch
         with span("chunk.store"):

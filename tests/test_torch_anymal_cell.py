@@ -42,7 +42,7 @@ LANDING = 5             # world steps from the 1.2 m drop start: the feet are do
 CELL = "anymal.chunked"
 # device-bound like panda_pick.chunked: step_ms and its family
 PER_LAYER = ["graph_nodes_per_step", "device_idle_pct", "k1_ms", "k1_roofline_pct", "k2_ms",
-             "k2_roofline_pct", "chunk_host_ms", "tape_nodes_per_step"]
+             "k2_roofline_pct", "chunk_host_ms", "tape_nodes_per_step", "draws_ahead_pct"]
 
 
 def config(name, num_samples=K, horizon=H):

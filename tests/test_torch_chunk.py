@@ -13,6 +13,10 @@ step eagerly):
   and against the JAX prior; the Savitzky–Golay matrix against the JAX
   loop; a chunk's draws made ahead against per-command draws and
   `jax.random`;
+* the next chunk's draws made during this chunk's replays against draws
+  made on the spot, bit for bit across chunks and a new episode, and the
+  cases that must draw on the spot: a new key, a replaced carry, a changed
+  solver config, no next chunk;
 * ports of tests/test_end_to_end.py:15-47, episodes at device_steps=4
   against device_steps=1, `update_weights` seen by the next chunk, and a
   structural `update_mppi_params` refused by the old chunk;
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mppiisaac_tpu.mppi.solver import MPPIPlanner as JSolver
 from mppiisaac_tpu.planner.mppi_isaac import MPPIisaacPlanner as JPlanner
@@ -47,7 +52,9 @@ from mppiisaac_tpu_torch.runtime.loop import (DeviceChunk, _run_chunked, goal_wo
                                               run_task, run_task_episodes)
 from mppiisaac_tpu_torch.tasks import point_robot
 from mppiisaac_tpu_torch.tasks.point_robot import PointRobotObjective
+from mppiisaac_tpu_torch.utils import profiling
 from mppiisaac_tpu_torch.utils.config_store import load_config as t_load
+from mppiisaac_tpu_torch.utils.profiling import spans
 
 from test_torch_prior import STATES, TAPE_ATOL, _state, _worlds
 from test_torch_solver import _JStub, _TStub
@@ -303,3 +310,174 @@ def test_solver_carry_clock_and_reset():
     tp.reset()
     assert int(tp.carry.t0) == 0 and np.array_equal(tp.carry.key, prng.prng_key(tc.mppi.seed_val))
     assert dataclasses.fields(tp.carry)[3].name == "t0"
+
+
+def _spot(chunk):
+    """A run that draws on the spot: whatever was drawn ahead is dropped."""
+
+    def run(n_steps):
+        chunk._ahead = None
+        return chunk.run(n_steps)
+
+    return run
+
+
+def _runs(cfg, plan, spot):
+    """point_robot in chunks of 4 through `plan`, a list of (seed, n_steps):
+    a seed starts a new episode (the initial state, a carry keyed by it).
+    → per run (states, actions, key, draws buffer, U), and the chunk."""
+    world, planner = _build(cfg)
+    initial, chunk = world.state, DeviceChunk(world, planner, 4)
+    run = _spot(chunk) if spot else chunk.run
+    out = []
+    for seed, n_steps in plan:
+        if seed is not None:
+            world.state = initial
+            planner.mppi.carry = dataclasses.replace(planner.mppi.init_carry(),
+                                                     key=prng.prng_key(seed))
+        states, actions = run(n_steps)
+        c = planner.mppi.carry
+        out.append((states, actions, c.key.copy(), chunk._draws.clone(), c.U.clone()))
+    return out, chunk
+
+
+def _equal_runs(a, b):
+    for (sa, aa, ka, da, ua), (sb, ab, kb, db, ub) in zip(a, b, strict=True):
+        assert len(sa) == len(sb) and all(_equal_states(x, y) for x, y in zip(sa, sb))
+        assert np.array_equal(aa, ab) and np.array_equal(ka, kb)
+        assert torch.equal(da, db) and torch.equal(ua, ub)
+
+
+@pytest.mark.parametrize("overrides", [[], ["mppi.sampling_method=random"]])
+def test_draws_ahead_equal_draws_on_the_spot(overrides):
+    """Three chunks of an episode, then a new episode (another seed) of two:
+    the chunk that draws the next chunk's noise during the replays against
+    one that draws every chunk's on the spot, bit for bit (states, actions,
+    the carry's key, the draw buffer, U). The first chunk of each episode
+    draws on the spot, the others use what was drawn ahead."""
+    cfg = t_load("tasks/point_robot", SMALL + overrides)
+    plan = [(3, 12), (None, 8), (None, 4), (5, 6), (None, 2)]
+    ahead, chunk = _runs(cfg, plan, spot=False)
+    spot, ref = _runs(cfg, plan, spot=True)
+    _equal_runs(ahead, spot)
+    assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == (3, 2)
+    assert (ref.draws_ahead_hits, ref.draws_ahead_misses) == (0, 5)
+    assert chunk._ahead is None                 # the episode's last chunk draws none ahead
+    assert [len(a) for _, a, *_ in ahead] == [4, 4, 4, 4, 2]
+    assert not np.array_equal(ahead[0][2], ahead[3][2])    # the seeds differ
+
+
+def test_replaced_carry_draws_on_the_spot():
+    """A carry set between two runs (another key) misses what was drawn
+    ahead from the old key; its chunk equals one drawn on the spot."""
+    cfg = t_load("tasks/point_robot", SMALL)
+    runs = {}
+    for spot in (False, True):
+        world, planner = _build(cfg)
+        chunk = DeviceChunk(world, planner, 4)
+        run = _spot(chunk) if spot else chunk.run
+        run(8)
+        assert chunk._ahead is not None          # the next 4 commands' draws
+        planner.mppi.carry = dataclasses.replace(planner.mppi.carry, key=prng.prng_key(99))
+        states, actions = run(4)
+        runs[spot] = (states, actions, chunk._draws.clone(), planner.mppi.carry.key.copy())
+        if not spot:
+            assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == (0, 2)
+    (s0, a0, d0, k0), (s1, a1, d1, k1) = runs[False], runs[True]
+    assert all(_equal_states(x, y) for x, y in zip(s0, s1, strict=True))
+    assert np.array_equal(a0, a1) and torch.equal(d0, d1) and np.array_equal(k0, k1)
+    key, draws = planner.mppi.draws(prng.prng_key(99), 4)
+    assert torch.equal(d0, torch.from_numpy(draws)) and np.array_equal(k0, key)
+
+
+def test_changed_config_draws_on_the_spot():
+    """An `update_mppi_params` that changes the solver's config (not its
+    structure) between two runs misses what was drawn ahead; the same key
+    and count drawn under the same config hit."""
+    cfg = t_load("tasks/point_robot", SMALL)
+    world, planner = _build(cfg)
+    chunk = DeviceChunk(world, planner, 4)
+    chunk.run(12)
+    chunk.run(8)
+    assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == (1, 1)
+    planner.update_mppi_params({"noise_abs_cost": not cfg.mppi.noise_abs_cost})
+    assert planner.mppi is chunk._mppi
+    key = planner.mppi.carry.key.copy()
+    chunk.run(4)
+    assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == (1, 2)
+    assert torch.equal(chunk._draws, torch.from_numpy(planner.mppi.draws(key, 4)[1]))
+
+
+@pytest.mark.parametrize("n_steps", [1, 3, 4])
+def test_no_draws_ahead_without_a_next_chunk(n_steps):
+    """A run of n_steps ≤ N (an episode's last chunk, the benchmark's warm
+    run(3)) draws nothing ahead and records no `chunk.ahead` span; the run
+    after it draws on the spot."""
+    cfg = t_load("tasks/point_robot", SMALL)
+    world, planner = _build(cfg)
+    chunk = DeviceChunk(world, planner, 4)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        chunk.run(n_steps)
+        chunk.run(4)
+    names = [(r.name, r.attrs) for r in spans()]
+    profiling.clear()
+    assert chunk._ahead is None and "chunk.ahead" not in {n for n, _ in names}
+    assert [a for n, a in names if n == "chunk.draws"] == [{"ahead": 0}] * 2
+    assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == (0, 2)
+
+
+def test_draws_ahead_counts_over_episodes():
+    """`_run_chunked` over 10 steps in chunks of 4 (4, 4, 2), twice from a
+    new key: per episode one miss and two hits, the `ahead` attribute of
+    each `chunk.draws` span as counted, and the next chunk's draws under
+    `chunk.ahead` inside the chunk's `loop.chunk`."""
+    cfg = t_load("tasks/point_robot", SMALL)
+    world, planner = _build(cfg)
+    initial, chunk = world.state, DeviceChunk(world, planner, 4)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for seed in (1, 2):
+            world.state = initial
+            planner.mppi.carry = dataclasses.replace(planner.mppi.init_carry(),
+                                                     key=prng.prng_key(seed))
+            m = _run_chunked(chunk, 10, cfg.isaacgym.dt)
+            assert m.steps == 10 and m.commands == 10
+    recs = spans()
+    profiling.clear()
+    assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == (4, 2)
+    assert [r.attrs["ahead"] for r in recs if r.name == "chunk.draws"] == [0, 1, 1] * 2
+    ahead = [r for r in recs if r.name == "chunk.ahead"]
+    assert len(ahead) == 4
+    assert all(recs[r.parent].name == "loop.chunk" for r in ahead)
+
+
+@pytest.mark.parametrize("workload, metric", [("panda_pick.chunked", "draws_ahead_pct"),
+                                              ("anymal.chunked", "draws_ahead_pct"),
+                                              ("panda_reach.chunked",
+                                               "draws_ahead_pct.host_bound")])
+def test_draws_ahead_pct_reads_the_program_spans(workload, metric):
+    """The benchmark's reader over a profiled episode's spans: 10 steps in
+    chunks of 4 read 2 of 3 chunks drawn ahead; spans without the `ahead`
+    attribute (a program that draws on the spot) and a run without a trace
+    read nothing."""
+    from cellbench.profiling import Trace
+    from cellbench.spec import load_cell
+
+    cell = load_cell(workload)
+    read = cell.reader(next(m for m in cell.per_layer if m.name == metric))
+    assert metric in {m.name for m in cell.per_layer}
+    cfg = t_load("tasks/point_robot", SMALL)
+    world, planner = _build(cfg)
+    profiling.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            _run_chunked(DeviceChunk(world, planner, 4), 10, cfg.isaacgym.dt)
+        assert read({"trace": Trace()}) == pytest.approx(200 / 3)
+        assert read({}) is None
+        for r in spans():
+            r.attrs.pop("ahead", None)
+        assert read({"trace": Trace()}) is None
+    finally:
+        profiling.clear()
+    assert read({"trace": Trace()}) is None

@@ -724,6 +724,35 @@ def test_chunk_sees_online_changes_on_the_card(panda):
         chunk.run(4)
 
 
+def test_chunk_draws_ahead_on_the_card(panda):
+    """On the card, three chunks of 4 (12, 8, then 4 steps left): the chunk
+    that draws the next chunk's noise while the replays run against one
+    that draws each chunk's on the spot, bit for bit (actions, world state,
+    key, draw buffer); the second and third chunks use the draws made
+    ahead."""
+    from mppiisaac_tpu_torch.planner.mppi_isaac import MPPIisaacPlanner
+    from mppiisaac_tpu_torch.runtime.loop import DeviceChunk, goal_world
+
+    cfg = load_config("tasks/panda")
+    runs = []
+    for spot in (False, True):
+        world = goal_world(cfg, "cuda")
+        planner = MPPIisaacPlanner(cfg, PandaReachObjective(cfg), device="cuda")
+        chunk = DeviceChunk(world, planner, 4)
+        out = []
+        for n_steps in (12, 8, 4):
+            if spot:
+                chunk._ahead = None
+            _, actions = chunk.run(n_steps)
+            out.append((actions, world.state.q.cpu(), planner.mppi.carry.key.copy(),
+                        chunk._draws.cpu()))
+        assert (chunk.draws_ahead_hits, chunk.draws_ahead_misses) == ((0, 3) if spot else (2, 1))
+        runs.append(out)
+    for (a0, q0, k0, d0), (a1, q1, k1, d1) in zip(*runs):
+        assert np.array_equal(a0, a1) and torch.equal(q0, q1)
+        assert np.array_equal(k0, k1) and torch.equal(d0, d1)
+
+
 def test_batched_world_step_kernel_matches_plain_and_one_env(panda):
     """K2 over a grid of N=64 envs of a randomized point robot pushing a
     block (per-env mass, friction and commands; W warps per block) against

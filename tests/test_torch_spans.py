@@ -43,12 +43,13 @@ PER_STEP = {"loop.step": None, "planner.command": "loop.step", "world.step": "lo
             "loop.readback": "loop.step", **COMMAND, **WORLD}
 # one chunk: the chunk's phases under loop.chunk; on the CPU its steps run
 # eagerly under chunk.replay, with the draws made ahead (no solver.draw) and
-# no planner.command
+# no planner.command; the first chunk draws the second's under chunk.ahead
 STEP_IN_CHUNK = {**{k: "chunk.replay" for k in COMMAND if k != "solver.draw"},
                  "world.step": "chunk.replay", **WORLD}
 CHUNKED = {"loop.chunk": None, "loop.observe": "loop.chunk",
            **{f"chunk.{p}": "loop.chunk"
-              for p in ("draws", "load", "replay", "fetch", "store", "unpack", "rebroadcast")},
+              for p in ("draws", "load", "replay", "ahead", "fetch", "store", "unpack",
+                        "rebroadcast")},
            **STEP_IN_CHUNK}
 PER_STEP, CHUNKED = list(PER_STEP.items()), list(CHUNKED.items()) + [("planner.broadcast",
                                                                        "chunk.rebroadcast")]
@@ -105,6 +106,10 @@ def test_span_tree(profiled):
     assert [records[i].name for i in top] == [tree[0][0]] * roots
     if loop == "chunked":
         assert [records[i].attrs for i in top] == [{"steps": CHUNK}] * roots
+        # the second chunk's draws were made during the first's replays
+        assert [r.attrs for r in records if r.name == "chunk.draws"] == [{"ahead": 0},
+                                                                         {"ahead": 1}]
+        assert [r.root for r in records if r.name == "chunk.ahead"] == [top[0]]
     for i, r in enumerate(records):
         assert 0 < r.start_ns <= r.end_ns
         root = records[r.root]
