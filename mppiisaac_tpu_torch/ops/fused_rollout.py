@@ -769,19 +769,15 @@ class FusedWorldStep:
         scattered into contact_lam, the body caches from K2's body rows
         (13·B, N); without them the caches are `state`'s, for
         `engine.refresh` to compute."""
-        A, D, B = self.ks.nactor, self.ks.ndof, self.ks.nbody
-        NS, N = self.ks.n_state_rows, state.q.shape[0]
-        out = out.T.contiguous()
-        st = state.with_root_state(out[:, : 13 * A].reshape(N, A, 13))
-        st = st.replace(
-            q=out[:, 13 * A: 13 * A + D],
-            qd=out[:, 13 * A + D: 13 * A + 2 * D],
-            net_contact_force=out[:, 13 * A + 2 * D: NS].reshape(N, B, 3),
-        )
+        B, N = self.ks.nbody, state.q.shape[0]
+        # the fields as views of one contiguous (N, rows) buffer
+        rs = rows_to_state(self.ks, out.T.contiguous().T)
+        fc_lam = rs.pop("lam", None)
+        st = state.replace(net_contact_force=rs.pop("net_cf"), **rs)
         lam = state.contact_lam
         if self.ks.n_fc and lam is not None and tuple(lam.shape[1:]) == (self.ks.n_con, 4):
             lam = lam.clone()
-            lam[:, self._tables.fc(lam.device)] = out[:, NS:].reshape(N, -1, 4)
+            lam[:, self._tables.fc(lam.device)] = fc_lam
             st = st.replace(contact_lam=lam)
         if body is not None:
             bt = body.T.contiguous()

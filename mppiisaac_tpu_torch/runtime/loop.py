@@ -248,10 +248,13 @@ class DeviceChunk:
     round trip, on one build of the world and the planner.
 
     Static buffers hold the solver carry (U, λ, Σ, t0), the 1-env world
-    SimState, the chunk's N noise draws, a step slot and the (N, X) output:
-    each step's post-step world state, field by field, then its action. One
-    step reads them, writes its packed row into the output at the slot, and
-    writes its results back into the carry and state buffers.
+    state as one flat float32 buffer of X values, the chunk's N noise
+    draws, a step slot and the (N, X + nu) output: each step's post-step
+    world state in the flat buffer's layout, then its action. `_view` alone
+    knows that layout; it turns a flat buffer, or rows of them, into a
+    SimState of views. One step reads the buffers, writes its row into the
+    output at the slot, copies the row's state back into the flat buffer
+    in one copy, and its results into the carry.
 
     On CUDA the step is captured once as a CUDA graph and replayed: the
     first step of the first chunk runs on a side stream as the capture's
@@ -292,21 +295,22 @@ class DeviceChunk:
         self.device = world.device
         self._mppi, self._fused = planner.mppi, planner.mppi.fused
         self._stepper = world._world_step
-        tmpl = world.state
-        self._fields = [f for f in SIM_STATE_FIELDS if getattr(tmpl, f) is not None]
-        self._shapes = [tuple(getattr(tmpl, f).shape) for f in self._fields]
-        self._sizes = [int(np.prod(sh)) for sh in self._shapes]
+        self._layout, X = [], 0            # (field, offset, size, shape) in the flat state
+        for f in SIM_STATE_FIELDS:
+            t = getattr(world.state, f)
+            if t is not None:
+                self._layout.append((f, X, t.numel(), tuple(t.shape)))
+                X += t.numel()
         dev = self.device
-        self._state = {f: torch.empty(sh, dtype=torch.float32, device=dev)
-                       for f, sh in zip(self._fields, self._shapes)}
+        self._flat = torch.empty(X, dtype=torch.float32, device=dev)
+        self._state = self._view(self._flat)
         c = self._mppi.carry
         self._U, self._lam = torch.empty_like(c.U), torch.empty_like(c.lambda_)
         self._sigma, self._t0 = torch.empty_like(c.sigma), torch.empty_like(c.t0)
         _, d = self._mppi.draws(c.key, 1)
         self._draws = torch.empty((self.n,) + d.shape[1:], dtype=torch.float32, device=dev)
         self._slot = torch.zeros(1, dtype=torch.long, device=dev)
-        self._out = torch.empty(self.n, sum(self._sizes) + planner.mppi.nu,
-                                dtype=torch.float32, device=dev)
+        self._out = torch.empty(self.n, X + planner.mppi.nu, dtype=torch.float32, device=dev)
         self._graph = None
         self._signature = None
         self._delta = (0, 0, 0)
@@ -317,23 +321,27 @@ class DeviceChunk:
         self.draws_ahead_hits = self.draws_ahead_misses = 0
 
     # ------------------------------------------------------------------
+    def _view(self, buf: torch.Tensor) -> SimState:
+        """A flat state buffer (X,), or rows (k, X) of them (trailing values
+        past X, such as an output row's action, are ignored) → the SimState
+        of its views, with the leading k axis when given."""
+        lead = tuple(buf.shape[:-1])
+        return SimState(**{f: buf[..., o: o + n].view(lead + sh)
+                           for f, o, n, sh in self._layout})
+
     def _step(self):
         """One control step on the static buffers (captured on CUDA)."""
         planner, world = self.planner, self.world
         carry = MppiCarry(U=self._U, lambda_=self._lam, sigma=self._sigma, t0=self._t0)
-        state = SimState(**self._state)
         draw = self._draws.index_select(0, self._slot)[0]
-        action, new, info = planner._full(carry, state, draw=draw)
+        action, new, info = planner._full(carry, self._state, draw=draw)
         # the first command of the action, as `apply_robot_cmd` takes it
-        state = world.stepped(world.commanded(state, action[0].expand(1, -1)))
-        row = torch.cat([getattr(state, f).reshape(-1) for f in self._fields]
+        state = world.stepped(world.commanded(self._state, action[0].expand(1, -1)))
+        row = torch.cat([t.reshape(-1) for t in state.tensors()]
                         + [action[0].reshape(-1).to(torch.float32)])
         self._out.index_copy_(0, self._slot, row[None])
         self._slot += 1
-        off = 0
-        for f, sz, sh in zip(self._fields, self._sizes, self._shapes):
-            self._state[f].copy_(row[off: off + sz].view(sh))
-            off += sz
+        self._flat.copy_(row[: self._flat.numel()])
         self._U.copy_(new.U)
         self._lam.copy_(new.lambda_)
         self._sigma.copy_(new.sigma)
@@ -387,8 +395,7 @@ class DeviceChunk:
             self.draws_ahead_misses += 1
         start = world.state
         with span("chunk.load"):
-            for f in self._fields:
-                self._state[f].copy_(getattr(start, f))
+            torch.cat([t.reshape(-1) for t in start.tensors()], out=self._flat)
             c = mppi.carry
             self._U.copy_(c.U)
             self._lam.copy_(c.lambda_)
@@ -426,28 +433,18 @@ class DeviceChunk:
         with span("chunk.store"):
             mppi.carry = MppiCarry(U=self._U.clone(), lambda_=self._lam.clone(),
                                    sigma=self._sigma.clone(), t0=self._t0.clone(), key=key)
-            world.state = SimState(**{f: t.clone() for f, t in self._state.items()})
+            world.state = self._view(self._flat.clone())
             mppi.last_info = {n: v.clone() for n, v in info.items()}
             planner._last_vis = mppi.last_info.get("vis")
         with span("chunk.unpack"):
-            states, actions = self._unpack(packed)
+            states = [self._view(row) for row in torch.from_numpy(packed)]
+            actions = packed[:, self._flat.numel():]
         # the rollout sim as the last command left it: K-wide, the state the
-        # command planned from
+        # command planned from, still in the output on the device
         with span("chunk.rebroadcast"):
-            last_from = start if k == 1 else states[k - 2].map(lambda x: x.to(self.device))
+            last_from = start if k == 1 else self._view(self._out[k - 2].clone())
             planner.reset_rollout_from_state(last_from)
         return states, actions
-
-    def _unpack(self, packed):
-        """(k, X) host array → (k SimStates of CPU tensors, actions (k, nu))."""
-        states = []
-        for row in packed:
-            off, fields = 0, {}
-            for f, sz, sh in zip(self._fields, self._sizes, self._shapes):
-                fields[f] = torch.from_numpy(row[off: off + sz].reshape(sh))
-                off += sz
-            states.append(SimState(**fields))
-        return states, packed[:, off:]
 
 
 def _run_chunked(chunk: DeviceChunk, n: int, dt: float, success_fn=None, verbose=False,

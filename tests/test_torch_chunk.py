@@ -93,7 +93,9 @@ def _success_at(step):
 def test_chunk_equals_the_per_step_loop(success_step):
     """point_robot at K=16, H=4: chunks of 4 over 12 steps against the
     per-step loop. With a success at step 6 (inside the second chunk) both
-    stop there, and the chunk's world is rewound from step 7 to step 6."""
+    stop there, and the chunk's world is rewound from step 7 to step 6.
+    Without one, the planner's rollout sim also ends equal: the state the
+    last command planned from, broadcast K-wide."""
     cfg = t_load("tasks/point_robot", SMALL)
     runs = {}
     for n in (1, 4):
@@ -107,8 +109,8 @@ def test_chunk_equals_the_per_step_loop(success_step):
             m = _run_chunked(DeviceChunk(world, planner, n), 12, cfg.isaacgym.dt,
                              success_fn=succ,
                              chunk_observer=lambda s, w, a: acts.append(torch.from_numpy(a)))
-        runs[n] = (m, seen, acts, world.state)
-    (m1, s1, a1, w1), (m4, s4, a4, w4) = runs[1], runs[4]
+        runs[n] = (m, seen, acts, world.state, planner.sim.state)
+    (m1, s1, a1, w1, p1), (m4, s4, a4, w4, p4) = runs[1], runs[4]
     assert (m1.steps, m1.success_step, m1.path_length) == (m4.steps, m4.success_step,
                                                            m4.path_length)
     assert m1.steps == (12 if success_step is None else success_step + 1)
@@ -116,9 +118,28 @@ def test_chunk_equals_the_per_step_loop(success_step):
     assert all(_equal_states(a, b) for a, b in zip(s1, s4))
     assert all(torch.equal(a, b) for a, b in zip(a1, a4[:len(a1)]))
     assert _equal_states(w1, w4)
+    if success_step is None:
+        assert _equal_states(p1, p4)
     # a chunk runs to its end: 8 commands for a success at step 6
     assert m4.commands == (12 if success_step is None else 8) and m1.commands == m1.steps
     assert not all(torch.equal(x.q, s1[0].q) for x in s1[1:])     # the robot moves
+
+
+def test_a_later_run_leaves_what_a_run_handed_out():
+    """The world state a run stores and the post-step states and actions
+    it returns belong to no buffer of the chunk: a second run, which moves
+    the world on, changes none of them."""
+    cfg = t_load("tasks/point_robot", SMALL)
+    world, planner = _build(cfg)
+    chunk = DeviceChunk(world, planner, 4)
+    states, actions = chunk.run(8)
+    stored = world.state
+    kept = ([s.map(torch.Tensor.clone) for s in states], stored.map(torch.Tensor.clone),
+            actions.copy())
+    chunk.run(4)
+    assert not _equal_states(world.state, stored)
+    assert all(_equal_states(a, b) for a, b in zip(states, kept[0], strict=True))
+    assert _equal_states(stored, kept[1]) and np.array_equal(actions, kept[2])
 
 
 def test_chunk_matches_jax_build_chunk():
