@@ -66,6 +66,18 @@ inline T emu_shfl(T v, int src) {
 }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src, int = 32) { return emu_shfl(v, src); }
+// bit l set where lane l's predicate is nonzero
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int lane = threadIdx.x & 31;
+  emu::warp->ex[lane] = pred != 0;
+  emu::barrier();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= (emu::warp->ex[l] & 1u) << l;
+  emu::barrier();
+  return bits;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 template <class T>
 inline T __shfl_up_sync(unsigned, T v, unsigned d, int = 32) { return emu_shfl(v, (int)(threadIdx.x & 31) - (int)d); }
 

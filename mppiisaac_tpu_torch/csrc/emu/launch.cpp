@@ -235,6 +235,12 @@ long emu_stack_high_water() {
 
 long emu_lane_stack_size() { return (long)LANE_STACK; }
 
+// K1's Ψ columns since the library was loaded: out[0] solved, out[1] held
+void emu_psi_columns(unsigned long long* out) {
+  out[0] = g_psi_columns[0];
+  out[1] = g_psi_columns[1];
+}
+
 // K1 with one warp per block, block k running sample k
 int emu_rollout(const void* tables, const float* rows, const uint16_t* V, const float* mass,
                 const float* fric, float* costs, float* vis, int K, int H, int substeps,

@@ -247,7 +247,8 @@ struct Dyn {
 // free actors, over an articulation's bodies (inertias, bias forces), over
 // the rows of each composite-inertia sum, over its coordinate pairs (CRBA),
 // its coordinates (drives), the rows of each Cholesky column and the
-// (link, column) pairs of Ψ; each entry keeps the serial order of its sums.
+// (link, column) pairs of Ψ's live links; each entry keeps the serial order
+// of its sums.
 // Without contacts (AB_SKIP_CONTACTS) there are no couple terms, no Ψ and no
 // impulse pass, and the λ rows stay as they are.
 AB_TEMPLATE __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin& k,
@@ -435,7 +436,7 @@ AB_TEMPLATE __device__ void dynamics(const SceneTables& sc, Sample& s, const Kin
     __syncwarp();
     SEC_MARK(c.kid, SEC_CHOL);
     if (AB_UNLESS(AB_SKIP_CONTACTS, deferred)) {
-      psi_blocks(sc, a, c, d.col, lane);
+      psi_blocks(sc, sw, a, c, d.col, lane);
       if (lane == 0) c.deferred[a] = 1;
       any_deferred = true;
     }
@@ -783,6 +784,11 @@ fused_rollout_kernel(const SceneTables* __restrict__ tables, const float* __rest
     __syncwarp();
     SEC_MARK(0, SEC_COST);
   }
+  // the warp's Ψ columns: two adds a warp and launch
+  if (lane == 0) {
+    atomicAdd(&g_psi_columns[0], (unsigned long long)c.psi_solved);
+    atomicAdd(&g_psi_columns[1], (unsigned long long)c.psi_held);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -881,6 +887,12 @@ int max_bounds(int* out) {
 static int set_smem(const void* fn, int bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// K1's Ψ columns since the library was loaded: out[0] solved, out[1] held
+int psi_columns(unsigned long long* out) {
+  cudaDeviceSynchronize();
+  return (int)cudaMemcpyFromSymbol(out, g_psi_columns, sizeof(g_psi_columns));
 }
 
 #ifdef SECTION_CLOCKS

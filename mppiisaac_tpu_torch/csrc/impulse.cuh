@@ -119,16 +119,33 @@ __device__ void couple_terms(const SceneTables& sc, const Kin& k, const Swept& s
   }
 }
 
-// Ψ_b = Φ_b M⁻¹ Φ_bᵀ for actor a's couple and stiction contact links, from
-// its factor: lanes over (link, column) pairs, each solving its column in
-// col (nv words per lane)
-__device__ void psi_blocks(const SceneTables& sc, int a, Ctx& c, float* col_all, int lane) {
+// Ψ_b = Φ_b M⁻¹ Φ_bᵀ for actor a's couple and stiction contact links that
+// have a live block, from its factor. Only the inverse masses of live
+// blocks read Ψ, so a link whose blocks the broadphase gate turned off all
+// keeps its rows as they were. Lanes over the slots find the live links (a
+// slot's pb list is its two-way blocks); then lanes over the live links'
+// (link, column) pairs, in slot order, each solving its column in col (nv
+// words per lane). Adds the columns solved and those the actor's links hold
+// to c's counters.
+__device__ void psi_blocks(const SceneTables& sc, const Swept& sw, int a, Ctx& c, float* col_all,
+                           int lane) {
   const int v0 = sc.actor_v0[a], nv = sc.actor_nv[a], ld = sc.nv;
+  bool mine = false, live = false;
+  if (lane < sc.n_psi) {
+    mine = sc.body_actor[sc.psi_body[lane]] == a;
+    for (int e = sc.pb_start[lane]; mine && !live && e < sc.pb_start[lane + 1]; ++e)
+      live = sw.live[sc.pb_ent[e] >> 1] != 0;
+  }
+  const unsigned held = __ballot_sync(FULL_MASK, mine), todo = __ballot_sync(FULL_MASK, live);
+  const int jobs = 6 * __popc(todo);
+  c.psi_solved += jobs;
+  c.psi_held += 6 * __popc(held);
   float* col = col_all + lane * sc.nv;
-  for (int job = lane; job < sc.n_psi * 6; job += 32) {
-    const int slot = job / 6, c6 = job % 6;
+  for (int job = lane; job < jobs; job += 32) {
+    unsigned m = todo;
+    for (int i = job / 6; i > 0; --i) m &= m - 1;  // drop the live slots before this job's
+    const int slot = __ffs(m) - 1, c6 = job % 6;
     const int b = sc.psi_body[slot];
-    if (sc.body_actor[b] != a) continue;
     const int mask = sc.body_vmask[b];
     for (int j = 0; j < nv; ++j) col[j] = ((mask >> (v0 + j)) & 1) ? c.S[v0 + j][c6] : 0.f;
     chol_solve(c.L, v0, nv, ld, col, col);

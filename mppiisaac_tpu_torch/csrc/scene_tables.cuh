@@ -174,6 +174,10 @@ static_assert(sizeof(SceneTables) <= 48 * 1024, "SceneTables must fit one block'
 #define SEC_CHOL 11       // velocity solves: Cholesky factor and solve
 #define SEC_PSI 12        // velocity solves: Ψ
 #define N_SEC 13
+// K1's Ψ columns (psi_blocks), in every build: [0] solved, [1] held by the
+// actors' Ψ slots, summed over the samples and substeps of every launch since
+// the library was loaded (read by psi_columns)
+__device__ unsigned long long g_psi_columns[2];
 #ifdef SECTION_CLOCKS
 __device__ unsigned long long g_sections[2 * N_SEC];
 #define SEC_BEGIN long long _sec_t = clock64()
@@ -258,6 +262,7 @@ struct Ctx {
   float (*fv)[6];     // free bodies: linvel, angvel
   int* deferred;      // articulated actor in the impulse pass
   int kid;            // kernel id of the section counters
+  int psi_solved, psi_held;  // Ψ columns of this warp's launch (g_psi_columns)
 };
 
 struct Warp {
@@ -296,6 +301,7 @@ __device__ __forceinline__ void bind(const SceneTables& sc, const Warp& W, Sampl
   c.psi = rows_of<36>(W.f(sc, L_PSI));
   c.fv = rows_of<6>(W.f(sc, L_FV));
   c.deferred = W.i(sc, L_DEF);
+  c.psi_solved = c.psi_held = 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -123,7 +123,8 @@ def couple_terms(ks, geos: List[SweptGeo], S, v0: int, nv: int, pos, linv, angv,
 
 def psi_blocks(ks, bodies: List[int], S, Lc, v0: int, nv: int) -> Dict[int, torch.Tensor]:
     """Ψ_b (K,6,6) per contact link b from the factor Lc of the actor's
-    velocity-solve matrix."""
+    velocity-solve matrix. Every link here; the device code solves only
+    the links with a block whose gate is on, the only Ψ that is read."""
     ref = S[0]
     out = {}
     for b in bodies:

@@ -613,6 +613,20 @@ class FusedRollout:
         with span("k1.launch"):
             return self.run(*packed)
 
+    @staticmethod
+    def psi_columns():
+        """(solved, held): K1's Ψ columns since its library was loaded, over
+        every launch's samples and substeps: those solved (the Ψ slots with a
+        live block) and those the actors' Ψ slots hold. Waits for the device.
+        None without CUDA (the plain version counts none)."""
+        if not torch.cuda.is_available():
+            return None
+        out = (ctypes.c_ulonglong * 2)()
+        rc = _library().psi_columns(ctypes.cast(out, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"psi_columns failed: error {rc}")
+        return int(out[0]), int(out[1])
+
     def _check_inputs(self, rows, V, mass, fric):
         ks, K, dev = self.ks, self.K, rows.device
         _check("rows", rows, (self.n_rows, K), torch.float32, dev)

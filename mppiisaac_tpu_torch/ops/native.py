@@ -16,6 +16,9 @@ as the device code's CPU emulation does (csrc/emu; a rounding study's
 twin of the default build: `scripts/jackal_commands_jax.py --replay
 --no-fma`).
 
+Every variant counts K1's Ψ columns, solved and held, in device globals
+that `psi_columns` reads (`FusedRollout.psi_columns`).
+
 `load_library("ablate")` builds, beside whichever library the wrappers use,
 the profiling ablations (`-DABLATE`, into `_build/ablate/`): one nvcc run
 instantiates the kernels for every mask of AB_K1_MASKS and AB_K2_MASKS
@@ -114,6 +117,8 @@ def _load(variant) -> ctypes.CDLL:
     lib.scene_tables_size.restype = I
     lib.max_bounds.argtypes = [P]
     lib.max_bounds.restype = I
+    lib.psi_columns.argtypes = [P]
+    lib.psi_columns.restype = I
     if variant == ABLATE:
         lib.fused_rollout_launch_ablate.argtypes = [I, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
         lib.fused_rollout_launch_ablate.restype = I

@@ -283,7 +283,13 @@ class DeviceChunk:
     drawn for; otherwise (a new episode's key, a carry set by the caller, a
     changed config) it draws them itself. The copy into the draw buffer
     stays in the next run's load, after this run's fetch has synchronised.
-    `draws_ahead_hits` and `draws_ahead_misses` count the runs of each."""
+    `draws_ahead_hits` and `draws_ahead_misses` count the runs of each.
+
+    While spans record, and the solver rolls out with K1 on the card, the
+    `chunk.fetch` span carries the Ψ columns that the chunk's replays solved
+    and held (`psi_solved`, `psi_held`: `FusedRollout.psi_columns` read
+    before the replays and after the fetch's wait); nothing is read
+    otherwise."""
 
     def __init__(self, world, planner: MPPIisaacPlanner, device_steps: int):
         if int(device_steps) < 1:
@@ -414,13 +420,16 @@ class DeviceChunk:
                     info = self._capture()
                 self._signature = sig
                 todo -= 1
-            with span("chunk.replay"):
+            with span("chunk.replay") as sp:
+                psi0 = FusedRollout.psi_columns() \
+                    if sp is not None and isinstance(mppi.fused, FusedRollout) else None
                 for _ in range(todo):
                     self._graph.replay()
             _add_counts(self._delta, todo)
             if todo:
                 info = self._info          # the graph's outputs, from the last replay
         else:
+            psi0 = None
             with span("chunk.replay"):     # the same steps, run eagerly
                 for _ in range(k):
                     info = self._step()
@@ -428,8 +437,11 @@ class DeviceChunk:
         if nxt:
             with span("chunk.ahead"):      # the next chunk's draws, while the replays run
                 self._ahead = ((nxt, cfg_sig, key.tobytes()), *mppi.draws(key, nxt))
-        with span("chunk.fetch"):
+        with span("chunk.fetch") as sp:
             packed = self._out[:k].to("cpu", copy=True).numpy()      # the one fetch
+            if psi0 is not None and sp is not None:                   # the chunk's Ψ columns
+                solved, held = FusedRollout.psi_columns()
+                sp.set(psi_solved=solved - psi0[0], psi_held=held - psi0[1])
         with span("chunk.store"):
             mppi.carry = MppiCarry(U=self._U.clone(), lambda_=self._lam.clone(),
                                    sigma=self._sigma.clone(), t0=self._t0.clone(), key=key)

@@ -97,6 +97,11 @@ class _Span:
         stack.append((i, root))
         return self
 
+    def set(self, **attrs):
+        """Add attributes to the open span's record."""
+        if self._rec is not None:
+            self._rec.attrs.update(attrs)
+
     def __exit__(self, *exc):
         if self._rec is not None:
             self._rec.end_ns = time.perf_counter_ns()
@@ -107,7 +112,8 @@ class _Span:
 
 def span(name: str, **attrs):
     """A context manager over one phase of the program, recorded only while
-    torch.profiler records and no `paused()` block is open."""
+    torch.profiler records and no `paused()` block is open. It gives the
+    open span (`set` adds attributes), or None where nothing records."""
     if _paused or not _profiling():
         return _OFF
     return _Span(name, attrs)

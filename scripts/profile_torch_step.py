@@ -362,13 +362,18 @@ def sections(args, planner, world, step):
     seen = {}
     run1, run2 = fr.run, fw.step_rows
     fr.run = lambda *a: seen.setdefault("k1", a) and run1(*a)
-    fw.step_rows = lambda *a: seen.setdefault("k2", a) and run2(*a)
+    fw.step_rows = lambda *a, **kw: seen.setdefault("k2", (a, kw)) and run2(*a, **kw)
     step()
     fr.run, fw.step_rows = run1, run2
     lib = native.load_library()
+
+    def k2():  # K2 as the step launched it, with its body rows
+        a, kw = seen["k2"]
+        return fw.step_rows(*a, **kw)
+
     out = (ctypes.c_ulonglong * (2 * len(SECTIONS)))()
     for kid, (name, fn, n_samples) in enumerate((
-            ("K1", lambda: fr.run(*seen["k1"]), fr.K), ("K2", lambda: fw.step_rows(*seen["k2"]), 1))):
+            ("K1", lambda: fr.run(*seen["k1"]), fr.K), ("K2", k2, 1))):
         fn()
         torch.cuda.synchronize()
         lib.read_sections(ctypes.cast(out, ctypes.c_void_p))
@@ -386,12 +391,12 @@ def sections(args, planner, world, step):
     from chip_smoke import cuda_time_ms
 
     k1 = cuda_time_ms(lambda: fr.run(*seen["k1"]))
-    k2 = cuda_time_ms(lambda: fw.step_rows(*seen["k2"]))
+    k2_ms = cuda_time_ms(k2)
     lib.set_rollout_threads(32)
     k1_32 = cuda_time_ms(lambda: fr.run(*seen["k1"]))
     lib.set_rollout_threads(0)
     print(f"K1 (section build, K={fr.K}): {k1:.3f} ms at the default block size, {k1_32:.3f} ms "
-          f"at 32 threads per block; K2 {k2:.3f} ms")
+          f"at 32 threads per block; K2 {k2_ms:.3f} ms")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())

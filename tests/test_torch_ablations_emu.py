@@ -11,17 +11,26 @@ blocks, Ψ, the two-way sweeps, the λ warm start and the snap live):
 * K2 at each of its masks (one-way sweeps, no gate) over 3 world steps
   against `FusedWorldStep(profile=...).plain`;
 * K1 and K2 with the gate off bit for bit the default build's gated
-  kernels, and a mask that is not instantiated refused.
+  kernels, at the held ball and with the ball moved so that only one
+  finger's gate is open, with K1's Ψ column counters: the gated build
+  solves the columns of the Ψ slots whose blocks the plain `block_gate`
+  lets through, fewer than the slots hold, and the gate-off build all;
+* a mask that is not instantiated refused.
 
 Tolerances as tests/test_torch_device_emu.py holds the grasp scene: costs
 and states 1e-4 (float32 sums in the device code's order against the
 plain version's).
 """
+import ctypes
+
 import pytest
 import torch
 
 from mppiisaac_tpu_torch.ops import fused_rollout as fro
+from mppiisaac_tpu_torch.ops.fused_contacts import (F_A_ART, F_A_STA, F_B_ART, F_B_STA, F_SWEPT,
+                                                    block_gate)
 from mppiisaac_tpu_torch.ops.fused_rollout import FusedRollout, FusedWorldStep
+from mppiisaac_tpu_torch.runtime.sim import broadcast_state
 from test_torch_ablations import _gripper_and_far_ball, gripper_inputs
 from test_torch_device_emu import COST_TOL, STATE_TOL, VIS_ATOL, _bytes, build_emu, emu_rollout
 
@@ -113,14 +122,63 @@ def test_ablated_world_step_matches_ablated_plain(libs, scene, mask):
     torch.testing.assert_close(got, ref, rtol=STATE_TOL, atol=STATE_TOL)
 
 
-def test_gate_off_kernels_are_bit_for_bit_the_gated_kernels(libs, scene):
+def psi_columns(lib):
+    """K1's Ψ column counters of an emulation library: (solved, held)."""
+    out = (ctypes.c_ulonglong * 2)()
+    lib.emu_psi_columns.restype = None
+    lib.emu_psi_columns(out)
+    return int(out[0]), int(out[1])
+
+
+def live_slots(ks, sK):
+    """(K,) the Ψ slots per sample with a two-way block that the plain
+    broadphase gate lets through at sK's body poses, and the slots."""
+    pos, quat = sK.body_pos.transpose(0, 1), sK.body_quat.transpose(0, 1)
+    n = int(ks.body_psi.max()) + 1
+    live = torch.zeros(sK.body_pos.shape[0], n, dtype=torch.bool)
+    for bi, fl in enumerate(int(f) for f in ks.blk_flags):
+        if fl & F_SWEPT and fl & (F_A_ART | F_B_ART | F_A_STA | F_B_STA):
+            art = ks.blk_ba[bi] if fl & (F_A_ART | F_A_STA) else ks.blk_bb[bi]
+            live[:, int(ks.body_psi[art])] |= block_gate(ks, bi, pos, quat)
+    return live.sum(1), n
+
+
+# the ball as held, and moved 1 cm toward the first finger, out of the
+# second finger's gate; the palm's gate is shut in both
+MOVES = {"held": None, "one_finger": [0.0, 0.01, 0.0]}
+
+
+@pytest.mark.parametrize("move", MOVES)
+def test_gate_off_kernels_are_bit_for_bit_the_gated_kernels(libs, scene, move):
     lib, ab = libs
     built, engine, st, spec, (sK, pm, V) = scene
+    if MOVES[move] is not None:
+        ball = built.scene.actor_index("ball")
+        rp = st.root_pos.clone()
+        rp[ball] += torch.tensor(MOVES[move])
+        st = engine.refresh(st.replace(root_pos=rp))
+        sK = broadcast_state(st, K)
     fr = FusedRollout(built, engine, spec, H, K)
     inputs = fr.pack(sK, pm, V)
+    live, n_slots = live_slots(fr.ks, sK)
+    assert 0 < int(live.min()) and int(live.max()) < n_slots
+    on0, off0 = psi_columns(lib), psi_columns(ab)
     costs, vis = emu_rollout(lib, fr, *inputs)
     rc, costs_off, vis_off = rollout_ablate(ab, 16, fr, *inputs)
     assert rc == 0 and torch.equal(costs, costs_off) and torch.equal(vis, vis_off)
+    (on1, held), off1 = psi_columns(lib), psi_columns(ab)
+    held -= on0[1]
+    assert held == 6 * n_slots * K * H * fr.substeps
+    assert 0 < on1 - on0[0] < held and (on1 - on0[0]) % 6 == 0
+    assert (off1[0] - off0[0], off1[1] - off0[1]) == (held, held)
+    # one step of one substep: the gates of the packed state alone
+    c1, v1, tb = torch.empty(K, 1), torch.empty(1, K, 3), _bytes(fr._tables)
+    on0 = psi_columns(lib)
+    assert lib.emu_rollout(tb.ctypes.data, *(t.data_ptr() for t in inputs), c1.data_ptr(),
+                           v1.data_ptr(), K, 1, 1, fr.dt_sub, fr.impulse_sweeps,
+                           int(fr.world_fidelity), fr.warp_bytes) == 0
+    on1 = psi_columns(lib)
+    assert (on1[0] - on0[0], on1[1] - on0[1]) == (6 * int(live.sum()), 6 * n_slots * K)
     fw = FusedWorldStep(built, engine)
     tgt = built.cmd_map.apply(torch.full((1, 2), -1.0), st.q[None])[0]
     rows = fw.pack(st)

@@ -502,3 +502,33 @@ def test_draws_ahead_pct_reads_the_program_spans(workload, metric):
     finally:
         profiling.clear()
     assert read({"trace": Trace()}) is None
+
+
+@pytest.mark.parametrize("workload", ["panda_pick.chunked", "anymal.chunked"])
+def test_psi_solved_pct_reads_the_program_spans(workload):
+    """The benchmark's reader over a profiled episode's `chunk.fetch` spans:
+    on the CPU the chunk counts no Ψ column (the plain version), so its
+    spans carry none and read nothing; spans given each chunk's columns read
+    100 × Σ solved / Σ held; nothing held, or no trace, reads nothing."""
+    from cellbench.profiling import Trace
+    from cellbench.spec import load_cell
+
+    cell = load_cell(workload)
+    read = cell.reader(next(m for m in cell.per_layer if m.name == "psi_solved_pct"))
+    cfg = t_load("tasks/point_robot", SMALL)
+    world, planner = _build(cfg)
+    profiling.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            _run_chunked(DeviceChunk(world, planner, 4), 10, cfg.isaacgym.dt)
+        fetches = [r for r in spans() if r.name == "chunk.fetch"]
+        assert len(fetches) == 3 and read({"trace": Trace()}) is None
+        for r, (solved, held) in zip(fetches, [(12, 78), (24, 78), (0, 78)]):
+            r.attrs.update(psi_solved=solved, psi_held=held)
+        assert read({"trace": Trace()}) == pytest.approx(100 * 36 / 234)
+        assert read({}) is None
+        for r in fetches:
+            r.attrs.update(psi_solved=0, psi_held=0)
+        assert read({"trace": Trace()}) is None
+    finally:
+        profiling.clear()

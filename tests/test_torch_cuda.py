@@ -991,3 +991,68 @@ def test_ablation_masks_not_instantiated_raise(panda):
     inputs = fr.pack(broadcast_state(st, 8), pm, torch.zeros(8, 2, 2, device="cuda"))
     with pytest.raises(NotImplementedError):
         fr.run(*inputs)
+
+
+def _benchmark_state(case):
+    """(cfg, objective, hold-control key, 1-env state on the card): pick's
+    held grasp (chip_smoke.HELD_GRASP), or anymal after chip_smoke's
+    ANYMAL_STEPS steps of its tape-prior loop (phase 15's last state)."""
+    from mppiisaac_tpu_torch.runtime.loop import run_task
+    from mppiisaac_tpu_torch.tasks import anymal
+
+    if case == "pick_held_grasp":
+        cfg = load_config("tasks/panda_pick")
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            chip_smoke.HELD_GRASP)
+        held = SimState(**{k: v.cuda() for k, v in torch.load(path).items() if v is not None})
+        return cfg, PandaPickObjective(cfg), "panda_pick_fast", held
+    cfg = load_config("tasks/anymal")
+    obj, seen = anymal.AnymalObjective(cfg), {}
+    run_task(cfg, obj, prior=anymal.gait_prior(cfg), n_steps=chip_smoke.ANYMAL_STEPS,
+             device="cuda", observer=lambda step, w, a: seen.update(last=w.state))
+    return cfg, obj, "anymal", seen["last"].map(lambda x: x[0])
+
+
+@pytest.mark.parametrize("case", ["pick_held_grasp", "anymal_step_200"])
+def test_psi_for_live_links_is_bit_for_bit_the_gate_off_kernels(panda, case):
+    """K1 solves Ψ only for the contact links with a block that the
+    broadphase gate lets through (csrc/impulse.cuh psi_blocks). At pick's
+    held grasp and at anymal's state after 200 loop steps, the default K1
+    (the conf's K and H, chip_smoke's hold controls) and 5 world steps of K2
+    give costs, vis and rows (the λ rows among them) equal to those of the
+    broadphase_gate=False ablation, which solves every column;
+    `FusedRollout.psi_columns` reads fewer columns solved than held for the
+    default K1."""
+    cfg, obj, key, st = _benchmark_state(case)
+    world = Simulation(cfg.isaacgym, cfg.actors, cfg.initial_actor_positions, device="cuda")
+    built = world.built
+    K, H = cfg.mppi.num_samples, cfg.mppi.horizon
+    fr = chip_smoke.rollout_for(cfg, obj, built, world.engine)
+    off = FusedRollout(built, world.engine, obj.kernel_cost(built), H, K,
+                       vis_body=built.visualize_bodies[0] if built.visualize_bodies else None,
+                       impulse_sweeps=cfg.mppi.rollout_sweeps, profile={"broadphase_gate": False})
+    V, u_of = _hold_inputs(key, cfg, fr, K, H, seed=16)
+    pm = ModelParams(torch.ones(K, built.scene.nbody, device="cuda"),
+                     torch.ones(K, built.scene.ngeom, device="cuda"))
+    inputs = fr.pack(broadcast_state(st, K), pm, V)
+    on0 = FusedRollout.psi_columns()
+    costs, vis = fr.run(*inputs)
+    on1 = FusedRollout.psi_columns()
+    costs_off, vis_off = off.run(*inputs)
+    assert torch.equal(costs, costs_off) and torch.equal(vis, vis_off)
+    solved, held = on1[0] - on0[0], on1[1] - on0[1]
+    assert 0 < solved < held and solved % 6 == 0
+    sweeps = cfg.isaacgym.fused_world_sweeps
+    fw = FusedWorldStep(built, world.engine, impulse_sweeps=sweeps)
+    fw_off = FusedWorldStep(built, world.engine, impulse_sweeps=sweeps,
+                            profile={"broadphase_gate": False})
+    rows = rows_off = fw.pack(st).contiguous()
+    ones_b = torch.ones(built.scene.nbody, device="cuda")
+    ones_g = torch.ones(built.scene.ngeom, device="cuda")
+    for _ in range(5):
+        tgt = built.cmd_map.apply(u_of()[None], st.q[None])[0].contiguous()
+        rows = fw.step_rows(rows, tgt, ones_b, ones_g)
+        rows_off = fw_off.step_rows(rows_off, tgt, ones_b, ones_g)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows_off)
+    assert float(rows[fw.ks.n_state_rows:].abs().max()) > 0.0, "no λ row carried an impulse"

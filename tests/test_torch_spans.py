@@ -157,6 +157,24 @@ def test_off_is_one_shared_object(monkeypatch):
     assert spans() == []
 
 
+def test_set_adds_attributes(monkeypatch):
+    """An open span takes attributes after it opened; off, `span` gives
+    None; a span past the cap takes them and records nothing."""
+    profiling.clear()
+    with span("chunk.fetch", a=1) as s:
+        assert s is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("chunk.fetch", a=1) as s:
+            s.set(b=2)
+            s.set(a=3)
+        monkeypatch.setattr(profiling, "SPAN_CAP", 1)
+        with span("chunk.fetch") as s:
+            s.set(c=4)
+    assert [(r.name, r.attrs) for r in spans()] == [("chunk.fetch", {"a": 3, "b": 2})]
+    assert profiling.dropped == 1
+    profiling.clear()
+
+
 def test_paused_records_nothing():
     profiling.clear()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
